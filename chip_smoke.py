@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+GPU. It needs a CUDA device and the CUDA toolkit (nvcc), and no network.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases (any failed check raises, and the script exits non-zero):
+
+1. Build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc for
+   sm_90a; print build times and ptxas's register / spill lines.
+2. Hold each kernel against its plain PyTorch version on the card at the
+   main path's shapes (full data, all sites batched, the 1.5M-slot coreset
+   of phase 3) plus ragged, d=256 and forced-tie cases. Value error, argmin
+   flips (each must be a near tie) and, for lloyd_stats, arithmetic error
+   against sums recomputed from the kernel's own assignment are reported
+   apart. Then time kernel, plain version and a PyTorch library yardstick,
+   beside the bound from the shapes.
+3. The main path at full size -- ``graph_distributed_kmeans`` on the
+   yearpredictionmsd stand-in (515,345 x 90, k=50), 100 sites on a 10x10
+   grid, t = 3 k n = 15,000, flood and BFS-tree routes -- with the cost
+   ratio against the centralized baseline, ledgers, wall per phase,
+   launches per kernel (counted from zero just before each route), peak
+   device memory, the device's idle share, and a bit-identical second run.
+4. The whole path with ``backend="cuda"`` against ``backend="torch"`` at
+   scale 0.1: ``t_i`` and ledgers equal, centers within tolerance.
+
+It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# float32 products in full precision everywhere (TF32 flips argmins)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 on the CUDA cores, HBM3
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+# |kernel - plain| on a squared distance, relative to |p|^2 + |c|^2: both
+# evaluate |p|^2 + |c|^2 - 2 p.c in float32 with d-term sums in different
+# orders, each term rounded at ~6e-8 of that magnitude
+D2_RTOL = 1e-5
+# lloyd_stats sums / counts / cost against the same reduction recomputed
+# from the kernel's own assignment, relative to the sum of |terms|:
+# sequential float32 sums of up to 1024 rows per block (1024 * 2**-24 ~ 6e-5)
+SUM_RTOL = 1e-4
+# phase 4: centers of the cuda and torch backends, relative to max |center|
+CENTER_RTOL = 1e-3
+# distributed / centralized cost on the full data (Theorem 1's constant
+# factor, with margin: the paper's runs are within a few percent)
+MAX_COST_RATIO = 1.35
+
+
+class CheckFailed(RuntimeError):
+    pass
+
+
+def check(ok, what):
+    if not bool(ok):
+        raise CheckFailed(what)
+
+
+def cuda_ms(fn, reps=20):
+    """Mean device milliseconds of ``fn`` over ``reps`` back-to-back calls
+    (CUDA events, after two warm-up calls)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def bound(flops, nbytes):
+    """Least time (ms) the card could take, and which limit sets it."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def distance_work(S, n, k, d):
+    flops = S * n * k * (2 * d + 3) + 2 * S * (n + k) * d
+    nbytes = 4 * S * (n * d + k * d) + 8 * S * n
+    return flops, nbytes
+
+
+def lloyd_work(S, n, k, d):
+    flops, _ = distance_work(S, n, k, d)
+    flops += S * n * (2 * d + 3)
+    nbytes = 4 * S * (n * d + n + k * d) + 4 * S * (k * d + k + 1)
+    return flops, nbytes
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "src"))
+    from repro_torch.core import clustering, prng
+    from repro_torch.core.coreset import distributed_coreset
+    from repro_torch.core.distributed import graph_distributed_kmeans
+    from repro_torch.core.partition import pad_partition, partition_indices
+    from repro_torch.core.topology import grid
+    from repro_torch.data.synthetic import paper_dataset
+    from repro_torch.kernels import _build, ops, ref
+
+    t_all = time.perf_counter()
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+
+    # -- phase 1: build ---------------------------------------------------
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"phase 1: built {sorted(built)} in "
+          f"{time.perf_counter() - t0:.2f} s (per source: "
+          f"{json.dumps({n: round(r.seconds, 2) for n, r in built.items()})})")
+    for name, r in built.items():
+        for line in r.ptxas:
+            print(f"  ptxas[{name}]: {line}")
+    check(set(built) == {k.name for k in ops.KERNELS},
+          f"built {sorted(built)}, kernels {[k.name for k in ops.KERNELS]}")
+
+    # -- data at full size --------------------------------------------------
+    t0 = time.perf_counter()
+    data, k = paper_dataset("yearpredictionmsd", seed=args.seed)
+    g = grid(10, 10)
+    idx = partition_indices(data, g.n, "weighted", seed=args.seed + 1,
+                            degrees=g.degrees())
+    sp_np, sm_np = pad_partition(data, idx)
+    t = 3 * k * g.n
+    pts = torch.from_numpy(data).to(dev)
+    sp = torch.from_numpy(sp_np).to(dev)
+    sm = torch.from_numpy(sm_np).to(dev)
+    n, d = data.shape
+    S, M = sp.shape[0], sp.shape[1]
+    print(f"data: yearpredictionmsd stand-in {data.shape} k={k}, {S} sites "
+          f"padded to M={M}, t={t} ({time.perf_counter() - t0:.1f} s)")
+    gen = torch.Generator(device="cpu").manual_seed(args.seed)
+
+    def rows(x, count):
+        """``count`` rows of x (..., m, d) per leading index, as centers."""
+        pick = torch.randint(0, x.shape[-2], (count,), generator=gen)
+        return x[..., pick.to(x.device), :].contiguous()
+
+    # -- phase 2: kernels against their plain versions ----------------------
+    def check_distance(label, p, c):
+        md, am = ops.min_dist_argmin(p, c)
+        mr, ar = ref.min_dist_argmin_ref(p, c)
+        torch.cuda.synchronize()
+        c_sel = torch.gather(c, -2, am.long()[..., None].expand(
+            *am.shape, c.shape[-1]))
+        scale = (p * p).sum(-1) + (c_sel * c_sel).sum(-1)
+        tol = D2_RTOL * scale + 1e-6
+        agree = am == ar
+        err = (md - mr).abs()
+        value_err = float(err[agree].max()) if agree.any() else 0.0
+        check((err <= tol)[agree].all(),
+              f"distance_argmin[{label}] value error {value_err}")
+        # a flip must be a near tie under the plain arithmetic
+        d2_at = torch.clamp_min(scale - 2.0 * (p * c_sel).sum(-1), 0.0)
+        gap = (d2_at - mr).abs()
+        flips = int((~agree).sum())
+        check((gap <= tol)[~agree].all(),
+              f"distance_argmin[{label}] {flips} flips, not all near ties")
+        print(f"  distance_argmin[{label}] {tuple(p.shape)} k={c.shape[-2]}: "
+              f"max |d2 err| {value_err:.3g} on agreeing rows, {flips} "
+              f"near-tie flips (gap <= {D2_RTOL:g} (|p|^2+|c|^2))")
+        return md, am, ar, value_err
+
+    def check_lloyd(label, p, c, w):
+        sums, counts, cost = ops.lloyd_stats(p, c, w)
+        again = ops.lloyd_stats(p, c, w)
+        check(all(torch.equal(a, b) for a, b in
+                  zip((sums, counts, cost), again)),
+              f"lloyd_stats[{label}] differs between two runs")
+        # the kernel's own assignment: lloyd_stats and distance_argmin share
+        # one device routine and tile shape, so they assign identically
+        md, am = ops.min_dist_argmin(p, c)
+        _, ar = ref.min_dist_argmin_ref(p, c)
+        kk = c.shape[-2]
+        sr, cr, costr = ref.lloyd_reduce(p, kk, w, md, am)
+        sa, ca, costa = ref.lloyd_reduce(p.abs(), kk, w.abs(), md, am)
+        torch.cuda.synchronize()
+        es = (sums - sr).abs()
+        ec = (counts - cr).abs()
+        eo = (cost - costr).abs()
+        check((es <= SUM_RTOL * sa + 1e-6).all(),
+              f"lloyd_stats[{label}] sums error {float(es.max())}")
+        check((ec <= SUM_RTOL * ca + 1e-6).all(),
+              f"lloyd_stats[{label}] counts error {float(ec.max())}")
+        check((eo <= SUM_RTOL * costa + 1e-6).all(),
+              f"lloyd_stats[{label}] cost error {float(eo.max())}")
+        flips = int((am != ar).sum())
+        err = max(float(es.max()), float(ec.max()))
+        print(f"  lloyd_stats[{label}] {tuple(p.shape)} k={kk}: max |sums "
+              f"err| {float(es.max()):.3g}, max |counts err| "
+              f"{float(ec.max()):.3g}, cost rel err "
+              f"{float((eo / costa.clamp_min(1e-30)).max()):.2g} (from the "
+              f"kernel's assignment); {flips} near-tie flips vs the plain "
+              f"assignment; bit-identical rerun")
+        return err
+
+    print("phase 2: kernels against their plain versions on the card")
+    c_main = rows(pts, k)
+    w_main = torch.rand(n, generator=gen).to(dev)
+    _, _, _, da_err = check_distance("full data", pts, c_main)
+    check_distance("sites, seeding", sp, rows(sp, 1))
+    c_sites = rows(sp, k)
+    check_distance("sites", sp, c_sites)
+    ls_err = check_lloyd("full data", pts, c_main, w_main)
+    check_lloyd("sites", sp, c_sites, sm.float())
+    rng = np.random.default_rng(args.seed)
+    for label, (nn, kk, dd) in (("ragged", (1001, 77, 33)),
+                                ("d=256", (777, 130, 256))):
+        p = torch.tensor(rng.standard_normal((nn, dd)), dtype=torch.float32,
+                         device=dev)
+        c = torch.tensor(rng.standard_normal((kk, dd)), dtype=torch.float32,
+                         device=dev)
+        w = torch.tensor(rng.random(nn), dtype=torch.float32, device=dev)
+        check_distance(label, p, c)
+        check_lloyd(label, p, c, w)
+    # forced ties: every center twice, so each point has an exact tie and
+    # the lower index must win, as in the plain version
+    p = torch.tensor(rng.standard_normal((5000, 12)), dtype=torch.float32,
+                     device=dev)
+    c = torch.tensor(rng.standard_normal((35, 12)), dtype=torch.float32,
+                     device=dev)
+    _, am, ar, _ = check_distance("forced ties", p, torch.cat([c, c]))
+    check(torch.equal(am, ar) and bool((am < 35).all()),
+          "forced ties: the lower index did not win")
+    check_lloyd("forced ties", p, torch.cat([c, c]),
+                torch.ones(5000, device=dev))
+
+    # -- timing at the main path's cost/solve shape ---------------------------
+    p2d, c2d = pts, c_main
+    da_ms = cuda_ms(lambda: ops.min_dist_argmin(p2d, c2d))
+    da_plain = cuda_ms(lambda: ref.min_dist_argmin_ref(p2d, c2d))
+    da_lib = cuda_ms(lambda: torch.cdist(p2d, c2d).min(-1))
+    ls_ms = cuda_ms(lambda: ops.lloyd_stats(p2d, c2d, w_main))
+    ls_plain = cuda_ms(lambda: ref.lloyd_stats_ref(p2d, c2d, w_main))
+
+    def lloyd_library():
+        dist, a = torch.cdist(p2d, c2d).min(-1)
+        torch.zeros(k, d, device=dev).index_add_(0, a, w_main[:, None] * p2d)
+        torch.zeros(k, device=dev).index_add_(0, a, w_main)
+        return (w_main * dist * dist).sum()
+
+    ls_lib = cuda_ms(lloyd_library)
+    da_bound, da_by = bound(*distance_work(1, n, k, d))
+    ls_bound, ls_by = bound(*lloyd_work(1, n, k, d))
+    print(f"  timing at n={n} k={k} d={d} (ms, mean of 20):")
+    print(f"  distance_argmin: kernel {da_ms:.4f}, plain {da_plain:.4f}, "
+          f"library (cdist + min) {da_lib:.4f}, bound {da_bound:.4f} "
+          f"({da_by})")
+    print(f"  lloyd_stats: kernel {ls_ms:.4f}, plain {ls_plain:.4f}, library "
+          f"(cdist + argmin + index_add_) {ls_lib:.4f}, bound {ls_bound:.4f} "
+          f"({ls_by})")
+    c1 = rows(sp, 1)
+    for label, fn, work in (
+            ("distance_argmin sites seeding", lambda: ops.min_dist_argmin(
+                sp, c1), distance_work(S, M, 1, d)),
+            ("distance_argmin sites", lambda: ops.min_dist_argmin(
+                sp, c_sites), distance_work(S, M, k, d)),
+            ("lloyd_stats sites", lambda: ops.lloyd_stats(
+                sp, c_sites, sm.float()), lloyd_work(S, M, k, d))):
+        b_ms, b_by = bound(*work)
+        print(f"  {label} ({S} x {M}): kernel {cuda_ms(fn):.4f}, bound "
+              f"{b_ms:.4f} ({b_by})")
+
+    # -- phase 3: the main path at full size ----------------------------------
+    print("phase 3: main path at full size")
+    t0 = time.perf_counter()
+    _, base_cost = clustering.solve(prng.PRNGKey(args.seed + 7), pts, k,
+                                    lloyd_iters=12, restarts=3, device=dev)
+    base_cost = float(base_cost)
+    print(f"  centralized baseline (3 restarts, 12 Lloyd steps) cost "
+          f"{base_cost:.6g} in {time.perf_counter() - t0:.2f} s")
+    check(np.isfinite(base_cost) and base_cost > 0, "baseline cost")
+
+    def drive(routing, backend=None, points=sp, mask=sm, times=None):
+        return graph_distributed_kmeans(
+            prng.PRNGKey(args.seed), points, mask, k, t, g, routing=routing,
+            backend=backend, device=dev, phase_times=times)
+
+    drive("flood")   # warm-up: first-use costs of PyTorch's own kernels
+    launches = {}
+    results = {}
+    for routing in ("flood", "bfs"):
+        times = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for kern in ops.KERNELS:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        res = drive(routing, times=times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[routing] = {kern.name: kern.launches for kern in ops.KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        results[routing] = res
+        ratio = float(clustering.cost(pts, res.centers, device=dev)) / base_cost
+        print(f"  {routing}: cost ratio {ratio:.6f} (bound "
+              f"{MAX_COST_RATIO}), wall {wall:.3f} s "
+              f"{json.dumps({p: round(s, 4) for p, s in times.items()})}, "
+              f"peak device memory {peak:.2f} GiB")
+        print(f"  {routing} ledger: "
+              f"{json.dumps(res.ledger.as_dict(by_phase=True))}")
+        print(f"  {routing} launches: {json.dumps(launches[routing])}")
+        check(res.centers.shape == (k, d)
+              and bool(torch.isfinite(res.centers).all()),
+              f"{routing}: centers not finite of shape ({k}, {d})")
+        check(ratio < MAX_COST_RATIO, f"{routing}: cost ratio {ratio}")
+        total_w = float(res.coreset.weights.double().sum())
+        check(abs(total_w - n) <= 1e-3 * n,
+              f"{routing}: coreset weight {total_w} != {n} points")
+        # one launch per seeding step and per sensitivity pass over all sites
+        # (not per site): k seeding steps + 1 in Round 1, k in the solve
+        check(launches[routing]["distance_argmin"] == 2 * k + 1,
+              f"{routing}: distance_argmin launches {launches[routing]}")
+        check(launches[routing]["lloyd_stats"] == 2 * 8,
+              f"{routing}: lloyd_stats launches {launches[routing]}")
+    check(torch.equal(results["flood"].centers, results["bfs"].centers),
+          "flood and BFS routes solved different centers")
+    again = drive("flood")
+    check(torch.equal(again.centers, results["flood"].centers),
+          "second run: centers not bit-identical")
+    print("  second run: bit-identical centers")
+    flood = results["flood"]
+    cs = flood.coreset
+    print(f"  coreset {tuple(cs.points.shape)} with "
+          f"{int(cs.effective_size())} weighted slots")
+
+    # the device's idle share over one traced run of the flood route
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drive("flood")
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if spans:
+        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy = (busy + cur_e - cur_s) / 1e6
+        print(f"  traced flood run: wall {traced_wall:.3f} s, device busy "
+              f"{busy:.3f} s over {len(spans)} device operations, idle "
+              f"share {1 - busy / traced_wall:.3f} (tracing on)")
+        top = sorted(prof.key_averages(),
+                     key=lambda a: -getattr(a, "device_time_total", 0.0))
+        for a in top[:6]:
+            print(f"    {getattr(a, 'device_time_total', 0.0) / 1e3:9.2f} ms "
+                  f"x{a.count:6d} {a.key[:90]}")
+    else:
+        print("  idle share: not measured (the profiler saw no device events)")
+
+    # the kernels at the coreset's shapes of this run
+    check_distance("coreset seeding", cs.points, rows(cs.points, 1))
+    check_lloyd("coreset", cs.points, flood.centers, cs.weights)
+    b_ms, b_by = bound(*lloyd_work(1, cs.points.shape[0], k, d))
+    ls_cs = cuda_ms(lambda: ops.lloyd_stats(cs.points, flood.centers,
+                                            cs.weights))
+    print(f"  lloyd_stats coreset ({cs.points.shape[0]} rows): kernel "
+          f"{ls_cs:.4f} ms, bound {b_ms:.4f} ({b_by})")
+
+    # -- phase 4: cuda backend against the plain torch backend ---------------
+    print("phase 4: backend='cuda' against backend='torch' at scale 0.1")
+    data_s, _ = paper_dataset("yearpredictionmsd", seed=args.seed, scale=0.1)
+    idx_s = partition_indices(data_s, g.n, "weighted", seed=args.seed + 1,
+                              degrees=g.degrees())
+    sp_s, sm_s = (torch.from_numpy(a).to(dev)
+                  for a in pad_partition(data_s, idx_s))
+    runs = {}
+    # the Round-1/2 key of graph_distributed_kmeans, for its t_i
+    k1 = prng.split(prng.PRNGKey(args.seed))[0]
+    for backend in ("cuda", "torch"):
+        res = graph_distributed_kmeans(
+            prng.PRNGKey(args.seed), sp_s, sm_s, k, t, g, backend=backend,
+            device=dev)
+        dcs = distributed_coreset(k1, sp_s, sm_s, k, t, lloyd_iters=8,
+                                  backend=backend, device=dev)
+        runs[backend] = (res, dcs)
+    (rc, dc_c), (rt, dc_t) = runs["cuda"], runs["torch"]
+    check(torch.equal(dc_c.t_i, dc_t.t_i), "phase 4: t_i differ")
+    check(rc.ledger.as_dict(by_phase=True) == rt.ledger.as_dict(by_phase=True),
+          "phase 4: ledgers differ")
+    cerr = float((rc.centers - rt.centers).abs().max())
+    cmax = float(rt.centers.abs().max())
+    check(cerr <= CENTER_RTOL * cmax,
+          f"phase 4: centers differ by {cerr} (max |center| {cmax})")
+    pts_s = torch.from_numpy(data_s).to(dev)
+    ratios = [float(clustering.cost(pts_s, r.centers, device=dev,
+                                    backend="torch")) for r in (rc, rt)]
+    print(f"  n={data_s.shape[0]}: t_i equal (sum {int(dc_c.t_i.sum())}), "
+          f"ledgers equal, max |center diff| {cerr:.3g} (max |center| "
+          f"{cmax:.3g}), full-data cost cuda/torch {ratios[0] / ratios[1]:.8f}")
+
+    print(f"total wall {time.perf_counter() - t_all:.1f} s")
+    kernels = [
+        {"name": "distance_argmin", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
+         "replaces": "src/repro/kernels/distance_argmin.py:131",
+         "launches": launches["flood"]["distance_argmin"],
+         "max_abs_err": da_err, "ms": da_ms, "plain_ms": da_plain,
+         "bound_ms": da_bound, "bound_by": da_by, "library_ms": da_lib},
+        {"name": "lloyd_stats", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lloyd_stats.cu",
+         "replaces": "src/repro/kernels/lloyd_update.py:67",
+         "launches": launches["flood"]["lloyd_stats"],
+         "max_abs_err": ls_err, "ms": ls_ms, "plain_ms": ls_plain,
+         "bound_ms": ls_bound, "bound_by": ls_by, "library_ms": ls_lib},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
