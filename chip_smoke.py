@@ -9,12 +9,15 @@ Phases (any failed check raises, and the script exits non-zero):
 1. Build every kernel from ``src/repro_torch/kernels/csrc`` with nvcc for
    sm_90a; print build times and ptxas's register / spill lines.
 2. Hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes (full data, all sites batched, the 1.5M-slot coreset
-   of phase 3) plus ragged, d=256 and forced-tie cases. Value error, argmin
-   flips (each must be a near tie) and, for lloyd_stats, arithmetic error
-   against sums recomputed from the kernel's own assignment are reported
-   apart. Then time kernel, plain version and a PyTorch library yardstick,
-   beside the bound from the shapes.
+   paths' shapes (full data, all sites batched, the 1.5M-slot coresets of
+   phases 3 and 5, 256 stacked serving tenants) plus ragged, d=256,
+   forced-tie and (weiszfeld_stats) coincident-centre cases. Value error,
+   argmin flips (each must be a near tie) and, for the fused statistics,
+   arithmetic error against the reduction recomputed from the kernel's own
+   assignment are reported apart; reruns must be bit-identical, and the
+   batched argmin must equal a loop of single-tenant launches bit for bit.
+   Then time kernel, plain version and a PyTorch library yardstick, beside
+   the bound from the shapes.
 3. The main path at full size -- ``graph_distributed_kmeans`` on the
    yearpredictionmsd stand-in (515,345 x 90, k=50), 100 sites on a 10x10
    grid, t = 3 k n = 15,000, flood and BFS-tree routes -- with the cost
@@ -23,6 +26,17 @@ Phases (any failed check raises, and the script exits non-zero):
    device memory, the device's idle share, and a bit-identical second run.
 4. The whole path with ``backend="cuda"`` against ``backend="torch"`` at
    scale 0.1: ``t_i`` and ledgers equal, centers within tolerance.
+5. Path A: the same instance as phase 3 with ``objective="kmedian"`` on
+   both routes -- cost ratio against a centralized k-median solve, ledgers
+   against the analytic ones, launches (weiszfeld_stats 2 x 8 x 4,
+   distance_argmin 2k + 1, lloyd_stats 0), wall per phase, peak memory, a
+   bit-identical rerun.
+6. Path B: one ``ClusterServeEngine`` with 256 tenants (the centres of
+   phases 3 and 5 and 254 static ones) serving 20 steps of bursts; every
+   result equal bit for bit to a per-tenant ``query_assignments`` on the
+   card and within tolerance of the plain version; batched launches equal
+   to dispatches; queries per second and step latency, beside the same
+   traffic through the per-tenant loop.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -108,6 +122,23 @@ def lloyd_work(S, n, k, d):
     return flops, nbytes
 
 
+def weiszfeld_work(S, n, k, d):
+    """The assignment, the exact-form distance (3 d), the numerators (2 d)
+    and the inverse and cost (~8) per point."""
+    flops, _ = distance_work(S, n, k, d)
+    flops += S * n * (5 * d + 8)
+    nbytes = 4 * S * (n * d + n + k * d) + 4 * S * (k * d + k + 1)
+    return flops, nbytes
+
+
+def batched_work(T, m, k_live, d):
+    """T tenants of m queries against their live centres only (k_live is
+    the total over tenants): what the data needs, not the padded rows."""
+    flops = m * k_live * (2 * d + 3) + 2 * (T * m + k_live) * d
+    nbytes = 4 * (T * m * d + k_live * d) + 8 * T * m
+    return flops, nbytes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -118,15 +149,27 @@ def main(argv=None) -> int:
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
-    from repro_torch.core import clustering, prng
+    from repro_torch.core import clustering, comm, prng
+    from repro_torch.core.backend import query_assignments
     from repro_torch.core.coreset import distributed_coreset
     from repro_torch.core.distributed import graph_distributed_kmeans
+    from repro_torch.core.objective import WEISZFELD_ITERS
     from repro_torch.core.partition import pad_partition, partition_indices
-    from repro_torch.core.topology import grid
+    from repro_torch.core.topology import bfs_spanning_tree, grid
     from repro_torch.data.synthetic import paper_dataset
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.serve import ClusterServeEngine, StaticCenters
 
     t_all = time.perf_counter()
+    walls = {}
+    t_lap = [t_all]
+
+    def lap(name):
+        """Record the wall seconds since the previous lap under ``name``."""
+        now = time.perf_counter()
+        walls[name] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -145,8 +188,20 @@ def main(argv=None) -> int:
     for name, r in built.items():
         for line in r.ptxas:
             print(f"  ptxas[{name}]: {line}")
-    check(set(built) == {k.name for k in ops.KERNELS},
-          f"built {sorted(built)}, kernels {[k.name for k in ops.KERNELS]}")
+    # four kernel entries with their own counters over three libraries
+    check(set(built) == {k.library for k in ops.KERNELS}
+          and len({k.name for k in ops.KERNELS}) == 4,
+          f"built {sorted(built)}, kernels "
+          f"{[(k.name, k.library) for k in ops.KERNELS]}")
+
+    def reset_counts():
+        for kern in ops.KERNELS:
+            kern.launches = 0
+
+    def counts():
+        return {kern.name: kern.launches for kern in ops.KERNELS}
+
+    lap("phase 1")
 
     # -- data at full size --------------------------------------------------
     t0 = time.perf_counter()
@@ -171,10 +226,10 @@ def main(argv=None) -> int:
         return x[..., pick.to(x.device), :].contiguous()
 
     # -- phase 2: kernels against their plain versions ----------------------
-    def check_distance(label, p, c):
-        md, am = ops.min_dist_argmin(p, c)
-        mr, ar = ref.min_dist_argmin_ref(p, c)
-        torch.cuda.synchronize()
+    def compare_argmin(label, p, c, md, am, mr, ar):
+        """Kernel (md, am) against plain (mr, ar) on the same inputs: the
+        value within D2_RTOL where the argmins agree, and every flip a near
+        tie under the plain arithmetic. Returns (value error, flips)."""
         c_sel = torch.gather(c, -2, am.long()[..., None].expand(
             *am.shape, c.shape[-1]))
         scale = (p * p).sum(-1) + (c_sel * c_sel).sum(-1)
@@ -182,18 +237,61 @@ def main(argv=None) -> int:
         agree = am == ar
         err = (md - mr).abs()
         value_err = float(err[agree].max()) if agree.any() else 0.0
-        check((err <= tol)[agree].all(),
-              f"distance_argmin[{label}] value error {value_err}")
-        # a flip must be a near tie under the plain arithmetic
+        check((err <= tol)[agree].all(), f"{label} value error {value_err}")
         d2_at = torch.clamp_min(scale - 2.0 * (p * c_sel).sum(-1), 0.0)
         gap = (d2_at - mr).abs()
         flips = int((~agree).sum())
         check((gap <= tol)[~agree].all(),
-              f"distance_argmin[{label}] {flips} flips, not all near ties")
+              f"{label} {flips} flips, not all near ties")
+        return value_err, flips
+
+    def check_distance(label, p, c):
+        md, am = ops.min_dist_argmin(p, c)
+        mr, ar = ref.min_dist_argmin_ref(p, c)
+        torch.cuda.synchronize()
+        value_err, flips = compare_argmin(f"distance_argmin[{label}]", p, c,
+                                          md, am, mr, ar)
         print(f"  distance_argmin[{label}] {tuple(p.shape)} k={c.shape[-2]}: "
               f"max |d2 err| {value_err:.3g} on agreeing rows, {flips} "
               f"near-tie flips (gap <= {D2_RTOL:g} (|p|^2+|c|^2))")
         return md, am, ar, value_err
+
+    def check_weiszfeld(label, p, c, w):
+        """weiszfeld_stats against the plain reduction of the kernel's own
+        assignment (arithmetic error, relative to the sums of |terms|) and
+        against the plain version (value error, near-tie flips included);
+        a rerun must be bit-identical."""
+        out = ops.weiszfeld_stats(p, c, w)
+        again = ops.weiszfeld_stats(p, c, w)
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"weiszfeld_stats[{label}] differs between two runs")
+        # weiszfeld_stats and distance_argmin assign through one routine
+        _, am, ar, _ = check_distance(f"{label}, assignment", p, c)
+        nr, dr, cr = ref.weiszfeld_reduce(p, c, w, am)
+        idx = am.long()[..., None].expand(*am.shape, p.shape[-1])
+        diff = p - torch.gather(c, -2, idx)
+        d2 = (diff * diff).sum(-1)
+        inv = w.clamp_min(0.0) / torch.sqrt(d2 + ref.WEISZFELD_ETA2)
+        oh = torch.nn.functional.one_hot(am.long(), c.shape[-2]).float()
+        na = (oh * inv[..., None]).transpose(-1, -2) @ p.abs()
+        ca = (w.abs() * torch.sqrt(d2)).sum(-1)
+        plain = ref.weiszfeld_stats_ref(p, c, w)
+        torch.cuda.synchronize()
+        errs = [(a - b).abs() for a, b in zip(out, (nr, dr, cr))]
+        for e, scale, what in zip(errs, (na, dr, ca),
+                                  ("nums", "denoms", "cost")):
+            check((e <= SUM_RTOL * scale + 1e-6).all(),
+                  f"weiszfeld_stats[{label}] {what} error {float(e.max())}")
+        value = max(float((a - b).abs().max()) for a, b in zip(out, plain))
+        arith = max(float(e.max()) for e in errs[:2])
+        print(f"  weiszfeld_stats[{label}] {tuple(p.shape)} k={c.shape[-2]}: "
+              f"max |nums err| {float(errs[0].max()):.3g}, max |denoms err| "
+              f"{float(errs[1].max()):.3g}, cost rel err "
+              f"{float((errs[2] / ca.clamp_min(1e-30)).max()):.2g} (from "
+              f"the kernel's assignment); against the plain version "
+              f"{value:.3g} with {int((am != ar).sum())} near-tie flips; "
+              f"bit-identical rerun")
+        return arith
 
     def check_lloyd(label, p, c, w):
         sums, counts, cost = ops.lloyd_stats(p, c, w)
@@ -247,6 +345,7 @@ def main(argv=None) -> int:
         w = torch.tensor(rng.random(nn), dtype=torch.float32, device=dev)
         check_distance(label, p, c)
         check_lloyd(label, p, c, w)
+        check_weiszfeld(label, p, c, 2.0 * w - 1.0)
     # forced ties: every center twice, so each point has an exact tie and
     # the lower index must win, as in the plain version
     p = torch.tensor(rng.standard_normal((5000, 12)), dtype=torch.float32,
@@ -258,6 +357,50 @@ def main(argv=None) -> int:
           "forced ties: the lower index did not win")
     check_lloyd("forced ties", p, torch.cat([c, c]),
                 torch.ones(5000, device=dev))
+    check_weiszfeld("forced ties", p, torch.cat([c, c]),
+                    torch.ones(5000, device=dev))
+    # weiszfeld_stats with signed weights on the full data and all sites;
+    # the centres are data rows, and in the coincident case every centre is
+    # a point of the set, so d2 = 0 and dist = sqrt(eta^2) = 1e-3 there
+    w_signed = (2.0 * torch.rand(n, generator=gen) - 1.0).to(dev)
+    wz_err = check_weiszfeld("full data", pts, c_main, w_signed)
+    check_weiszfeld("sites", sp, c_sites, sm.float())
+    p = rows(pts, 20000)
+    check_weiszfeld("coincident centres", p, p[:k].clone(),
+                    torch.rand(20000, generator=gen).to(dev))
+
+    # the batched argmin at serving shapes: 256 tenants, k_bucket 64 with
+    # 2..64 live rows each (the rest masked to the sentinel), d = 90
+    T_srv, KB = 256, 64
+    k_live = torch.randint(2, KB + 1, (T_srv,), generator=gen).to(dev)
+    live = torch.arange(KB, device=dev)[None, :] < k_live[:, None]
+    c_srv = torch.where(live[..., None], rows(pts, T_srv * KB).view(
+        T_srv, KB, d), ref.CENTER_SENTINEL)
+    q_srv = {}
+    for m in (8, 64, 1024):
+        q = rows(pts, T_srv * m).view(T_srv, m, d)
+        q_srv[m] = q
+        md, am = ops.min_dist_argmin_batched(q, c_srv)
+        mr, ar = ref.min_dist_argmin_batched_ref(q, c_srv)
+        torch.cuda.synchronize()
+        b_err, flips = compare_argmin(f"distance_argmin_batched[m={m}]", q,
+                                      c_srv, md, am, mr, ar)
+        check(bool((am < k_live[:, None]).all()),
+              f"distance_argmin_batched[m={m}]: a masked row won")
+        for i in range(T_srv):
+            md_i, am_i = ops.min_dist_argmin(q[i], c_srv[i])
+            check(torch.equal(md_i, md[i]) and torch.equal(am_i, am[i]),
+                  f"distance_argmin_batched[m={m}]: tenant {i} differs from "
+                  f"its single-tenant launch")
+        again = ops.min_dist_argmin_batched(q, c_srv)
+        check(torch.equal(again[0], md) and torch.equal(again[1], am),
+              f"distance_argmin_batched[m={m}] differs between two runs")
+        if m == 64:
+            db_err = b_err
+        print(f"  distance_argmin_batched[{T_srv} x {m}] k_bucket={KB}: max "
+              f"|d2 err| {b_err:.3g} on agreeing rows, {flips} near-tie "
+              f"flips; equal bit for bit to {T_srv} single-tenant launches; "
+              f"bit-identical rerun")
 
     # -- timing at the main path's cost/solve shape ---------------------------
     p2d, c2d = pts, c_main
@@ -283,6 +426,35 @@ def main(argv=None) -> int:
     print(f"  lloyd_stats: kernel {ls_ms:.4f}, plain {ls_plain:.4f}, library "
           f"(cdist + argmin + index_add_) {ls_lib:.4f}, bound {ls_bound:.4f} "
           f"({ls_by})")
+    wz_ms = cuda_ms(lambda: ops.weiszfeld_stats(p2d, c2d, w_signed))
+    wz_plain = cuda_ms(lambda: ref.weiszfeld_stats_ref(p2d, c2d, w_signed))
+
+    def weiszfeld_library():
+        _, a = torch.cdist(p2d, c2d).min(-1)
+        diff = p2d - c2d[a]
+        d2 = (diff * diff).sum(-1)
+        inv = w_signed.clamp_min(0.0) / torch.sqrt(d2 + ref.WEISZFELD_ETA2)
+        torch.zeros(k, d, device=dev).index_add_(0, a, inv[:, None] * p2d)
+        torch.zeros(k, device=dev).index_add_(0, a, inv)
+        return (w_signed * torch.sqrt(d2)).sum()
+
+    wz_lib = cuda_ms(weiszfeld_library)
+    wz_bound, wz_by = bound(*weiszfeld_work(1, n, k, d))
+    print(f"  weiszfeld_stats: kernel {wz_ms:.4f}, plain {wz_plain:.4f}, "
+          f"library (cdist + argmin + gather + index_add_) {wz_lib:.4f}, "
+          f"bound {wz_bound:.4f} ({wz_by})")
+    db = {}
+    k_sum = int(k_live.sum())
+    for m, q in q_srv.items():
+        b_ms, b_by = bound(*batched_work(T_srv, m, k_sum, d))
+        db[m] = (cuda_ms(lambda: ops.min_dist_argmin_batched(q, c_srv)),
+                 cuda_ms(lambda: ref.min_dist_argmin_batched_ref(q, c_srv),
+                         reps=5),
+                 cuda_ms(lambda: torch.cdist(q, c_srv).min(-1)), b_ms, b_by)
+        print(f"  distance_argmin_batched {T_srv} x {m} (k_bucket {KB}, "
+              f"{k_sum} live centres): kernel {db[m][0]:.4f}, plain (loop) "
+              f"{db[m][1]:.4f}, library (batched cdist + min) "
+              f"{db[m][2]:.4f}, bound {b_ms:.4f} ({b_by})")
     c1 = rows(sp, 1)
     for label, fn, work in (
             ("distance_argmin sites seeding", lambda: ops.min_dist_argmin(
@@ -290,12 +462,15 @@ def main(argv=None) -> int:
             ("distance_argmin sites", lambda: ops.min_dist_argmin(
                 sp, c_sites), distance_work(S, M, k, d)),
             ("lloyd_stats sites", lambda: ops.lloyd_stats(
-                sp, c_sites, sm.float()), lloyd_work(S, M, k, d))):
+                sp, c_sites, sm.float()), lloyd_work(S, M, k, d)),
+            ("weiszfeld_stats sites", lambda: ops.weiszfeld_stats(
+                sp, c_sites, sm.float()), weiszfeld_work(S, M, k, d))):
         b_ms, b_by = bound(*work)
         print(f"  {label} ({S} x {M}): kernel {cuda_ms(fn):.4f}, bound "
               f"{b_ms:.4f} ({b_by})")
 
     # -- phase 3: the main path at full size ----------------------------------
+    lap("data + phase 2")
     print("phase 3: main path at full size")
     t0 = time.perf_counter()
     _, base_cost = clustering.solve(prng.PRNGKey(args.seed + 7), pts, k,
@@ -317,13 +492,12 @@ def main(argv=None) -> int:
         times = {}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for kern in ops.KERNELS:
-            kern.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         res = drive(routing, times=times)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[routing] = {kern.name: kern.launches for kern in ops.KERNELS}
+        launches[routing] = counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         results[routing] = res
         ratio = float(clustering.cost(pts, res.centers, device=dev)) / base_cost
@@ -347,6 +521,9 @@ def main(argv=None) -> int:
               f"{routing}: distance_argmin launches {launches[routing]}")
         check(launches[routing]["lloyd_stats"] == 2 * 8,
               f"{routing}: lloyd_stats launches {launches[routing]}")
+        check(launches[routing]["weiszfeld_stats"] == 0
+              and launches[routing]["distance_argmin_batched"] == 0,
+              f"{routing}: k-means launched {launches[routing]}")
     check(torch.equal(results["flood"].centers, results["bfs"].centers),
           "flood and BFS routes solved different centers")
     again = drive("flood")
@@ -399,6 +576,8 @@ def main(argv=None) -> int:
     print(f"  lloyd_stats coreset ({cs.points.shape[0]} rows): kernel "
           f"{ls_cs:.4f} ms, bound {b_ms:.4f} ({b_by})")
 
+    lap("phase 3")
+
     # -- phase 4: cuda backend against the plain torch backend ---------------
     print("phase 4: backend='cuda' against backend='torch' at scale 0.1")
     data_s, _ = paper_dataset("yearpredictionmsd", seed=args.seed, scale=0.1)
@@ -430,7 +609,205 @@ def main(argv=None) -> int:
     print(f"  n={data_s.shape[0]}: t_i equal (sum {int(dc_c.t_i.sum())}), "
           f"ledgers equal, max |center diff| {cerr:.3g} (max |center| "
           f"{cmax:.3g}), full-data cost cuda/torch {ratios[0] / ratios[1]:.8f}")
+    lap("phase 4")
 
+    # -- phase 5: path A, k-median through Algorithms 1 + 2 -------------------
+    print("phase 5: k-median (path A) at full size")
+    t0 = time.perf_counter()
+    _, base_md = clustering.solve(prng.PRNGKey(args.seed + 7), pts, k,
+                                  lloyd_iters=12, restarts=3,
+                                  objective="kmedian", device=dev)
+    base_md = float(base_md)
+    print(f"  centralized k-median baseline (3 restarts, 12 steps of "
+          f"{WEISZFELD_ITERS} Weiszfeld passes) cost {base_md:.6g} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(np.isfinite(base_md) and base_md > 0, "k-median baseline cost")
+
+    def drive_md(routing, times=None):
+        return graph_distributed_kmeans(
+            prng.PRNGKey(args.seed), sp, sm, k, t, g, objective="kmedian",
+            routing=routing, device=dev, phase_times=times)
+
+    first = drive_md("flood")   # warm-up, and the rerun to compare with
+    # the run's t_i (Round 1 and 2 with the pipeline's key), priced by the
+    # analytic Theorem 2 / Theorem 3 ledgers
+    t_i = distributed_coreset(k1, sp, sm, k, t, objective="kmedian",
+                              lloyd_iters=8, device=dev).t_i.cpu().numpy()
+    tree = bfs_spanning_tree(g)
+    analytic = {
+        "flood": comm.flood_cost(g, n_messages=g.n, unit_scalars=1.0).tag(
+            "round1").add(comm.flood_portions_cost(g, t_i, k, d).tag(
+                "round2")),
+        "bfs": comm.tree_allocation_cost(tree).tag("round1").add(
+            comm.tree_up_cost(tree, [float(x) + k for x in t_i], dim=d).tag(
+                "round2_gather")).add(comm.tree_broadcast_cost(
+                    tree, unit_points=float(k), dim=d).tag(
+                        "round2_broadcast")),
+    }
+    md_launches, md_results = {}, {}
+    for routing in ("flood", "bfs"):
+        times = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = drive_md(routing, times=times)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        md_launches[routing] = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        md_results[routing] = res
+        ratio = float(clustering.cost(pts, res.centers, objective="kmedian",
+                                      device=dev)) / base_md
+        ledger = res.ledger.as_dict(by_phase=True)
+        print(f"  {routing}: k-median cost ratio {ratio:.6f} (bound "
+              f"{MAX_COST_RATIO}), wall {wall:.3f} s "
+              f"{json.dumps({p: round(s, 4) for p, s in times.items()})}, "
+              f"peak device memory {peak:.2f} GiB")
+        print(f"  {routing} ledger: {json.dumps(ledger)}")
+        print(f"  {routing} launches: {json.dumps(md_launches[routing])}")
+        check(res.centers.shape == (k, d)
+              and bool(torch.isfinite(res.centers).all()),
+              f"k-median {routing}: centers not finite of shape ({k}, {d})")
+        check(ratio < MAX_COST_RATIO, f"k-median {routing}: cost ratio "
+              f"{ratio}")
+        check(ledger == analytic[routing].as_dict(by_phase=True),
+              f"k-median {routing}: ledger differs from the analytic one")
+        total_w = float(res.coreset.weights.double().sum())
+        check(abs(total_w - n) <= 1e-3 * n,
+              f"k-median {routing}: coreset weight {total_w} != {n} points")
+        # one weiszfeld_stats launch per pass over all sites: 8 steps of
+        # WEISZFELD_ITERS passes in Round 1 and in the solve
+        expect = {"distance_argmin": 2 * k + 1, "lloyd_stats": 0,
+                  "weiszfeld_stats": 2 * 8 * WEISZFELD_ITERS,
+                  "distance_argmin_batched": 0}
+        check(md_launches[routing] == expect,
+              f"k-median {routing}: launches {md_launches[routing]}, "
+              f"expected {expect}")
+    check(torch.equal(md_results["flood"].centers,
+                      md_results["bfs"].centers),
+          "k-median: flood and BFS routes solved different centers")
+    check(torch.equal(first.centers, md_results["flood"].centers),
+          "k-median second run: centers not bit-identical")
+    print(f"  ledgers equal the analytic ones (t_i sum {int(t_i.sum())}); "
+          f"flood and BFS centres bit-identical; second run bit-identical")
+    cs_md = md_results["flood"].coreset
+    check_weiszfeld("k-median coreset", cs_md.points,
+                    md_results["flood"].centers, cs_md.weights)
+    b_ms, b_by = bound(*weiszfeld_work(1, cs_md.points.shape[0], k, d))
+    wz_cs = cuda_ms(lambda: ops.weiszfeld_stats(
+        cs_md.points, md_results["flood"].centers, cs_md.weights))
+    print(f"  weiszfeld_stats coreset ({cs_md.points.shape[0]} rows): kernel "
+          f"{wz_cs:.4f} ms, bound {b_ms:.4f} ({b_by})")
+    lap("phase 5")
+
+    # -- phase 6: path B, multi-tenant serving --------------------------------
+    print(f"phase 6: serving (path B), {T_srv} tenants")
+    srv_rng = np.random.default_rng(args.seed + 11)
+    tenants = [(results["flood"].centers.cpu().numpy(), "kmeans"),
+               (md_results["flood"].centers.cpu().numpy(), "kmedian")]
+    for i in range(T_srv - 2):
+        kk = int(srv_rng.integers(2, 65))
+        tenants.append((data[srv_rng.integers(0, n, kk)],
+                        ("kmeans", "kmedian")[i % 2]))
+    N_STEPS, BIG = 20, 5000
+    traffic = []
+    for s in range(N_STEPS):
+        burst = []
+        for j, tid in enumerate(srv_rng.choice(T_srv, T_srv // 2,
+                                               replace=False)):
+            m = BIG if (s, j) == (N_STEPS // 2, 0) else int(
+                srv_rng.integers(8, 1025))
+            burst.append((int(tid), data[srv_rng.integers(0, n, m)]))
+        traffic.append(burst)
+
+    def new_engine():
+        eng = ClusterServeEngine(min_bucket=8, max_bucket=1024,
+                                 max_group=T_srv, device=dev)
+        for c, obj in tenants:
+            eng.add_tenant(StaticCenters(c), k=c.shape[0], d=d,
+                           objective=obj)
+        return eng
+
+    warm = new_engine()     # first-use costs of PyTorch's own kernels
+    for tid, q in traffic[0]:
+        warm.enqueue(tid, q)
+    warm.run()
+    eng = new_engine()
+    tickets, step_s = [], []
+    reset_counts()
+    for burst in traffic:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tid, q in burst:
+            tickets.append((tid, q, eng.enqueue(tid, q)))
+        eng.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    srv_launches = counts()
+    st = eng.stats
+    check(all(tk.done for _, _, tk in tickets), "serving: a ticket is open")
+    check(st.n_queries == sum(q.shape[0] for _, q, _ in tickets),
+          "serving: rows served != rows enqueued")
+    check(srv_launches == {"distance_argmin": 0, "lloyd_stats": 0,
+                           "weiszfeld_stats": 0,
+                           "distance_argmin_batched": st.n_dispatches},
+          f"serving: launches {srv_launches}, {st.n_dispatches} dispatches")
+    big = [tk for _, q, tk in tickets if q.shape[0] == BIG]
+    check(len(big) == 1 and big[0].n_padded == 5 * 1024 - BIG,
+          "serving: the 5,000-row burst was not split into 5 chunks")
+    buckets = {8 << i for i in range(8)}
+    check(all(Tp & (Tp - 1) == 0 and Tp <= T_srv and b in buckets
+              and kb in (8, 16, 32, 64) and dd == d
+              for Tp, b, kb, dd, _ in eng.compiled_shapes),
+          "serving: dispatched shapes off the power-of-two grid")
+    # the same traffic through a per-tenant loop of query_assignments
+    c_dev = [torch.from_numpy(c).to(dev) for c, _ in tenants]
+    loop_res, loop_s = [], []
+    for burst in traffic:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tid, q in burst:
+            a, dist = query_assignments(q, c_dev[tid], tenants[tid][1],
+                                        device=dev)
+            loop_res.append((a.cpu().numpy(), dist.cpu().numpy()))
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t0)
+    check(all(np.array_equal(tk.assign, a) and np.array_equal(tk.dist, dist)
+              for (_, _, tk), (a, dist) in zip(tickets, loop_res)),
+          "serving: results differ from the per-tenant loop")
+    # and the plain version, per tenant over all its rows
+    by_tenant = {}
+    for tid, q, tk in tickets:
+        by_tenant.setdefault(tid, []).append((q, tk))
+    srv_err, srv_flips = 0.0, 0
+    for tid, items in sorted(by_tenant.items()):
+        q = torch.from_numpy(np.concatenate([x for x, _ in items])).to(dev)
+        a = torch.from_numpy(np.concatenate([tk.assign for _, tk in items]))
+        dist = torch.from_numpy(np.concatenate([tk.dist for _, tk in items]))
+        a, dist = a.to(dev), dist.to(dev)
+        d2 = dist if tenants[tid][1] == "kmeans" else dist * dist
+        mr, ar = ref.min_dist_argmin_ref(q, c_dev[tid])
+        e, f = compare_argmin(f"serving[tenant {tid}]", q, c_dev[tid], d2, a,
+                              mr, ar)
+        srv_err, srv_flips = max(srv_err, e), srv_flips + f
+    lat = np.asarray(step_s) * 1e3
+    print(f"  {N_STEPS} steps, {st.n_queries} query rows ({st.n_padded} "
+          f"padding rows), {len(tickets)} tickets, {st.n_dispatches} "
+          f"dispatches for {st.n_tenant_dispatches} tenant-chunks, "
+          f"{len(eng.compiled_shapes)} dispatched shapes")
+    print(f"  engine: {st.n_queries / sum(step_s):.0f} queries/s, step "
+          f"latency p50 {np.percentile(lat, 50):.3f} ms, p99 "
+          f"{np.percentile(lat, 99):.3f} ms")
+    print(f"  per-tenant loop, same traffic: {st.n_queries / sum(loop_s):.0f} "
+          f"queries/s, {sum(loop_s) / sum(step_s):.3f}x the engine's time")
+    print(f"  results equal the per-tenant loop bit for bit; against the "
+          f"plain version max |d2 err| {srv_err:.3g}, {srv_flips} near-tie "
+          f"flips; batched launches {srv_launches['distance_argmin_batched']}"
+          f" == dispatches")
+    lap("phase 6")
+
+    print(f"phase walls (s): {json.dumps(walls)}")
     print(f"total wall {time.perf_counter() - t_all:.1f} s")
     kernels = [
         {"name": "distance_argmin", "route": "cuda",
@@ -445,6 +822,19 @@ def main(argv=None) -> int:
          "launches": launches["flood"]["lloyd_stats"],
          "max_abs_err": ls_err, "ms": ls_ms, "plain_ms": ls_plain,
          "bound_ms": ls_bound, "bound_by": ls_by, "library_ms": ls_lib},
+        {"name": "weiszfeld_stats", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/weiszfeld_stats.cu",
+         "replaces": "src/repro/kernels/weiszfeld.py:100",
+         "launches": md_launches["flood"]["weiszfeld_stats"],
+         "max_abs_err": wz_err, "ms": wz_ms, "plain_ms": wz_plain,
+         "bound_ms": wz_bound, "bound_by": wz_by, "library_ms": wz_lib},
+        {"name": "distance_argmin_batched", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
+         "replaces": "src/repro/kernels/distance_argmin.py:92",
+         "launches": srv_launches["distance_argmin_batched"],
+         "max_abs_err": db_err, "ms": db[64][0], "plain_ms": db[64][1],
+         "bound_ms": db[64][3], "bound_by": db[64][4],
+         "library_ms": db[64][2]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

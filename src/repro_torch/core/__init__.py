@@ -5,8 +5,9 @@ from repro_torch.core import (backend, clustering, comm, coreset,
                               distributed, objective, partition, prng,
                               strategy, topology)
 from repro_torch.core.backend import (ClusteringBackend, available_backends,
-                                      get_backend, register_backend,
-                                      use_backend)
+                                      get_backend, query_assignments,
+                                      query_assignments_batched,
+                                      register_backend, use_backend)
 from repro_torch.core.clustering import (cost, kmeans_pp_init, lloyd,
                                          lloyd_stats, min_dist_argmin, solve)
 from repro_torch.core.comm import CommLedger
@@ -26,7 +27,8 @@ __all__ = [
     "backend", "clustering", "comm", "coreset", "distributed", "objective",
     "partition", "prng", "strategy", "topology",
     "ClusteringBackend", "available_backends", "get_backend",
-    "register_backend", "use_backend",
+    "query_assignments", "query_assignments_batched", "register_backend",
+    "use_backend",
     "cost", "kmeans_pp_init", "lloyd", "lloyd_stats", "min_dist_argmin",
     "solve",
     "CommLedger", "Coreset", "DistributedCoreset", "build_coreset",

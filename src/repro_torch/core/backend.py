@@ -1,17 +1,28 @@
 """Clustering-backend dispatch layer (the port of ``repro.core.backend``).
 
-Every hot path of the pipeline -- Round 1's local solves, D^2 seeding,
-sensitivities and the final coreset solve -- reduces to two primitive ops
-over a (possibly weighted, possibly site-batched) point set:
+Every hot path of the pipeline -- Round 1's local solves, D^z seeding,
+sensitivities and the final coreset solve, for k-means and k-median -- and
+the serving tier reduce to four primitive ops over a (possibly weighted,
+possibly site-batched) point set:
 
 * ``min_dist_argmin(points, centers)``
     ``(..., n, d), (..., k, d) -> (min_d2 (..., n) f32, argmin (..., n) i32)``
+* ``min_dist_argmin_batched(queries, centers)``
+    ``(T, m, d), (T, k, d) -> ((T, m) f32, (T, m) i32)``: tenant t's
+    queries against tenant t's centres only (the serving tier's fused
+    dispatch; DESIGN.md Sec. 13)
 * ``lloyd_stats(points, centers, weights)``
     ``(..., n, d), (..., k, d), (..., n) -> (sums (..., k, d) f32,
     counts (..., k) f32, cost (...) f32)``
+* ``weiszfeld_stats(points, centers, weights)``
+    ``(..., n, d), (..., k, d), (..., n) -> (nums (..., k, d) f32,
+    denoms (..., k) f32, cost (...) f32)`` (the k-median step; DESIGN.md
+    Sec. 10)
 
 A leading site axis is served by one call (one kernel launch), which is
 what ``jax.vmap`` over sites made of the JAX package's ``pallas_call``.
+:func:`query_assignments` and :func:`query_assignments_batched` are the
+serving entry points on top of them.
 
 Registered backends:
 
@@ -36,6 +47,8 @@ from typing import (Dict, Optional, Protocol, Tuple, Union,
 import numpy as np
 import torch
 
+from repro_torch.core import objective as objective_mod
+from repro_torch.core.objective import ObjectiveLike
 from repro_torch.kernels import ops, ref
 
 DeviceLike = Union[str, torch.device, None]
@@ -71,9 +84,19 @@ class ClusteringBackend(Protocol):
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         ...
 
+    def min_dist_argmin_batched(self, queries: torch.Tensor,
+                                centers: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        ...
+
     def lloyd_stats(self, points: torch.Tensor, centers: torch.Tensor,
                     weights: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        ...
+
+    def weiszfeld_stats(self, points: torch.Tensor, centers: torch.Tensor,
+                        weights: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         ...
 
 
@@ -88,8 +111,14 @@ class TorchBackend:
     def min_dist_argmin(self, points, centers):
         return ref.min_dist_argmin_ref(points, centers)
 
+    def min_dist_argmin_batched(self, queries, centers):
+        return ref.min_dist_argmin_batched_ref(queries, centers)
+
     def lloyd_stats(self, points, centers, weights=None):
         return ref.lloyd_stats_ref(points, centers, weights)
+
+    def weiszfeld_stats(self, points, centers, weights=None):
+        return ref.weiszfeld_stats_ref(points, centers, weights)
 
 
 class CudaBackend:
@@ -100,8 +129,14 @@ class CudaBackend:
     def min_dist_argmin(self, points, centers):
         return ops.min_dist_argmin(points, centers)
 
+    def min_dist_argmin_batched(self, queries, centers):
+        return ops.min_dist_argmin_batched(queries, centers)
+
     def lloyd_stats(self, points, centers, weights=None):
         return ops.lloyd_stats(points, centers, weights)
+
+    def weiszfeld_stats(self, points, centers, weights=None):
+        return ops.weiszfeld_stats(points, centers, weights)
 
 
 _REGISTRY: Dict[str, ClusteringBackend] = {}
@@ -169,6 +204,45 @@ def get_backend(backend: BackendLike = None, device: DeviceLike = None
         resolve_name(backend)  # validate + register
         return backend
     return _REGISTRY[resolve_name(backend, device)]
+
+
+def query_assignments(points, centers, objective: ObjectiveLike = "kmeans",
+                      backend: BackendLike = None, device: DeviceLike = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest centre and distance per query point, ``(n, d), (k, d) ->
+    (assign (n,) i32, dist (n,) f32)``: one ``min_dist_argmin`` pass, the
+    distance in the objective's metric (squared for k-means, euclidean
+    for k-median)."""
+    dev = resolve_device(device)
+    points, centers = as_tensor(points, dev), as_tensor(centers, dev)
+    d2, assign = get_backend(backend, dev).min_dist_argmin(points, centers)
+    return assign, objective_mod.get_objective(objective).clamped_cost(d2)
+
+
+def query_assignments_batched(queries, centers, center_mask=None,
+                              objective: ObjectiveLike = "kmeans",
+                              backend: BackendLike = None,
+                              device: DeviceLike = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stacked tenants, ``(T, m, d), (T, k, d)[, (T, k) bool] -> (assign
+    (T, m) i32, dist (T, m) f32)`` in one dispatch (one launch of the
+    batched kernel on the card): the multi-tenant serving hot path of
+    :mod:`repro_torch.serve.cluster` (DESIGN.md Sec. 13).
+
+    Masking contract: ragged tenants are stacked into the common buffer
+    and described by ``center_mask`` (True = live row). Masked rows are
+    replaced with ``CENTER_SENTINEL`` here, before dispatch, the same way
+    for every backend, so they never win and every backend sees the same
+    operands. Padded query rows are the caller's to slice off."""
+    dev = resolve_device(device)
+    queries, centers = as_tensor(queries, dev), as_tensor(centers, dev)
+    if center_mask is not None:
+        mask = as_tensor(center_mask, dev)
+        centers = torch.where(mask.unsqueeze(-1), centers,
+                              ref.CENTER_SENTINEL)
+    d2, assign = get_backend(backend, dev).min_dist_argmin_batched(queries,
+                                                                   centers)
+    return assign, objective_mod.get_objective(objective).clamped_cost(d2)
 
 
 _UNSET = object()

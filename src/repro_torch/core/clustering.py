@@ -61,7 +61,7 @@ def lloyd_stats(points, centers, weights=None, backend: BackendLike = None,
 def cost(points, centers, weights=None, objective: ObjectiveLike = "kmeans",
          backend: BackendLike = None, device: DeviceLike = None
          ) -> torch.Tensor:
-    """Weighted clustering cost: sum_p w_p d(p, X)^2 (per site when the
+    """Weighted clustering cost: sum_p w_p d(p, X)^z (per site when the
     inputs carry a leading site axis)."""
     dev, (points, centers, weights) = _inputs(device, points, centers,
                                               weights)
@@ -101,14 +101,14 @@ def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def _kmeans_pp_init(keys: torch.Tensor, points: torch.Tensor,
                     weights: torch.Tensor, k: int, obj, b) -> torch.Tensor:
-    """D^2 seeding for S sites at once: keys (S, 2), points (S, n, d),
+    """D^z seeding for S sites at once: keys (S, 2), points (S, n, d),
     weights (S, n) -> centers (S, k, d)."""
     S, n, d = points.shape
     w = torch.clamp_min(weights, 0.0)
 
     def dist_to(c):
-        # distance of every point to one candidate center per site
-        return obj.per_point_cost(b.min_dist_argmin(points, c[:, None, :])[0])
+        # D^z of every point to one candidate center per site
+        return obj.clamped_cost(b.min_dist_argmin(points, c[:, None, :])[0])
 
     split = prng.split(keys)
     key, k0 = split[:, 0], split[:, 1]
@@ -134,8 +134,9 @@ def kmeans_pp_init(key, points, k: int, weights=None,
                    objective: ObjectiveLike = "kmeans",
                    backend: BackendLike = None,
                    device: DeviceLike = None) -> torch.Tensor:
-    """D^2 seeding (k-means++) with optional weights: weight-0 padding is
-    never selected. ``key`` is a (2,) key; returns (k, d)."""
+    """D^z seeding (k-means++ for z = 2, k-median++ for z = 1) with
+    optional weights: weight-0 padding is never selected. ``key`` is a (2,)
+    key; returns (k, d)."""
     dev, (points, weights, key) = _inputs(device, points, weights, key)
     w = _ones(points) if weights is None else weights
     obj = objective_mod.get_objective(objective)
@@ -158,7 +159,9 @@ def _lloyd(points: torch.Tensor, centers: torch.Tensor,
 def lloyd(points, centers, weights=None, iters: int = 10,
           objective: ObjectiveLike = "kmeans", backend: BackendLike = None,
           device: DeviceLike = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Weighted Lloyd iterations. Returns (centers, cost_history (iters,)).
+    """Weighted center-update iterations in the objective's metric (Lloyd
+    steps for k-means, fused Weiszfeld passes for k-median). Returns
+    (centers, cost_history (iters,)).
 
     Handles negative weights (signed coreset measures): clusters whose
     total weight is <= eps keep their previous center."""
@@ -174,10 +177,11 @@ def solve(key, points, k: int, weights=None, lloyd_iters: int = 10,
           objective: ObjectiveLike = "kmeans", restarts: int = 1,
           backend: BackendLike = None, device: DeviceLike = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Constant-approximation solver: D^2 seeding + Lloyd refinement, best
-    of ``restarts`` seedings by the objective's own cost (the first on
-    ties). This is ``A_alpha`` of Algorithm 2 and the centralized baseline.
-    Returns (centers (k, d), cost)."""
+    """Constant-approximation solver: D^z seeding + Lloyd (k-means) or
+    Weiszfeld (k-median) refinement, best of ``restarts`` seedings by the
+    objective's own cost (the first on ties). This is ``A_alpha`` of
+    Algorithm 2 and the centralized baseline. Returns (centers (k, d),
+    cost)."""
     dev, (points, weights, key) = _inputs(device, points, weights, key)
     obj = objective_mod.get_objective(objective)
     b = backend_mod.get_backend(backend, dev)

@@ -5,29 +5,45 @@ coreset recipe needs, as a frozen descriptor whose hooks take the
 descriptor first; the registry maps canonical names to instances. Every
 hook is shape-generic over a leading site axis.
 
-This slice registers ``"kmeans"``. The JAX package's other objectives
-(``"kmedian"``, ``"kmeans_trimmed(<t>)"``, ``"power(<z>)"``) are not ported
-yet and raise a clear error instead of mis-dispatching.
+The registry holds the paper's two objectives, ``"kmeans"`` (z = 2: Lloyd
+steps on the fused ``lloyd_stats``) and ``"kmedian"`` (z = 1: fused
+Weiszfeld passes on ``weiszfeld_stats``). The JAX package's other
+objectives (``"kmeans_trimmed(<t>)"``, ``"power(<z>)"``) are not ported yet
+and raise a clear error instead of mis-dispatching.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Callable, Dict, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 _EPS = 1e-12
 
+# Weiszfeld refinement passes per k-median update step (the fused
+# assign + refine composition of DESIGN.md Sec. 10)
+WEISZFELD_ITERS = 4
 
-def _identity_point_cost(obj: "Objective", d2: torch.Tensor) -> torch.Tensor:
-    """d2 -> per-point cost: the squared distance itself for k-means."""
-    return d2
+
+def _pow_point_cost(obj: "Objective", d2: torch.Tensor) -> torch.Tensor:
+    """d2 -> per-point cost in the (k, z) metric: d2 itself for z = 2,
+    ``sqrt(d2)`` for z = 1 -- exact, never a ``pow``."""
+    return d2 if obj.power_z == 2.0 else torch.sqrt(d2)
 
 
 def _plain_point_costs(obj, b, points, centers, weights):
     d2, assign = b.min_dist_argmin(points, centers)
     return obj.point_cost(obj, d2), assign
+
+
+def _ratio_or_keep(nums, denoms, centers) -> torch.Tensor:
+    """``nums / denoms`` per cluster; clusters with ``denoms <= eps`` keep
+    their centre (signed coreset weights can leave a cluster with no mass)."""
+    keep = denoms > _EPS
+    new = nums / torch.where(keep, denoms, 1.0).unsqueeze(-1)
+    new = torch.where(keep.unsqueeze(-1), new, centers.float())
+    return new.to(centers.dtype)
 
 
 def _kmeans_update_stats(obj, b, points, weights, centers
@@ -36,10 +52,26 @@ def _kmeans_update_stats(obj, b, points, weights, centers
     backend's ``lloyd_stats``; clusters with total weight <= eps keep their
     previous center."""
     sums, counts, c = b.lloyd_stats(points, centers, weights)
-    keep = counts > _EPS
-    new = sums / torch.where(keep, counts, 1.0).unsqueeze(-1)
-    new = torch.where(keep.unsqueeze(-1), new, centers.float())
-    return new.to(centers.dtype), c
+    return _ratio_or_keep(sums, counts, centers), c
+
+
+def _weiszfeld_update_stats(obj, b, points, weights, centers
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One weighted k-median step: ``WEISZFELD_ITERS`` fused passes through
+    the backend's ``weiszfeld_stats``, each assigning every point to its
+    nearest centre and taking one Weiszfeld step per cluster (both
+    non-increasing in k-median cost). Clusters with ``denoms <= eps`` keep
+    their centre. The cost returned is the first pass's: the signed
+    assignment cost at the incoming centres, as the k-means step's."""
+
+    def wstep(y):
+        nums, denoms, c = b.weiszfeld_stats(points, y, weights)
+        return _ratio_or_keep(nums, denoms, y), c
+
+    new, c = wstep(centers)
+    for _ in range(1, WEISZFELD_ITERS):
+        new = wstep(new)[0]
+    return new, c
 
 
 def _plain_sensitivities(obj, b, points, centers, weights):
@@ -54,17 +86,39 @@ def _plain_seeding_mass(obj, w, mind):
 
 @dataclasses.dataclass(frozen=True)
 class Objective:
-    """A registered clustering objective (frozen and hashable)."""
+    """A registered (k, z) clustering objective (frozen and hashable).
+    ``power_z`` is 2 (k-means) or 1 (k-median); the update defaults to the
+    fused step of that z."""
 
     name: str
-    point_cost: Callable = _identity_point_cost
-    update_stats: Callable = _kmeans_update_stats
+    power_z: float = 2.0
+    point_cost: Callable = _pow_point_cost
+    update_stats: Optional[Callable] = None
     point_costs: Callable = _plain_point_costs
     sensitivity_rule: Callable = _plain_sensitivities
     seeding_mass: Callable = _plain_seeding_mass
 
+    def __post_init__(self):
+        if self.power_z not in (1.0, 2.0):
+            raise ValueError(f"power_z {self.power_z} is not yet ported to "
+                             f"repro_torch (z = 1 or 2)")
+        if self.update_stats is None:
+            upd = (_kmeans_update_stats if self.power_z == 2.0
+                   else _weiszfeld_update_stats)
+            object.__setattr__(self, "update_stats", upd)
+
     def per_point_cost(self, d2: torch.Tensor) -> torch.Tensor:
+        """Raw metric map d2 -> cost (no clamp: backend distances are
+        non-negative by contract)."""
         return self.point_cost(self, d2)
+
+    def clamped_cost(self, d2: torch.Tensor) -> torch.Tensor:
+        """Metric map with a defensive clamp for z != 2: ``d2`` unchanged
+        for z = 2, ``point_cost(max(d2, 0))`` otherwise -- the formula of
+        the reference's seeding and query paths."""
+        if self.power_z == 2.0:
+            return d2
+        return self.point_cost(self, torch.clamp_min(d2, 0.0))
 
     def costs(self, b, points, centers, weights=None):
         """Per-point costs + assignments via backend ``b``."""
@@ -104,10 +158,11 @@ def available_objectives() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-KMEANS = register_objective(Objective(name="kmeans"))
+KMEANS = register_objective(Objective(name="kmeans", power_z=2.0))
+KMEDIAN = register_objective(Objective(name="kmedian", power_z=1.0))
 
 # objectives of the JAX package this port does not carry yet
-_NOT_PORTED = re.compile(r"^(kmedian|kmeans_trimmed\(.*\)|power\(.*\))$")
+_NOT_PORTED = re.compile(r"^(kmeans_trimmed\(.*\)|power\(.*\))$")
 
 
 def resolve_name(objective: ObjectiveLike) -> str:

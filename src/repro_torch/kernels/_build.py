@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 SOURCE_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -106,23 +106,28 @@ def build() -> Dict[str, BuildResult]:
 
 
 class Kernel:
-    """A built CUDA library and the count of launches made through it.
+    """A C entry point of a built CUDA library and the count of launches
+    made through it.
 
-    ``launches`` is a plain integer that the kernel's wrapper increments
-    once per launch and nothing else touches, so a run can show that its
-    main path went through the kernel."""
+    ``library`` names the source (``csrc/<library>.cu``; by default the
+    kernel's own name): one library may hold several entry points, each
+    with its own counter. ``launches`` is a plain integer that the kernel's
+    wrapper increments once per launch and nothing else touches, so a run
+    can show that its main path went through the kernel."""
 
-    def __init__(self, name: str, function: str, argtypes: Sequence):
+    def __init__(self, name: str, function: str, argtypes: Sequence,
+                 library: Optional[str] = None):
         self.name = name
         self.function = function
         self.argtypes = list(argtypes)
+        self.library = library or name
         self.launches = 0
         self._fn = None
 
     def fn(self):
         """The C entry point, building every kernel library on first use."""
         if self._fn is None:
-            path = build()[self.name].path
+            path = build()[self.library].path
             fn = getattr(ctypes.CDLL(str(path)), self.function)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int

@@ -10,9 +10,9 @@
 // merge with (value, index) order, so the lowest index wins ties, as
 // jnp.argmin does. The (n, k) matrix never leaves registers.
 //
-// Both kernels call tile_argmin with the same tile shape for the same
-// number of centres, so distance_argmin and lloyd_stats assign every point
-// bit-identically.
+// distance_argmin, lloyd_stats and weiszfeld_stats all assign through
+// tile_argmin, so they assign every point bit-identically (see the note on
+// tile shapes below).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -40,9 +40,17 @@ struct Tile {
 
 // General tile: 16 lanes across centres, 64 points x 64 centres.
 using WideTile = Tile<16, 4, 4>;
+// Small query buckets (serving): a warp across centres, 8 points x 64
+// centres, so an 8-row tenant fills its block.
+using NarrowTile = Tile<32, 1, 2>;
 // One centre (D^2 seeding): one lane per point, 256 points.
 using SingleTile = Tile<1, 1, 1>;
 static_assert(WideTile::BK == kCenterTile, "centre tile mismatch");
+static_assert(NarrowTile::BK == kCenterTile, "centre tile mismatch");
+// Every tile shape gives the same result for a point: each (point, centre)
+// distance is the same chain of roundings whatever the shape, and the
+// reduction returns the least value and, among equal values, the lowest
+// index, in any order of comparison.
 
 // `P` points at the tile's first row (row-major, `d` features), `rows` of
 // its BN rows are real; `C` holds k_pad centres (k_pad % BK == 0; padded

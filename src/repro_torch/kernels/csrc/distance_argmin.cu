@@ -74,3 +74,27 @@ extern "C" int distance_argmin_launch(const float* P, const float* C,
   return launch<WideTile>(distance_argmin_kernel<16, 4, 4>, P, C, out_min,
                           out_arg, S, M, k_pad, d, st);
 }
+
+// The stacked-tenant entry (replaces the Pallas TPU kernel
+// src/repro/kernels/distance_argmin.py:distance_argmin_batched, whose grid
+// (T, m/bn, k/bk) led with the tenant axis): T tenants' queries (T, m, d)
+// against their own centres (T, k_pad, d), tenant on blockIdx.y. Masked
+// centre rows arrive at the sentinel. Serving's query buckets are small
+// (m from 8 rows), so up to 32 rows per tenant take the 8-point tile;
+// larger buckets take the general one. Any tile shape gives what
+// distance_argmin_launch gives for the same tenant (argmin_tile.cuh), so a
+// fused dispatch equals a loop of single-tenant launches bit for bit.
+extern "C" int distance_argmin_batched_launch(const float* P, const float* C,
+                                              float* out_min, int* out_arg,
+                                              int T, int m, int k_pad, int d,
+                                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k_pad == 1)
+    return launch<SingleTile>(distance_argmin_kernel<1, 1, 1>, P, C, out_min,
+                              out_arg, T, m, k_pad, d, st);
+  if (m <= 4 * NarrowTile::BN)
+    return launch<NarrowTile>(distance_argmin_kernel<32, 1, 2>, P, C, out_min,
+                              out_arg, T, m, k_pad, d, st);
+  return launch<WideTile>(distance_argmin_kernel<16, 4, 4>, P, C, out_min,
+                          out_arg, T, m, k_pad, d, st);
+}

@@ -20,6 +20,7 @@
 // L1/L2). The per-block accumulators need k (d + 1) floats of shared
 // memory, the limit ops.py checks (LLOYD_RESIDENT_FLOATS).
 #include "argmin_tile.cuh"
+#include "partials.cuh"
 
 namespace {
 
@@ -92,19 +93,6 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == last) out[E - 1] = cost;
 }
 
-// out[b][e] = sum over the site's blocks g, in order, of partials[b][g][e]
-__global__ void __launch_bounds__(kThreads)
-    lloyd_reduce_kernel(const float* __restrict__ partials,
-                        float* __restrict__ out, int G, int E) {
-  const int b = blockIdx.y;
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= E) return;
-  const float* p = partials + (size_t)b * G * E + e;
-  float s = 0.f;
-  for (int g = 0; g < G; ++g) s += p[(size_t)g * E];
-  out[(size_t)b * E + e] = s;
-}
-
 template <typename T, typename K>
 int launch(K kernel, const float* P, const float* C, const float* W,
            float* partials, float* out, int S, int M, int k, int k_pad, int d,
@@ -120,9 +108,7 @@ int launch(K kernel, const float* P, const float* C, const float* W,
                                                  k_pad, d, rows_per_block);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  lloyd_reduce_kernel<<<dim3((E + kThreads - 1) / kThreads, S), kThreads, 0,
-                        stream>>>(partials, out, G, E);
-  return (int)cudaGetLastError();
+  return (int)launch_partials_reduce(partials, out, S, G, E, stream);
 }
 
 }  // namespace

@@ -20,8 +20,11 @@ from repro_torch.kernels._build import Kernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-KERNEL = Kernel("distance_argmin", "distance_argmin_launch",
-                [_P, _P, _P, _P, _I, _I, _I, _I, _P])
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+KERNEL = Kernel("distance_argmin", "distance_argmin_launch", _ARGS)
+KERNEL_BATCHED = Kernel("distance_argmin_batched",
+                        "distance_argmin_batched_launch", _ARGS,
+                        library="distance_argmin")
 
 # centres per tile of the general tile shape; must equal kCenterTile in
 # csrc/argmin_tile.cuh (the kernel refuses other paddings)
@@ -57,6 +60,24 @@ def distance_argmin(points: torch.Tensor, centers: torch.Tensor
     ``(S, k_pad, d)`` f32 with ``k_pad`` a multiple of
     :func:`center_tile` (padded rows at ``ref.CENTER_SENTINEL``) ->
     ``(min_d2 (S, M) f32, argmin (S, M) i32)``."""
+    return _launch(KERNEL, points, centers)
+
+
+def distance_argmin_batched(queries: torch.Tensor, centers: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The stacked-tenant entry (it replaces
+    ``src/repro/kernels/distance_argmin.py:distance_argmin_batched``): one
+    launch over T tenants, queries ``(T, m, d)`` and centres
+    ``(T, k_pad, d)`` (masked rows at ``ref.CENTER_SENTINEL``), shapes as
+    :func:`distance_argmin`. It takes a narrower point tile for small
+    query buckets, and gives bit for bit what a loop of
+    :func:`distance_argmin` over the tenants gives; it counts its launches
+    apart, so a run shows that serving went through it."""
+    return _launch(KERNEL_BATCHED, queries, centers)
+
+
+def _launch(kernel: Kernel, points: torch.Tensor, centers: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     check_cuda(points, "points", 3)
     check_cuda(centers, "centers", 3)
     S, M, d = points.shape
@@ -78,11 +99,11 @@ def distance_argmin(points: torch.Tensor, centers: torch.Tensor
     out_arg = torch.empty((S, M), dtype=torch.int32, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = KERNEL.fn()(points.data_ptr(), centers.data_ptr(),
+        rc = kernel.fn()(points.data_ptr(), centers.data_ptr(),
                          out_min.data_ptr(), out_arg.data_ptr(), S, M, k_pad,
                          d, stream)
     if rc != 0:
-        raise RuntimeError(f"distance_argmin launch failed with CUDA error "
+        raise RuntimeError(f"{kernel.name} launch failed with CUDA error "
                            f"{rc}")
-    KERNEL.launches += 1
+    kernel.launches += 1
     return out_min, out_arg

@@ -23,8 +23,8 @@ from repro_torch.kernels.distance_argmin import center_tile, check_cuda
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-KERNEL = Kernel("lloyd_stats", "lloyd_stats_launch",
-                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+STATS_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+KERNEL = Kernel("lloyd_stats", "lloyd_stats_launch", STATS_ARGS)
 
 # rows each block owns: sets the number of partials of a site
 # (ceil(M / ROWS_PER_BLOCK)), and so the order of the final sum
@@ -43,6 +43,16 @@ def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
     ``(S, k_pad, d)`` (the first ``k`` rows real, the rest at
     ``ref.CENTER_SENTINEL``), weights ``(S, M)``, all f32 ->
     ``(sums (S, k, d), counts (S, k), cost (S,))``."""
+    return launch_stats(KERNEL, points, centers, weights, k)
+
+
+def launch_stats(kernel: Kernel, points: torch.Tensor, centers: torch.Tensor,
+                 weights: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Check the inputs and launch a fused statistics kernel: one with the
+    C interface of ``lloyd_stats_launch``, whose output is per-block
+    partials of ``k d + k + 1`` floats summed in block order
+    (``csrc/partials.cuh``). Returns the three blocks of the sum."""
     check_cuda(points, "points", 3)
     check_cuda(centers, "centers", 3)
     check_cuda(weights, "weights", 2)
@@ -66,7 +76,7 @@ def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
     if k * (d + 1) > RESIDENT_FLOATS:
         raise ValueError(f"k (d + 1) = {k * (d + 1)} floats exceed the "
                          f"{RESIDENT_FLOATS} the kernel keeps in shared "
-                         f"memory; ops.lloyd_stats takes the two-pass form")
+                         f"memory; ops.{kernel.name} takes the two-pass form")
     if S > 65535:
         raise ValueError(f"{S} sites exceed the grid's 65535")
     E = k * d + k + 1
@@ -76,12 +86,13 @@ def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
     out = torch.empty((S, E), dtype=torch.float32, device=points.device)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = KERNEL.fn()(points.data_ptr(), centers.data_ptr(),
+        rc = kernel.fn()(points.data_ptr(), centers.data_ptr(),
                          weights.data_ptr(), partials.data_ptr(),
                          out.data_ptr(), S, M, k, k_pad, d, ROWS_PER_BLOCK,
                          stream)
     if rc != 0:
-        raise RuntimeError(f"lloyd_stats launch failed with CUDA error {rc}")
-    KERNEL.launches += 1
+        raise RuntimeError(f"{kernel.name} launch failed with CUDA error "
+                           f"{rc}")
+    kernel.launches += 1
     return (out[:, :k * d].view(S, k, d), out[:, k * d:k * d + k],
             out[:, -1])

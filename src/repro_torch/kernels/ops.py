@@ -15,29 +15,83 @@ with ``(S, k, d)`` centres -- and then serves all sites in ONE launch, as
   the kernels mask the ragged tile edge themselves, which computes what
   zero-weight padded rows and zero features would. Point rows that callers
   pad (``pad_partition``'s slots) carry weight 0 and add nothing.
-* **Resident-centres limit.** ``lloyd_stats`` keeps each block's sums and
-  counts, ``k (d + 1)`` floats, in shared memory:
+* **Resident-centres limit.** ``lloyd_stats`` and ``weiszfeld_stats``
+  keep each block's accumulators, ``k (d + 1)`` floats, in shared memory:
   ``LLOYD_RESIDENT_FLOATS = 47104`` floats (184 KiB of the 227 KiB a block
-  may use on Hopper). The TPU kernel's limit was ``k d <= 2**20`` floats of
-  resident centres (4 MiB of VMEM). Above the limit :func:`lloyd_stats`
-  takes the two-pass form: the ``distance_argmin`` kernel, then the
-  weighted one-hot product (a plain matrix product, as the JAX package
-  left it to XLA).
-* **Launch counts.** :data:`KERNELS` lists each kernel with its
-  ``launches`` counter.
+  may use on Hopper). The TPU kernels' limit was ``k d <= 2**20`` floats of
+  resident centres (4 MiB of VMEM). Above the limit both take the two-pass
+  form: the ``distance_argmin`` kernel, then the reduction given the
+  assignment (a plain one-hot product, as the JAX package left it to XLA).
+* **Launch counts.** :data:`KERNELS` lists each kernel entry with its
+  ``launches`` counter (the batched argmin is an entry of the
+  ``distance_argmin`` library with a counter of its own).
+* **Query buckets.** :func:`query_bucket`, :func:`pad_queries` and
+  :func:`chunk_queries` bound the shapes serving dispatches to powers of
+  two (DESIGN.md Sec. 9).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import distance_argmin as _da
 from repro_torch.kernels import lloyd_update as _lu
 from repro_torch.kernels import ref
+from repro_torch.kernels import weiszfeld as _wz
 
 LLOYD_RESIDENT_FLOATS = _lu.RESIDENT_FLOATS
-KERNELS = (_da.KERNEL, _lu.KERNEL)
+KERNELS = (_da.KERNEL, _lu.KERNEL, _wz.KERNEL, _da.KERNEL_BATCHED)
+
+
+def query_bucket(n: int, min_bucket: int = 8,
+                 max_bucket: Optional[int] = None) -> int:
+    """The padded row count serving uses for an ``n``-row (chunk of a)
+    query batch: the next power of two, clamped to ``[min_bucket,
+    max_bucket]``, so the reachable set is ``{min_bucket, 2 min_bucket,
+    ..., max_bucket}`` whatever the traffic. ``n`` exceeds ``max_bucket``
+    only through :func:`chunk_queries`."""
+    b = max(min_bucket, 1 << max(n - 1, 0).bit_length())
+    if max_bucket is not None:
+        if max_bucket < min_bucket:
+            raise ValueError(f"max_bucket {max_bucket} < min_bucket "
+                             f"{min_bucket}")
+        b = min(b, max_bucket)
+    return b
+
+
+def pad_queries(points: torch.Tensor, min_bucket: int = 8,
+                max_bucket: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+    """Pad a query batch ``(n, d)`` with zero rows to its
+    :func:`query_bucket`; returns the padded batch and ``n`` (callers slice
+    results back with it). An empty batch pads up to ``min_bucket`` rows; a
+    batch above ``max_bucket`` raises: split it with
+    :func:`chunk_queries`."""
+    n = points.shape[0]
+    cap = query_bucket(n, min_bucket, max_bucket)
+    if n > cap:
+        raise ValueError(
+            f"query batch of {n} rows exceeds max_bucket={max_bucket}; "
+            f"split it with chunk_queries() instead")
+    return torch.nn.functional.pad(points, (0, 0, 0, cap - n)), n
+
+
+def chunk_queries(points: torch.Tensor, min_bucket: int = 8,
+                  max_bucket: Optional[int] = None
+                  ) -> List[Tuple[torch.Tensor, int, int]]:
+    """Split a query batch ``(n, d)`` into ``max_bucket``-row chunks, each
+    padded to its own bucket: ``[(padded, n_chunk, offset), ...]``. An
+    empty batch gives one all-padding chunk (``n_chunk == 0``)."""
+    n = points.shape[0]
+    step = max_bucket if max_bucket is not None else max(n, 1)
+    out = []
+    off = 0
+    while True:
+        part = points[off:off + step]
+        out.append(pad_queries(part, min_bucket, max_bucket) + (off,))
+        off += part.shape[0]
+        if off >= n:
+            return out
 
 
 def pad_centers(centers: torch.Tensor) -> torch.Tensor:
@@ -73,22 +127,59 @@ def min_dist_argmin(points: torch.Tensor, centers: torch.Tensor
     return (md[0], am[0]) if squeeze else (md, am)
 
 
+def min_dist_argmin_batched(queries: torch.Tensor, centers: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stacked tenants: ``(T, m, d), (T, k, d) -> ((T, m) f32, (T, m)
+    i32)`` in one launch of the batched entry; per tenant what
+    :func:`min_dist_argmin` gives. Masked centre rows arrive at the
+    sentinel (``backend.query_assignments_batched`` fills them)."""
+    if not queries.is_cuda:
+        return ref.min_dist_argmin_batched_ref(queries, centers)
+    if queries.ndim != 3 or centers.ndim != 3:
+        raise ValueError(f"queries {tuple(queries.shape)} and centers "
+                         f"{tuple(centers.shape)} must both be 3-D")
+    return _da.distance_argmin_batched(queries.contiguous(),
+                                       pad_centers(centers))
+
+
+def _fused_stats(kernel_fn, plain_fn, reduce_fn, points, centers, weights):
+    """The shared dispatch of the fused statistics kernels: the two-pass
+    form above the resident limit, the plain version on the CPU, else one
+    launch over all sites."""
+    k, d = centers.shape[-2], centers.shape[-1]
+    if weights is None:
+        weights = points.new_ones(points.shape[:-1], dtype=torch.float32)
+    if k * (d + 1) > LLOYD_RESIDENT_FLOATS:
+        min_d2, assign = min_dist_argmin(points, centers)
+        return reduce_fn(points, centers, weights, min_d2, assign)
+    if not points.is_cuda:
+        return plain_fn(points, centers, weights)
+    p, c, squeeze = _sites(points, centers)
+    w = weights.unsqueeze(0) if squeeze else weights
+    out = kernel_fn(p.contiguous(), pad_centers(c), w.contiguous(), k)
+    return tuple(x[0] for x in out) if squeeze else out
+
+
 def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
                 weights: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused Lloyd statistics ``(sums (..., k, d), counts (..., k),
     cost (...))``; two passes when ``k (d + 1)`` exceeds
     :data:`LLOYD_RESIDENT_FLOATS`."""
-    k, d = centers.shape[-2], centers.shape[-1]
-    if weights is None:
-        weights = points.new_ones(points.shape[:-1], dtype=torch.float32)
-    if k * (d + 1) > LLOYD_RESIDENT_FLOATS:
-        min_d2, assign = min_dist_argmin(points, centers)
-        return ref.lloyd_reduce(points, k, weights, min_d2, assign)
-    if not points.is_cuda:
-        return ref.lloyd_stats_ref(points, centers, weights)
-    p, c, squeeze = _sites(points, centers)
-    w = weights.unsqueeze(0) if squeeze else weights
-    sums, counts, cost = _lu.lloyd_stats(p.contiguous(), pad_centers(c),
-                                         w.contiguous(), k)
-    return (sums[0], counts[0], cost[0]) if squeeze else (sums, counts, cost)
+    return _fused_stats(
+        _lu.lloyd_stats, ref.lloyd_stats_ref,
+        lambda p, c, w, md, am: ref.lloyd_reduce(p, c.shape[-2], w, md, am),
+        points, centers, weights)
+
+
+def weiszfeld_stats(points: torch.Tensor, centers: torch.Tensor,
+                    weights: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused Weiszfeld statistics ``(nums (..., k, d), denoms (..., k),
+    cost (...))`` (k-median); two passes -- the ``distance_argmin`` kernel,
+    then :func:`ref.weiszfeld_reduce` -- when ``k (d + 1)`` exceeds
+    :data:`LLOYD_RESIDENT_FLOATS`, the limit the kernel itself checks."""
+    return _fused_stats(
+        _wz.weiszfeld_stats, ref.weiszfeld_stats_ref,
+        lambda p, c, w, md, am: ref.weiszfeld_reduce(p, c, w, am),
+        points, centers, weights)

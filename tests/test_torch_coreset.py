@@ -284,7 +284,7 @@ def test_unknown_strategy_and_objective_raise():
     with pytest.raises(ValueError, match="unknown strategy"):
         strategy.resolve_name("algorithm2")
     with pytest.raises(ValueError, match="not yet ported"):
-        objective.resolve_name("kmedian")
+        objective.resolve_name("power(3)")
     with pytest.raises(ValueError, match="not yet ported"):
         objective.resolve_name("kmeans_trimmed(5)")
     with pytest.raises(ValueError, match="unknown objective"):

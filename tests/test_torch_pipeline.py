@@ -144,7 +144,7 @@ def test_engines_and_routings_not_ported_raise(instance):
                       ({"routing": "min_cost"}, "not yet ported"),
                       ({"routing": "nope"}, "unknown routing"),
                       ({"strategy": "cohen_addad"}, "not yet ported"),
-                      ({"objective": "kmedian"}, "not yet ported")):
+                      ({"objective": "power(3)"}, "not yet ported")):
         with pytest.raises(ValueError, match=match):
             distributed.graph_distributed_kmeans(prng.PRNGKey(0), sp, sm, K,
                                                  T, g, device="cpu", **kw)
