@@ -15,9 +15,11 @@ Phases (any failed check raises, and the script exits non-zero):
    argmin flips (each must be a near tie) and, for the fused statistics,
    arithmetic error against the reduction recomputed from the kernel's own
    assignment are reported apart; reruns must be bit-identical, and the
-   batched argmin must equal a loop of single-tenant launches bit for bit.
-   Then time kernel, plain version and a PyTorch library yardstick, beside
-   the bound from the shapes.
+   batched argmin must equal a loop of single-tenant launches bit for bit,
+   and the one-centre kernel (D^2 seeding) must equal the general tile with
+   the centre padded to 64 sentinel rows bit for bit, at the sites' and
+   (phase 3) the coreset's shapes. Then time kernel, plain version and a
+   PyTorch library yardstick, beside the bound from the shapes.
 3. The main path at full size -- ``graph_distributed_kmeans`` on the
    yearpredictionmsd stand-in (515,345 x 90, k=50), 100 sites on a 10x10
    grid, t = 3 k n = 15,000, flood and BFS-tree routes -- with the cost
@@ -158,6 +160,7 @@ def main(argv=None) -> int:
     from repro_torch.core.topology import bfs_spanning_tree, grid
     from repro_torch.data.synthetic import paper_dataset
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import distance_argmin as da
     from repro_torch.serve import ClusterServeEngine, StaticCenters
 
     t_all = time.perf_counter()
@@ -188,6 +191,13 @@ def main(argv=None) -> int:
     for name, r in built.items():
         for line in r.ptxas:
             print(f"  ptxas[{name}]: {line}")
+    # ptxas's lines from each one-centre entry function to the next entry
+    entry = False
+    for line in built["distance_argmin"].ptxas:
+        if "entry function" in line:
+            entry = "one_center" in line
+        if entry:
+            print(f"  one-centre kernel: {line}")
     # four kernel entries with their own counters over three libraries
     check(set(built) == {k.library for k in ops.KERNELS}
           and len({k.name for k in ops.KERNELS}) == 4,
@@ -329,8 +339,39 @@ def main(argv=None) -> int:
     print("phase 2: kernels against their plain versions on the card")
     c_main = rows(pts, k)
     w_main = torch.rand(n, generator=gen).to(dev)
+
+    def check_one_center(label, p, c1):
+        """The one-centre kernel, as D^2 seeding calls it, against the plain
+        version, and bit for bit against the general tile with the centre
+        padded to CENTER_TILE rows at the sentinel."""
+        md, am, _, _ = check_distance(label, p, c1)
+        p3, c3 = (p, c1) if p.ndim == 3 else (p[None], c1[None])
+        pad = c3.new_full((c3.shape[0], da.CENTER_TILE - 1, c3.shape[2]),
+                          ref.CENTER_SENTINEL)
+        mg, ag = da.distance_argmin(p3, torch.cat([c3, pad], 1))
+        torch.cuda.synchronize()
+        check(torch.equal(md, mg.view_as(md)) and torch.equal(
+            am, ag.view_as(am)), f"one-centre kernel [{label}] differs from "
+            f"the general tile")
+        print(f"  distance_argmin[{label}]: one-centre kernel equal bit for "
+              f"bit to the general tile (centre padded to "
+              f"{da.CENTER_TILE} sentinel rows)")
+
+    def time_one_center(label, p, c1):
+        """Print kernel, plain version and library yardstick (ms), bound and
+        the kernel's fraction of it, for one seeding step at p's shape."""
+        S1, M1 = (p.shape[0], p.shape[1]) if p.ndim == 3 else (1, p.shape[0])
+        t = (cuda_ms(lambda: ops.min_dist_argmin(p, c1)),
+             cuda_ms(lambda: ref.min_dist_argmin_ref(p, c1)),
+             cuda_ms(lambda: torch.cdist(p, c1).min(-1)),
+             *bound(*distance_work(S1, M1, 1, p.shape[-1])))
+        print(f"  distance_argmin one-centre [{label}] {tuple(p.shape)}: "
+              f"kernel {t[0]:.4f}, plain {t[1]:.4f}, library (cdist + min) "
+              f"{t[2]:.4f}, bound {t[3]:.4f} ({t[4]}); kernel at "
+              f"{t[3] / t[0]:.3f} of the bound")
+
     _, _, _, da_err = check_distance("full data", pts, c_main)
-    check_distance("sites, seeding", sp, rows(sp, 1))
+    check_one_center("sites, seeding", sp, rows(sp, 1))
     c_sites = rows(sp, k)
     check_distance("sites", sp, c_sites)
     ls_err = check_lloyd("full data", pts, c_main, w_main)
@@ -455,10 +496,8 @@ def main(argv=None) -> int:
               f"{k_sum} live centres): kernel {db[m][0]:.4f}, plain (loop) "
               f"{db[m][1]:.4f}, library (batched cdist + min) "
               f"{db[m][2]:.4f}, bound {b_ms:.4f} ({b_by})")
-    c1 = rows(sp, 1)
+    time_one_center("sites", sp, rows(sp, 1))
     for label, fn, work in (
-            ("distance_argmin sites seeding", lambda: ops.min_dist_argmin(
-                sp, c1), distance_work(S, M, 1, d)),
             ("distance_argmin sites", lambda: ops.min_dist_argmin(
                 sp, c_sites), distance_work(S, M, k, d)),
             ("lloyd_stats sites", lambda: ops.lloyd_stats(
@@ -468,6 +507,9 @@ def main(argv=None) -> int:
         b_ms, b_by = bound(*work)
         print(f"  {label} ({S} x {M}): kernel {cuda_ms(fn):.4f}, bound "
               f"{b_ms:.4f} ({b_by})")
+    # the general tile's one launch per route (the sensitivities) is here
+    print(f"  distance_argmin sites, library (cdist + min): "
+          f"{cuda_ms(lambda: torch.cdist(sp, c_sites).min(-1)):.4f}")
 
     # -- phase 3: the main path at full size ----------------------------------
     lap("data + phase 2")
@@ -564,11 +606,18 @@ def main(argv=None) -> int:
         for a in top[:6]:
             print(f"    {getattr(a, 'device_time_total', 0.0) / 1e3:9.2f} ms "
                   f"x{a.count:6d} {a.key[:90]}")
+        seeding = [a for a in top if "one_center" in a.key]
+        seed_ms = sum(getattr(a, "device_time_total", 0.0)
+                      for a in seeding) / 1e3
+        print(f"  traced one-centre kernel (D^2 seeding): {seed_ms:.2f} ms "
+              f"of device time over {sum(a.count for a in seeding)} "
+              f"launches")
     else:
         print("  idle share: not measured (the profiler saw no device events)")
 
     # the kernels at the coreset's shapes of this run
-    check_distance("coreset seeding", cs.points, rows(cs.points, 1))
+    check_one_center("coreset seeding", cs.points, rows(cs.points, 1))
+    time_one_center("coreset", cs.points, rows(cs.points, 1))
     check_lloyd("coreset", cs.points, flood.centers, cs.weights)
     b_ms, b_by = bound(*lloyd_work(1, cs.points.shape[0], k, d))
     ls_cs = cuda_ms(lambda: ops.lloyd_stats(cs.points, flood.centers,

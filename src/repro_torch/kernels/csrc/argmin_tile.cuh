@@ -43,14 +43,18 @@ using WideTile = Tile<16, 4, 4>;
 // Small query buckets (serving): a warp across centres, 8 points x 64
 // centres, so an 8-row tenant fills its block.
 using NarrowTile = Tile<32, 1, 2>;
-// One centre (D^2 seeding): one lane per point, 256 points.
+// One centre in lloyd_stats and weiszfeld_stats: one lane per point, 256
+// points. distance_argmin's one-centre path (D^2 seeding) does not come
+// here: distance_one_center_kernel (distance_argmin.cu) copies the points
+// once with cp.async and keeps the same chain of roundings per pair.
 using SingleTile = Tile<1, 1, 1>;
 static_assert(WideTile::BK == kCenterTile, "centre tile mismatch");
 static_assert(NarrowTile::BK == kCenterTile, "centre tile mismatch");
 // Every tile shape gives the same result for a point: each (point, centre)
-// distance is the same chain of roundings whatever the shape, and the
-// reduction returns the least value and, among equal values, the lowest
-// index, in any order of comparison.
+// distance is the same chain of roundings whatever the shape -- p2, c2 and
+// p.c as fmaf chains over j = 0..d-1 from 0.f, then (p2 + c2) - 2 p.c,
+// clamped at 0 -- and the reduction returns the least value and, among
+// equal values, the lowest index, in any order of comparison.
 
 // `P` points at the tile's first row (row-major, `d` features), `rows` of
 // its BN rows are real; `C` holds k_pad centres (k_pad % BK == 0; padded

@@ -8,14 +8,21 @@
 // Bound on an H100: at the main path's shapes (k = 50, d = 90) the work is
 // 2 k d flops per point against 4 d bytes read, ~25 flops per byte: above
 // the fp32 CUDA-core ridge (67 TFLOP/s over 3.35 TB/s, ~20), so it is bound
-// by operations. With one centre (D^2 seeding) it reads 4 d bytes for 2 d
-// flops and is bound by bytes.
-// Design: each block owns a tile of points and sweeps every centre tile
-// through shared memory, keeping the running min/argmin in registers
-// (argmin_tile.cuh); the (n, k) matrix is never written. Wide and one-centre
-// tile shapes keep both regimes busy. fp32 FMAs on the CUDA cores, not the
-// tensor cores: TF32 would flip argmins, and exact-fp32 tensor-core
-// emulation is later work.
+// by operations. With one centre (D^2 seeding, k launches in a row) it reads
+// 4 d bytes for 3 d flops and is bound by bytes: 0.234 ms for the 100 x
+// 21,280 x 90 sites.
+// Design: with k_pad > 1 each block owns a tile of points and sweeps every
+// centre tile through shared memory, keeping the running min/argmin in
+// registers (argmin_tile.cuh); the (n, k) matrix is never written. fp32
+// FMAs on the CUDA cores, not the tensor cores: TF32 would flip argmins,
+// and exact-fp32 tensor-core emulation is later work. With k_pad == 1 a
+// kernel of its own streams the points once, coalesced, through shared
+// memory (distance_one_center_kernel below).
+#include <limits.h>
+
+#include <algorithm>
+#include <atomic>
+
 #include "argmin_tile.cuh"
 
 namespace {
@@ -60,6 +67,264 @@ int launch(K kernel, const float* P, const float* C, float* out_min,
   return (int)cudaGetLastError();
 }
 
+// ---- one centre per site (D^2 seeding) ------------------------------------
+//
+// With one centre the work is a stream: each point row is read once and
+// meets d centre values. The (S, M, d) points are one contiguous run of
+// S M rows (row r belongs to site r / M), so the kernel tiles that flat run
+// and never leaves a ragged tail in every site. Persistent blocks (as many
+// as fit on the card) walk the tiles; each tile's bytes go to shared memory
+// once, coalesced, with cp.async, and one thread then walks one row in
+// shared memory in feature order, loading kOneCenterUnroll features ahead
+// of their chain, and keeps the chain of roundings of tile_argmin
+// (argmin_tile.cuh) for the pair:
+//   p2 = fmaf(p[j], p[j], .), c2 = fmaf(c[j], c[j], .), acc = fmaf(p[j],
+//   c[j], .) over j = 0..d-1 from 0.f, then (p2 + c2) - 2 acc clamped at 0,
+// so its output equals the general tile's with the centre padded to 64 rows
+// bit for bit. A NaN distance gives +inf and index 0, as the strict `<` of
+// tile_argmin does. The centre row is read from L1 (a few hundred bytes per
+// site, the same address across a warp).
+//
+// Two layouts of a stage:
+// * flat (any d, any alignment): the tile's span of rows x d floats is
+//   copied as it lies, 16 bytes at a time with a scalar head and tail to
+//   reach the 16-byte boundaries; the stage is offset by the span's
+//   misalignment so both sides of every 16-byte copy are aligned. A span
+//   longer than the stage goes through it in several steps, each thread
+//   taking the part of its row that a step holds. Threads read at a stride
+//   of d words: at most 2-way bank conflicts when d % 4 != 0.
+// * rows (d % 4 == 0 and 16-byte-aligned points): each row goes to its own
+//   slot of s floats, s / 4 odd, and threads read 16 bytes at a time, so
+//   every quarter-warp touches 8 distinct 16-byte bank groups: power-of-two
+//   d (32-way conflicts in the flat layout) costs no conflicts.
+// Launch shape, measured on an H100 (PERF.md): the per-row chain, not the
+// copy, is what needs hiding, so the most rows computing at once wins. One
+// stage of 128 rows per block lets an SM hold four blocks (16 warps); their
+// copies and chains overlap each other, so a block waits for its own copy
+// before it computes. Rings of 2 or 3 stages per block hold fewer rows per
+// SM and were slower.
+constexpr int kOneCenterThreads = 128;  // rows per flat tile, one per thread
+// floats per stage: a whole 128-row tile for d <= 96 (d = 90: 46 KB)
+constexpr int kOneCenterChunk = kOneCenterThreads * 96;
+constexpr int kOneCenterStageFloats = kOneCenterChunk + 4;  // + head offset
+// features a thread loads before it runs their chain: the loads of a group
+// are in flight together instead of one latency per feature
+constexpr int kOneCenterUnroll = 16;
+static_assert(kOneCenterUnroll % 4 == 0, "whole float4s per group");
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// One feature of the chain, in tile_argmin's order and roundings.
+__device__ __forceinline__ void one_center_step(float v, float w, float& p2,
+                                                float& c2, float& acc) {
+  p2 = fmaf(v, v, p2);
+  c2 = fmaf(w, w, c2);
+  acc = fmaf(v, w, acc);
+}
+
+__device__ __forceinline__ int misalignment(const float* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// Which floats of a tile a stage holds: rows * d floats from the tile's
+// first row, cut into chunks of kOneCenterChunk (flat layout; the rows
+// layout holds a whole tile in one stage).
+template <bool kRows>
+__device__ __forceinline__ int chunks_of(int rows, int d) {
+  return kRows ? 1 : (rows * d + kOneCenterChunk - 1) / kOneCenterChunk;
+}
+
+template <bool kRows>
+__device__ __forceinline__ void copy_stage(float* stage,
+                                           const float* __restrict__ P,
+                                           long long r0, int rows, int chunk,
+                                           int d, int stride) {
+  const int tid = threadIdx.x;
+  if (kRows) {
+    const int dq = d >> 2;
+    const float* src = P + r0 * d;
+    for (int e = tid; e < rows * dq; e += kOneCenterThreads) {
+      const int r = e / dq, q = e - r * dq;
+      cp_async16(stage + r * stride + 4 * q, src + (size_t)r * d + 4 * q);
+    }
+    return;
+  }
+  const int c0 = chunk * kOneCenterChunk;
+  const int len = min(rows * d - c0, kOneCenterChunk);
+  const float* src = P + r0 * d + c0;
+  float* dst = stage + misalignment(src);  // dst % 16 bytes == src % 16
+  const int head = min(len, (4 - misalignment(src)) & 3);
+  const int nvec = (len - head) >> 2;
+  const int body = head + 4 * nvec;
+  for (int i = tid; i < nvec; i += kOneCenterThreads)
+    cp_async16(dst + head + 4 * i, src + head + 4 * i);
+  if (tid < head) cp_async4(dst + tid, src + tid);
+  if (tid < len - body) cp_async4(dst + body + tid, src + body + tid);
+}
+
+template <bool kRows>
+__global__ void __launch_bounds__(kOneCenterThreads)
+    distance_one_center_kernel(const float* __restrict__ P,
+                               const float* __restrict__ C,
+                               float* __restrict__ out_min,
+                               int* __restrict__ out_arg, long long R, int M,
+                               int d, int stride, int tile_rows) {
+  extern __shared__ float4 smem4[];
+  float* stage = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  const long long tiles = (R + tile_rows - 1) / tile_rows;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long r0 = t * tile_rows;
+    const int rows = (int)min((long long)tile_rows, R - r0);
+    const long long row = r0 + tid;
+    const float* c = C + (tid < rows ? row / M : 0) * d;
+    float p2 = 0.f, c2 = 0.f, acc = 0.f;
+    const int nch = chunks_of<kRows>(rows, d);
+    for (int ch = 0; ch < nch; ++ch) {
+      copy_stage<kRows>(stage, P, r0, rows, ch, d, stride);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();  // every thread's copies into the stage have landed
+      if (tid < rows) {
+        if (kRows) {
+          const float4* x =
+              reinterpret_cast<const float4*>(stage + tid * stride);
+          constexpr int U4 = kOneCenterUnroll / 4;
+          const int dq = d >> 2;
+          int q = 0;
+          for (; q + U4 <= dq; q += U4) {
+            float4 v[U4];
+            float w[4 * U4];
+#pragma unroll
+            for (int u = 0; u < U4; ++u) v[u] = x[q + u];
+#pragma unroll
+            for (int u = 0; u < 4 * U4; ++u) w[u] = __ldg(c + 4 * q + u);
+#pragma unroll
+            for (int u = 0; u < U4; ++u) {
+              one_center_step(v[u].x, w[4 * u], p2, c2, acc);
+              one_center_step(v[u].y, w[4 * u + 1], p2, c2, acc);
+              one_center_step(v[u].z, w[4 * u + 2], p2, c2, acc);
+              one_center_step(v[u].w, w[4 * u + 3], p2, c2, acc);
+            }
+          }
+          for (; q < dq; ++q) {
+            const float4 v = x[q];
+            one_center_step(v.x, __ldg(c + 4 * q), p2, c2, acc);
+            one_center_step(v.y, __ldg(c + 4 * q + 1), p2, c2, acc);
+            one_center_step(v.z, __ldg(c + 4 * q + 2), p2, c2, acc);
+            one_center_step(v.w, __ldg(c + 4 * q + 3), p2, c2, acc);
+          }
+        } else {
+          // this stage holds floats [c0, c1) of the tile; the row [a, a + d)
+          const int c0 = ch * kOneCenterChunk;
+          const int c1 = min(rows * d, c0 + kOneCenterChunk);
+          const int a = tid * d;
+          const int f0 = max(a, c0), f1 = min(a + d, c1);
+          const float* x = stage + misalignment(P + r0 * d + c0) - c0;
+          constexpr int U = kOneCenterUnroll;
+          int f = f0;
+          for (; f + U <= f1; f += U) {
+            float v[U], w[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              v[u] = x[f + u];
+              w[u] = __ldg(c + (f - a) + u);
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              one_center_step(v[u], w[u], p2, c2, acc);
+          }
+          for (; f < f1; ++f)
+            one_center_step(x[f], __ldg(c + (f - a)), p2, c2, acc);
+        }
+      }
+      __syncthreads();  // the stage is read; the next step refills it
+    }
+    if (tid < rows) {
+      float x = __fsub_rn(__fadd_rn(p2, c2), __fmul_rn(2.f, acc));
+      x = x < 0.f ? 0.f : x;
+      out_min[row] = x < INFINITY ? x : INFINITY;  // NaN -> +inf, index 0
+      out_arg[row] = 0;
+    }
+  }
+}
+
+constexpr int kOneCenterSmem = (int)sizeof(float) * kOneCenterStageFloats;
+
+// Persistent blocks: as many as fit on the card at once, at most one a tile.
+// That number depends only on the device, so it is worked out (and the
+// kernel's shared-memory limit raised) at the first launch on each device;
+// D^2 seeding's serial launches then pay one cudaGetDevice each.
+template <bool kRows>
+cudaError_t one_center_grid(long long tiles, int* grid) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> resident[kMaxDevices];  // 0: not worked out yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int blocks = resident[dev].load(std::memory_order_relaxed);
+  if (blocks == 0) {
+    auto kernel = distance_one_center_kernel<kRows>;
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kOneCenterSmem)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kernel, kOneCenterThreads, kOneCenterSmem)) !=
+            cudaSuccess)
+      return err;
+    blocks = sms * std::max(per_sm, 1);
+    resident[dev].store(blocks, std::memory_order_relaxed);
+  }
+  *grid = (int)std::min(tiles, (long long)blocks);
+  return cudaSuccess;
+}
+
+template <bool kRows>
+int launch_one_center_as(const float* P, const float* C, float* out_min,
+                         int* out_arg, long long R, int M, int d, int stride,
+                         int tile_rows, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = one_center_grid<kRows>((R + tile_rows - 1) / tile_rows,
+                                           &grid);
+  if (err != cudaSuccess) return (int)err;
+  distance_one_center_kernel<kRows>
+      <<<grid, kOneCenterThreads, kOneCenterSmem, stream>>>(
+          P, C, out_min, out_arg, R, M, d, stride, tile_rows);
+  return (int)cudaGetLastError();
+}
+
+// points (S, M, d) and one centre per site (S, 1, d): the rows layout where
+// the points allow it, else the flat one.
+int launch_one_center(const float* P, const float* C, float* out_min,
+                      int* out_arg, int S, int M, int d, cudaStream_t stream) {
+  if ((long long)kOneCenterThreads * d > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long R = (long long)S * M;
+  const int stride = (d >> 2) & 1 ? d : d + 4;  // stride / 4 odd
+  if (d % 4 == 0 && (reinterpret_cast<uintptr_t>(P) & 15) == 0 &&
+      stride <= kOneCenterChunk)
+    return launch_one_center_as<true>(
+        P, C, out_min, out_arg, R, M, d, stride,
+        std::min(kOneCenterThreads, kOneCenterChunk / stride), stream);
+  return launch_one_center_as<false>(P, C, out_min, out_arg, R, M, d, d,
+                                     kOneCenterThreads, stream);
+}
+
 }  // namespace
 
 // points (S, M, d), centres (S, k_pad, d), outputs (S, M); all contiguous.
@@ -69,8 +334,7 @@ extern "C" int distance_argmin_launch(const float* P, const float* C,
                                       int M, int k_pad, int d, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k_pad == 1)
-    return launch<SingleTile>(distance_argmin_kernel<1, 1, 1>, P, C, out_min,
-                              out_arg, S, M, k_pad, d, st);
+    return launch_one_center(P, C, out_min, out_arg, S, M, d, st);
   return launch<WideTile>(distance_argmin_kernel<16, 4, 4>, P, C, out_min,
                           out_arg, S, M, k_pad, d, st);
 }
@@ -82,16 +346,16 @@ extern "C" int distance_argmin_launch(const float* P, const float* C,
 // centre rows arrive at the sentinel. Serving's query buckets are small
 // (m from 8 rows), so up to 32 rows per tenant take the 8-point tile;
 // larger buckets take the general one. Any tile shape gives what
-// distance_argmin_launch gives for the same tenant (argmin_tile.cuh), so a
-// fused dispatch equals a loop of single-tenant launches bit for bit.
+// distance_argmin_launch gives for the same tenant (argmin_tile.cuh), and
+// one centre per tenant takes the same one-centre kernel, so a fused
+// dispatch equals a loop of single-tenant launches bit for bit.
 extern "C" int distance_argmin_batched_launch(const float* P, const float* C,
                                               float* out_min, int* out_arg,
                                               int T, int m, int k_pad, int d,
                                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k_pad == 1)
-    return launch<SingleTile>(distance_argmin_kernel<1, 1, 1>, P, C, out_min,
-                              out_arg, T, m, k_pad, d, st);
+    return launch_one_center(P, C, out_min, out_arg, T, m, d, st);
   if (m <= 4 * NarrowTile::BN)
     return launch<NarrowTile>(distance_argmin_kernel<32, 1, 2>, P, C, out_min,
                               out_arg, T, m, k_pad, d, st);

@@ -33,7 +33,9 @@ CENTER_TILE = 64
 
 def center_tile(k: int) -> int:
     """The padded centre count the kernel takes for ``k`` centres is a
-    multiple of this: the one-centre tile for k == 1, else CENTER_TILE."""
+    multiple of this: 1 for k == 1 (the one-centre kernel, which gives
+    what the general tile gives for the centre padded to CENTER_TILE rows,
+    bit for bit), else CENTER_TILE."""
     return 1 if k == 1 else CENTER_TILE
 
 

@@ -173,3 +173,83 @@ def test_cuda_batched_argmin_equals_per_tenant_loop(cuda, T, m, k, d):
     np.testing.assert_allclose(md.cpu().numpy(), md_r.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
     _assert_argmins(md.cpu(), am.cpu(), md_r.cpu(), am_r.cpu())
+
+
+def _with_sentinels(c):
+    """One centre per site ``(S, 1, d)`` padded to the general tile's
+    ``CENTER_TILE`` rows with the sentinel, so the entries take the
+    general (or narrow) tile instead of the one-centre kernel."""
+    pad = c.new_full((c.shape[0], da_mod.CENTER_TILE - 1, c.shape[2]),
+                     ref.CENTER_SENTINEL)
+    return torch.cat([c, pad], dim=1)
+
+
+def _points_at_offset(rng, S, M, d, offset, device):
+    """``(S, M, d)`` standard-normal points as a contiguous view that starts
+    ``offset`` floats into its storage (odd offsets misalign the rows), with
+    one row holding a NaN."""
+    buf = torch.empty(S * M * d + offset, device=device)
+    p = buf[offset:].view(S, M, d)
+    p.copy_(torch.tensor(rng.standard_normal((S, M, d)),
+                         dtype=torch.float32))
+    p[S - 1, M // 2, 0] = float("nan")
+    assert p.is_contiguous() and p.storage_offset() == offset
+    return p
+
+
+# M = 40 lies below one tile of the one-centre kernel (128 rows in the flat
+# layout, 47 in the row layout at d = 256); 1001 is a multiple of neither.
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [1, 3, 33, 90, 256])
+@pytest.mark.parametrize("S,M", [(1, 40), (1, 1001), (7, 40), (7, 1001)])
+def test_cuda_one_center_equals_general_tile(cuda, S, M, d, offset):
+    """Both C entries at k_pad = 1 (the one-centre kernel) against the same
+    entry with the centre padded to 64 sentinel rows (the general tile):
+    the same chain of roundings, so equal bit for bit; a NaN row gives +inf
+    at index 0 in both; a second launch is bit-identical."""
+    rng = np.random.default_rng(1000 * S + M + 7 * d + offset)
+    p = _points_at_offset(rng, S, M, d, offset, cuda)
+    c = torch.tensor(rng.standard_normal((S, 1, d)), dtype=torch.float32,
+                     device=cuda)
+    wide = _with_sentinels(c)
+    for entry, kern in ((da_mod.distance_argmin, da_mod.KERNEL),
+                        (da_mod.distance_argmin_batched,
+                         da_mod.KERNEL_BATCHED)):
+        before = kern.launches
+        md, am = entry(p, c)
+        again = entry(p, c)
+        md_g, am_g = entry(p, wide)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 3
+        assert torch.equal(md, md_g) and torch.equal(am, am_g)
+        assert torch.equal(md, again[0]) and torch.equal(am, again[1])
+        assert not bool(am.any())
+        assert float(md[S - 1, M // 2]) == float("inf")
+        finite = torch.ones_like(md, dtype=torch.bool)
+        finite[S - 1, M // 2] = False
+        assert bool(torch.isfinite(md[finite]).all())
+    # and within float32 tolerance of the plain version off the NaN row
+    md_r, _ = ref.min_dist_argmin_ref(p, c)
+    np.testing.assert_allclose(md[finite].cpu().numpy(),
+                               md_r[finite].cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_one_center_reruns_bit_identical_at_seeding_shape(cuda):
+    """Seeding's shape with fewer rows per site (100 sites, d = 90) through
+    ops.min_dist_argmin, as _kmeans_pp_init calls it: two launches equal bit
+    for bit, and equal to the padded general tile."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    p = torch.randn(100, 2128, 90, generator=g).to(cuda)
+    c = p[:, 17:18].clone()
+    before = da_mod.KERNEL.launches
+    first = ops.min_dist_argmin(p, c)
+    second = ops.min_dist_argmin(p, c)
+    general = da_mod.distance_argmin(p, _with_sentinels(c))
+    torch.cuda.synchronize()
+    assert da_mod.KERNEL.launches == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(first, general))
+    assert float(first[0][:, 17].abs().max()) <= 1e-3
