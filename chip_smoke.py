@@ -19,20 +19,24 @@ Phases (any failed check raises, and the script exits non-zero):
    and the one-centre kernel (D^2 seeding) must equal the general tile with
    the centre padded to 64 sentinel rows bit for bit, at the sites' and
    (phase 3) the coreset's shapes. Then time kernel, plain version and a
-   PyTorch library yardstick, beside the bound from the shapes.
+   PyTorch library yardstick, beside the bound from the shapes, at full
+   data and (all three general kernels) at the sites' shape.
 3. The main path at full size -- ``graph_distributed_kmeans`` on the
    yearpredictionmsd stand-in (515,345 x 90, k=50), 100 sites on a 10x10
    grid, t = 3 k n = 15,000, flood and BFS-tree routes -- with the cost
    ratio against the centralized baseline, ledgers, wall per phase,
    launches per kernel (counted from zero just before each route), peak
-   device memory, the device's idle share, and a bit-identical second run.
+   device memory, a bit-identical second run, and one traced flood run:
+   device busy time, idle share, the seeding kernel's device time.
 4. The whole path with ``backend="cuda"`` against ``backend="torch"`` at
    scale 0.1: ``t_i`` and ledgers equal, centers within tolerance.
 5. Path A: the same instance as phase 3 with ``objective="kmedian"`` on
    both routes -- cost ratio against a centralized k-median solve, ledgers
    against the analytic ones, launches (weiszfeld_stats 2 x 8 x 4,
    distance_argmin 2k + 1, lloyd_stats 0), wall per phase, peak memory, a
-   bit-identical rerun.
+   bit-identical rerun, and one traced flood run (the same window as phase
+   3's): device busy time, idle share, weiszfeld_stats' device time over
+   its 64 launches.
 6. Path B: one ``ClusterServeEngine`` with 256 tenants (the centres of
    phases 3 and 5 and 254 static ones) serving 20 steps of bursts; every
    result equal bit for bit to a per-tenant ``query_assignments`` on the
@@ -205,7 +209,7 @@ def main(argv=None) -> int:
           f"{[(k.name, k.library) for k in ops.KERNELS]}")
 
     def reset_counts():
-        for kern in ops.KERNELS:
+        for kern in (*ops.KERNELS, da.ONE_CENTER):
             kern.launches = 0
 
     def counts():
@@ -275,7 +279,7 @@ def main(argv=None) -> int:
         again = ops.weiszfeld_stats(p, c, w)
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
               f"weiszfeld_stats[{label}] differs between two runs")
-        # weiszfeld_stats and distance_argmin assign through one routine
+        # weiszfeld_stats assigns every point bit for bit as distance_argmin
         _, am, ar, _ = check_distance(f"{label}, assignment", p, c)
         nr, dr, cr = ref.weiszfeld_reduce(p, c, w, am)
         idx = am.long()[..., None].expand(*am.shape, p.shape[-1])
@@ -344,7 +348,7 @@ def main(argv=None) -> int:
         """The one-centre kernel, as D^2 seeding calls it, against the plain
         version, and bit for bit against the general tile with the centre
         padded to CENTER_TILE rows at the sentinel."""
-        md, am, _, _ = check_distance(label, p, c1)
+        md, am, _, err = check_distance(label, p, c1)
         p3, c3 = (p, c1) if p.ndim == 3 else (p[None], c1[None])
         pad = c3.new_full((c3.shape[0], da.CENTER_TILE - 1, c3.shape[2]),
                           ref.CENTER_SENTINEL)
@@ -356,6 +360,7 @@ def main(argv=None) -> int:
         print(f"  distance_argmin[{label}]: one-centre kernel equal bit for "
               f"bit to the general tile (centre padded to "
               f"{da.CENTER_TILE} sentinel rows)")
+        return err
 
     def time_one_center(label, p, c1):
         """Print kernel, plain version and library yardstick (ms), bound and
@@ -369,9 +374,11 @@ def main(argv=None) -> int:
               f"kernel {t[0]:.4f}, plain {t[1]:.4f}, library (cdist + min) "
               f"{t[2]:.4f}, bound {t[3]:.4f} ({t[4]}); kernel at "
               f"{t[3] / t[0]:.3f} of the bound")
+        return t
 
     _, _, _, da_err = check_distance("full data", pts, c_main)
-    check_one_center("sites, seeding", sp, rows(sp, 1))
+    c_seed = rows(sp, 1)
+    oc_err = check_one_center("sites, seeding", sp, c_seed)
     c_sites = rows(sp, k)
     check_distance("sites", sp, c_sites)
     ls_err = check_lloyd("full data", pts, c_main, w_main)
@@ -451,13 +458,40 @@ def main(argv=None) -> int:
     ls_ms = cuda_ms(lambda: ops.lloyd_stats(p2d, c2d, w_main))
     ls_plain = cuda_ms(lambda: ref.lloyd_stats_ref(p2d, c2d, w_main))
 
-    def lloyd_library():
-        dist, a = torch.cdist(p2d, c2d).min(-1)
-        torch.zeros(k, d, device=dev).index_add_(0, a, w_main[:, None] * p2d)
-        torch.zeros(k, device=dev).index_add_(0, a, w_main)
-        return (w_main * dist * dist).sum()
+    def flat_assign(p, c):
+        """The library's assignment (cdist + min, an optional site axis):
+        distances, argmins, the argmins as rows of (sites k, ...)
+        accumulators, and their number."""
+        dist, a = torch.cdist(p, c).min(-1)
+        sites = p.shape[0] if p.ndim == 3 else 1
+        off = torch.arange(sites, device=dev)[:, None] * c.shape[-2]
+        return dist, a, (a.view(sites, -1) + off).reshape(-1), \
+            sites * c.shape[-2]
 
-    ls_lib = cuda_ms(lloyd_library)
+    def lloyd_library(p, c, w):
+        """The Lloyd statistics by PyTorch's own calls: cdist + argmin +
+        two index_add_."""
+        dist, _, flat, nk = flat_assign(p, c)
+        dd = c.shape[-1]
+        torch.zeros(nk, dd, device=dev).index_add_(
+            0, flat, (w[..., None] * p).reshape(-1, dd))
+        torch.zeros(nk, device=dev).index_add_(0, flat, w.reshape(-1))
+        return (w * dist * dist).sum(-1)
+
+    def weiszfeld_library(p, c, w):
+        """The Weiszfeld statistics by PyTorch's own calls: cdist + argmin
+        + gather + two index_add_."""
+        _, a, flat, nk = flat_assign(p, c)
+        dd = c.shape[-1]
+        diff = p - torch.gather(c, -2, a[..., None].expand(*a.shape, dd))
+        d2 = (diff * diff).sum(-1)
+        inv = w.clamp_min(0.0) / torch.sqrt(d2 + ref.WEISZFELD_ETA2)
+        torch.zeros(nk, dd, device=dev).index_add_(
+            0, flat, (inv[..., None] * p).reshape(-1, dd))
+        torch.zeros(nk, device=dev).index_add_(0, flat, inv.reshape(-1))
+        return (w * torch.sqrt(d2)).sum(-1)
+
+    ls_lib = cuda_ms(lambda: lloyd_library(p2d, c2d, w_main))
     da_bound, da_by = bound(*distance_work(1, n, k, d))
     ls_bound, ls_by = bound(*lloyd_work(1, n, k, d))
     print(f"  timing at n={n} k={k} d={d} (ms, mean of 20):")
@@ -470,16 +504,7 @@ def main(argv=None) -> int:
     wz_ms = cuda_ms(lambda: ops.weiszfeld_stats(p2d, c2d, w_signed))
     wz_plain = cuda_ms(lambda: ref.weiszfeld_stats_ref(p2d, c2d, w_signed))
 
-    def weiszfeld_library():
-        _, a = torch.cdist(p2d, c2d).min(-1)
-        diff = p2d - c2d[a]
-        d2 = (diff * diff).sum(-1)
-        inv = w_signed.clamp_min(0.0) / torch.sqrt(d2 + ref.WEISZFELD_ETA2)
-        torch.zeros(k, d, device=dev).index_add_(0, a, inv[:, None] * p2d)
-        torch.zeros(k, device=dev).index_add_(0, a, inv)
-        return (w_signed * torch.sqrt(d2)).sum()
-
-    wz_lib = cuda_ms(weiszfeld_library)
+    wz_lib = cuda_ms(lambda: weiszfeld_library(p2d, c2d, w_signed))
     wz_bound, wz_by = bound(*weiszfeld_work(1, n, k, d))
     print(f"  weiszfeld_stats: kernel {wz_ms:.4f}, plain {wz_plain:.4f}, "
           f"library (cdist + argmin + gather + index_add_) {wz_lib:.4f}, "
@@ -496,20 +521,26 @@ def main(argv=None) -> int:
               f"{k_sum} live centres): kernel {db[m][0]:.4f}, plain (loop) "
               f"{db[m][1]:.4f}, library (batched cdist + min) "
               f"{db[m][2]:.4f}, bound {b_ms:.4f} ({b_by})")
-    time_one_center("sites", sp, rows(sp, 1))
-    for label, fn, work in (
-            ("distance_argmin sites", lambda: ops.min_dist_argmin(
-                sp, c_sites), distance_work(S, M, k, d)),
-            ("lloyd_stats sites", lambda: ops.lloyd_stats(
-                sp, c_sites, sm.float()), lloyd_work(S, M, k, d)),
-            ("weiszfeld_stats sites", lambda: ops.weiszfeld_stats(
-                sp, c_sites, sm.float()), weiszfeld_work(S, M, k, d))):
+    oc = time_one_center("sites", sp, c_seed)
+    w_sites = sm.float()
+    for label, fn, lib, work in (
+            ("distance_argmin", lambda: ops.min_dist_argmin(sp, c_sites),
+             ("cdist + min", lambda: torch.cdist(sp, c_sites).min(-1)),
+             distance_work(S, M, k, d)),
+            ("lloyd_stats", lambda: ops.lloyd_stats(sp, c_sites, w_sites),
+             ("cdist + argmin + index_add_",
+              lambda: lloyd_library(sp, c_sites, w_sites)),
+             lloyd_work(S, M, k, d)),
+            ("weiszfeld_stats", lambda: ops.weiszfeld_stats(
+                sp, c_sites, w_sites),
+             ("cdist + argmin + gather + index_add_",
+              lambda: weiszfeld_library(sp, c_sites, w_sites)),
+             weiszfeld_work(S, M, k, d))):
         b_ms, b_by = bound(*work)
-        print(f"  {label} ({S} x {M}): kernel {cuda_ms(fn):.4f}, bound "
-              f"{b_ms:.4f} ({b_by})")
-    # the general tile's one launch per route (the sensitivities) is here
-    print(f"  distance_argmin sites, library (cdist + min): "
-          f"{cuda_ms(lambda: torch.cdist(sp, c_sites).min(-1)):.4f}")
+        ms = cuda_ms(fn)
+        print(f"  {label} sites ({S} x {M}): kernel {ms:.4f}, library "
+              f"(batched {lib[0]}) {cuda_ms(lib[1]):.4f}, bound {b_ms:.4f} "
+              f"({b_by}); kernel at {b_ms / ms:.3f} of the bound")
 
     # -- phase 3: the main path at full size ----------------------------------
     lap("data + phase 2")
@@ -521,6 +552,47 @@ def main(argv=None) -> int:
     print(f"  centralized baseline (3 restarts, 12 Lloyd steps) cost "
           f"{base_cost:.6g} in {time.perf_counter() - t0:.2f} s")
     check(np.isfinite(base_cost) and base_cost > 0, "baseline cost")
+
+    def traced_route(label, run, kernel):
+        """Trace one run of a route: wall, device busy time (the union of
+        the device operations' spans), idle share, the six kernels with the
+        most device time, and the device time and launches of the kernels
+        whose name holds ``kernel[0]`` (printed as ``kernel[1]``)."""
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if not spans:
+            print(f"  traced {label} run: idle share not measured (the "
+                  f"profiler saw no device events)")
+            return
+        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy = (busy + cur_e - cur_s) / 1e6
+        print(f"  traced {label} run: wall {traced_wall:.3f} s, device busy "
+              f"{busy:.3f} s over {len(spans)} device operations, idle "
+              f"share {1 - busy / traced_wall:.3f} (tracing on)")
+        top = sorted(prof.key_averages(),
+                     key=lambda a: -getattr(a, "device_time_total", 0.0))
+        for a in top[:6]:
+            print(f"    {getattr(a, 'device_time_total', 0.0) / 1e3:9.2f} ms "
+                  f"x{a.count:6d} {a.key[:90]}")
+        hits = [a for a in top if kernel[0] in a.key]
+        hit_ms = sum(getattr(a, "device_time_total", 0.0) for a in hits) / 1e3
+        print(f"  traced {kernel[1]}: {hit_ms:.2f} ms of device time over "
+              f"{sum(a.count for a in hits)} launches")
 
     def drive(routing, backend=None, points=sp, mask=sm, times=None):
         return graph_distributed_kmeans(
@@ -540,6 +612,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[routing] = counts()
+        one_center_launches = da.ONE_CENTER.launches
         peak = torch.cuda.max_memory_allocated() / 2**30
         results[routing] = res
         ratio = float(clustering.cost(pts, res.centers, device=dev)) / base_cost
@@ -561,6 +634,11 @@ def main(argv=None) -> int:
         # (not per site): k seeding steps + 1 in Round 1, k in the solve
         check(launches[routing]["distance_argmin"] == 2 * k + 1,
               f"{routing}: distance_argmin launches {launches[routing]}")
+        # all but the sensitivities' launch take the one-centre kernel
+        check(one_center_launches == 2 * k,
+              f"{routing}: {one_center_launches} one-centre launches")
+        if routing == "flood":
+            oc_launches = one_center_launches
         check(launches[routing]["lloyd_stats"] == 2 * 8,
               f"{routing}: lloyd_stats launches {launches[routing]}")
         check(launches[routing]["weiszfeld_stats"] == 0
@@ -577,43 +655,8 @@ def main(argv=None) -> int:
     print(f"  coreset {tuple(cs.points.shape)} with "
           f"{int(cs.effective_size())} weighted slots")
 
-    # the device's idle share over one traced run of the flood route
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        drive("flood")
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if spans:
-        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-        for s, e in spans[1:]:
-            if s > cur_e:
-                busy += cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy = (busy + cur_e - cur_s) / 1e6
-        print(f"  traced flood run: wall {traced_wall:.3f} s, device busy "
-              f"{busy:.3f} s over {len(spans)} device operations, idle "
-              f"share {1 - busy / traced_wall:.3f} (tracing on)")
-        top = sorted(prof.key_averages(),
-                     key=lambda a: -getattr(a, "device_time_total", 0.0))
-        for a in top[:6]:
-            print(f"    {getattr(a, 'device_time_total', 0.0) / 1e3:9.2f} ms "
-                  f"x{a.count:6d} {a.key[:90]}")
-        seeding = [a for a in top if "one_center" in a.key]
-        seed_ms = sum(getattr(a, "device_time_total", 0.0)
-                      for a in seeding) / 1e3
-        print(f"  traced one-centre kernel (D^2 seeding): {seed_ms:.2f} ms "
-              f"of device time over {sum(a.count for a in seeding)} "
-              f"launches")
-    else:
-        print("  idle share: not measured (the profiler saw no device events)")
+    traced_route("flood", lambda: drive("flood"),
+                 ("one_center", "one-centre kernel (D^2 seeding)"))
 
     # the kernels at the coreset's shapes of this run
     check_one_center("coreset seeding", cs.points, rows(cs.points, 1))
@@ -740,6 +783,8 @@ def main(argv=None) -> int:
           "k-median second run: centers not bit-identical")
     print(f"  ledgers equal the analytic ones (t_i sum {int(t_i.sum())}); "
           f"flood and BFS centres bit-identical; second run bit-identical")
+    traced_route("k-median flood", lambda: drive_md("flood"),
+                 ("weiszfeld_stats_kernel", "weiszfeld_stats kernel"))
     cs_md = md_results["flood"].coreset
     check_weiszfeld("k-median coreset", cs_md.points,
                     md_results["flood"].centers, cs_md.weights)
@@ -859,6 +904,12 @@ def main(argv=None) -> int:
     print(f"phase walls (s): {json.dumps(walls)}")
     print(f"total wall {time.perf_counter() - t_all:.1f} s")
     kernels = [
+        {"name": "distance_one_center", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
+         "replaces": "src/repro/kernels/distance_argmin.py:131",
+         "launches": oc_launches, "max_abs_err": oc_err, "ms": oc[0],
+         "plain_ms": oc[1], "bound_ms": oc[3], "bound_by": oc[4],
+         "library_ms": oc[2]},
         {"name": "distance_argmin", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
          "replaces": "src/repro/kernels/distance_argmin.py:131",

@@ -197,13 +197,27 @@ def build_coreset(key, points, k: int, t: int, weights=None,
                           Coreset(centers[0], w_b[0]))
 
 
-def _sequential_sum(x: torch.Tensor) -> torch.Tensor:
-    """Float32 sum of a short vector from left to right: the order XLA's CPU
-    reduction takes for up to 16 elements, and the same on every device."""
-    total = x[0]
-    for i in range(1, x.shape[0]):
-        total = total + x[i]
-    return total
+# width of the windows of XLA's CPU reduction of a long vector
+_SUM_WINDOW = 32
+
+
+def _windowed_sum(x: torch.Tensor) -> torch.Tensor:
+    """Float32 sum of a vector in the order of ``jnp.sum`` on the CPU (XLA's
+    CPU reduction), the same on every device: up to 32 elements, left to
+    right from 0; above that, the vector zero-padded to a multiple of 32
+    (``pad // 2`` zeros in front, the rest behind), each window of 32 summed
+    from 0 left to right, and the same rule applied to the window sums until
+    one is left. Whole-tensor adds: 32 per level, none per element."""
+    while True:
+        pad = -x.shape[0] % _SUM_WINDOW if x.shape[0] else _SUM_WINDOW
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        windows = x.reshape(-1, _SUM_WINDOW)
+        total = windows.new_zeros(windows.shape[0])
+        for j in range(_SUM_WINDOW):
+            total = total + windows[:, j]
+        if total.shape[0] == 1:
+            return total[0]
+        x = total
 
 
 def proportional_allocation(costs: torch.Tensor, t: int) -> torch.Tensor:
@@ -218,12 +232,12 @@ def proportional_allocation(costs: torch.Tensor, t: int) -> torch.Tensor:
     the site count is awarded cyclically. Ratio-first: costs/total <= 1
     never overflows, while t * costs can reach inf around 1e36 in f32."""
     n_sites = costs.shape[0]
-    total = _sequential_sum(costs)
+    total = _windowed_sum(costs)
     frac = torch.where(total > _TINY,
                        t * (costs / torch.clamp_min(total, _TINY)),
                        torch.full_like(costs, t / n_sites))
     base = torch.floor(frac)
-    rem = t - int(_sequential_sum(base))
+    rem = t - int(_windowed_sum(base))
     fr = frac - base
     rank_hi = torch.argsort(torch.argsort(-fr, stable=True), stable=True)
     pos = max(rem, 0)
@@ -296,7 +310,7 @@ def distributed_coreset(key, site_points, site_mask, k: int, t: int,
     with _phase(phase_times, "round2", dev):
         local_costs = r1.local_costs
         t_i = strat.allocate(local_costs, t)
-        totals = _sequential_sum(local_costs).expand(n_sites)
+        totals = _windowed_sum(local_costs).expand(n_sites)
         portions = strat.contribute(keys[:, 1], site_points, r1, t_i, totals,
                                     k=k, t=t, t_buffer=t_buffer,
                                     clip_negative=clip_negative)

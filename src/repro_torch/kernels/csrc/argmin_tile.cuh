@@ -10,8 +10,9 @@
 // merge with (value, index) order, so the lowest index wins ties, as
 // jnp.argmin does. The (n, k) matrix never leaves registers.
 //
-// distance_argmin, lloyd_stats and weiszfeld_stats all assign through
-// tile_argmin, so they assign every point bit-identically (see the note on
+// distance_argmin and lloyd_stats assign through tile_argmin, and
+// weiszfeld_stats keeps its arithmetic with both operands resident in shared
+// memory, so all three assign every point bit-identically (see the note on
 // tile shapes below).
 #pragma once
 
@@ -43,10 +44,10 @@ using WideTile = Tile<16, 4, 4>;
 // Small query buckets (serving): a warp across centres, 8 points x 64
 // centres, so an 8-row tenant fills its block.
 using NarrowTile = Tile<32, 1, 2>;
-// One centre in lloyd_stats and weiszfeld_stats: one lane per point, 256
-// points. distance_argmin's one-centre path (D^2 seeding) does not come
-// here: distance_one_center_kernel (distance_argmin.cu) copies the points
-// once with cp.async and keeps the same chain of roundings per pair.
+// One centre in lloyd_stats: one lane per point, 256 points.
+// distance_argmin's one-centre path (D^2 seeding) does not come here:
+// distance_one_center_kernel (distance_argmin.cu) copies the points once
+// with cp.async and keeps the same chain of roundings per pair.
 using SingleTile = Tile<1, 1, 1>;
 static_assert(WideTile::BK == kCenterTile, "centre tile mismatch");
 static_assert(NarrowTile::BK == kCenterTile, "centre tile mismatch");

@@ -24,6 +24,7 @@
 #include <atomic>
 
 #include "argmin_tile.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -112,30 +113,12 @@ constexpr int kOneCenterStageFloats = kOneCenterChunk + 4;  // + head offset
 constexpr int kOneCenterUnroll = 16;
 static_assert(kOneCenterUnroll % 4 == 0, "whole float4s per group");
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
 // One feature of the chain, in tile_argmin's order and roundings.
 __device__ __forceinline__ void one_center_step(float v, float w, float& p2,
                                                 float& c2, float& acc) {
   p2 = fmaf(v, v, p2);
   c2 = fmaf(w, w, c2);
   acc = fmaf(v, w, acc);
-}
-
-__device__ __forceinline__ int misalignment(const float* p) {
-  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
 }
 
 // Which floats of a tile a stage holds: rows * d floats from the tile's

@@ -25,6 +25,10 @@ KERNEL = Kernel("distance_argmin", "distance_argmin_launch", _ARGS)
 KERNEL_BATCHED = Kernel("distance_argmin_batched",
                         "distance_argmin_batched_launch", _ARGS,
                         library="distance_argmin")
+# the one-centre kernel that both entries launch for k_pad == 1 (D^2
+# seeding): its launches are counted here as well as under the entry's own
+ONE_CENTER = Kernel("distance_one_center", "distance_argmin_launch", _ARGS,
+                    library="distance_argmin")
 
 # centres per tile of the general tile shape; must equal kCenterTile in
 # csrc/argmin_tile.cuh (the kernel refuses other paddings)
@@ -108,4 +112,6 @@ def _launch(kernel: Kernel, points: torch.Tensor, centers: torch.Tensor
         raise RuntimeError(f"{kernel.name} launch failed with CUDA error "
                            f"{rc}")
     kernel.launches += 1
+    if k_pad == 1:
+        ONE_CENTER.launches += 1
     return out_min, out_arg

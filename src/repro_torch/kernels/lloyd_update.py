@@ -13,7 +13,7 @@ version for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -43,16 +43,25 @@ def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
     ``(S, k_pad, d)`` (the first ``k`` rows real, the rest at
     ``ref.CENTER_SENTINEL``), weights ``(S, M)``, all f32 ->
     ``(sums (S, k, d), counts (S, k), cost (S,))``."""
-    return launch_stats(KERNEL, points, centers, weights, k)
+    return launch_stats(KERNEL, points, centers, weights, k, fits)
+
+
+def fits(k: int, d: int) -> bool:
+    """Whether the accumulators of ``k`` centres of ``d`` features fit the
+    kernel's shared memory (:data:`RESIDENT_FLOATS`)."""
+    return k * (d + 1) <= RESIDENT_FLOATS
 
 
 def launch_stats(kernel: Kernel, points: torch.Tensor, centers: torch.Tensor,
-                 weights: torch.Tensor, k: int
+                 weights: torch.Tensor, k: int,
+                 fits_kernel: Callable[[int, int], bool]
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Check the inputs and launch a fused statistics kernel: one with the
     C interface of ``lloyd_stats_launch``, whose output is per-block
     partials of ``k d + k + 1`` floats summed in block order
-    (``csrc/partials.cuh``). Returns the three blocks of the sum."""
+    (``csrc/partials.cuh``), and whose shared memory holds ``k`` centres
+    of ``d`` features where ``fits_kernel(k, d)``. Returns the three blocks
+    of the sum."""
     check_cuda(points, "points", 3)
     check_cuda(centers, "centers", 3)
     check_cuda(weights, "weights", 2)
@@ -73,10 +82,10 @@ def launch_stats(kernel: Kernel, points: torch.Tensor, centers: torch.Tensor,
     if k_pad % center_tile(k_pad):
         raise ValueError(f"{k_pad} centre rows are not a multiple of the "
                          f"centre tile")
-    if k * (d + 1) > RESIDENT_FLOATS:
-        raise ValueError(f"k (d + 1) = {k * (d + 1)} floats exceed the "
-                         f"{RESIDENT_FLOATS} the kernel keeps in shared "
-                         f"memory; ops.{kernel.name} takes the two-pass form")
+    if not fits_kernel(k, d):
+        raise ValueError(f"{k} centres of {d} features exceed the shared "
+                         f"memory of {kernel.name}; ops.{kernel.name} takes "
+                         f"the two-pass form")
     if S > 65535:
         raise ValueError(f"{S} sites exceed the grid's 65535")
     E = k * d + k + 1

@@ -15,13 +15,16 @@ with ``(S, k, d)`` centres -- and then serves all sites in ONE launch, as
   the kernels mask the ragged tile edge themselves, which computes what
   zero-weight padded rows and zero features would. Point rows that callers
   pad (``pad_partition``'s slots) carry weight 0 and add nothing.
-* **Resident-centres limit.** ``lloyd_stats`` and ``weiszfeld_stats``
-  keep each block's accumulators, ``k (d + 1)`` floats, in shared memory:
-  ``LLOYD_RESIDENT_FLOATS = 47104`` floats (184 KiB of the 227 KiB a block
-  may use on Hopper). The TPU kernels' limit was ``k d <= 2**20`` floats of
-  resident centres (4 MiB of VMEM). Above the limit both take the two-pass
-  form: the ``distance_argmin`` kernel, then the reduction given the
-  assignment (a plain one-hot product, as the JAX package left it to XLA).
+* **Resident limits.** ``lloyd_stats`` keeps each block's accumulators,
+  ``k (d + 1)`` floats, in shared memory: ``LLOYD_RESIDENT_FLOATS = 47104``
+  floats (184 KiB of the 227 KiB a block may use on Hopper).
+  ``weiszfeld_stats`` also keeps the site's centres and one point tile
+  there: :func:`repro_torch.kernels.weiszfeld.fits` holds its count
+  against ``weiszfeld.RESIDENT_FLOATS`` (227 KiB). The TPU kernels' limit
+  was ``k d <= 2**20`` floats of resident centres (4 MiB of VMEM). Above
+  its limit each takes the two-pass form: the ``distance_argmin`` kernel,
+  then the reduction given the assignment (a plain one-hot product, as the
+  JAX package left it to XLA).
 * **Launch counts.** :data:`KERNELS` lists each kernel entry with its
   ``launches`` counter (the batched argmin is an entry of the
   ``distance_argmin`` library with a counter of its own).
@@ -142,14 +145,15 @@ def min_dist_argmin_batched(queries: torch.Tensor, centers: torch.Tensor
                                        pad_centers(centers))
 
 
-def _fused_stats(kernel_fn, plain_fn, reduce_fn, points, centers, weights):
+def _fused_stats(kernel_fn, plain_fn, reduce_fn, fits, points, centers,
+                 weights):
     """The shared dispatch of the fused statistics kernels: the two-pass
-    form above the resident limit, the plain version on the CPU, else one
-    launch over all sites."""
+    form where ``fits(k, d)`` is false, the plain version on the CPU, else
+    one launch over all sites."""
     k, d = centers.shape[-2], centers.shape[-1]
     if weights is None:
         weights = points.new_ones(points.shape[:-1], dtype=torch.float32)
-    if k * (d + 1) > LLOYD_RESIDENT_FLOATS:
+    if not fits(k, d):
         min_d2, assign = min_dist_argmin(points, centers)
         return reduce_fn(points, centers, weights, min_d2, assign)
     if not points.is_cuda:
@@ -169,6 +173,7 @@ def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
     return _fused_stats(
         _lu.lloyd_stats, ref.lloyd_stats_ref,
         lambda p, c, w, md, am: ref.lloyd_reduce(p, c.shape[-2], w, md, am),
+        lambda k, d: k * (d + 1) <= LLOYD_RESIDENT_FLOATS,
         points, centers, weights)
 
 
@@ -177,9 +182,10 @@ def weiszfeld_stats(points: torch.Tensor, centers: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused Weiszfeld statistics ``(nums (..., k, d), denoms (..., k),
     cost (...))`` (k-median); two passes -- the ``distance_argmin`` kernel,
-    then :func:`ref.weiszfeld_reduce` -- when ``k (d + 1)`` exceeds
-    :data:`LLOYD_RESIDENT_FLOATS`, the limit the kernel itself checks."""
+    then :func:`ref.weiszfeld_reduce` -- where
+    :func:`repro_torch.kernels.weiszfeld.fits` is false, the limit the
+    kernel's wrapper itself checks."""
     return _fused_stats(
         _wz.weiszfeld_stats, ref.weiszfeld_stats_ref,
         lambda p, c, w, md, am: ref.weiszfeld_reduce(p, c, w, am),
-        points, centers, weights)
+        _wz.fits, points, centers, weights)

@@ -74,9 +74,11 @@ def test_proportional_allocation_edge_cases_exact(costs, t):
 
 def test_proportional_allocation_sweep_1e_minus30_to_1e38_exact():
     """tests/test_core_coreset.py's sign-safety sweep (2..16 sites, cost
-    scales 1e-30..1e38): the port's allocation equals the reference's
+    scales 1e-30..1e38), and 33, 100 and 128 sites, where XLA's CPU sum of
+    the costs is windowed: the port's allocation equals the reference's
     exactly, sums to t and stays non-negative."""
-    cases = itertools.product((2, 3, 7, 9, 16), (1, 10, 100, 512),
+    cases = itertools.product((2, 3, 7, 9, 16, 33, 100, 128),
+                              (1, 10, 100, 512),
                               range(-30, 39, 4), (0, 1))
     for n_sites, t, log_scale, seed in cases:
         rng = np.random.default_rng(seed * 1000 + n_sites)
@@ -85,6 +87,44 @@ def test_proportional_allocation_sweep_1e_minus30_to_1e38_exact():
         j, p = _alloc_both(costs, t)
         np.testing.assert_array_equal(p, j, err_msg=str((costs, t)))
         assert p.sum() == t and (p >= 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 64, 100, 128, 1000, 5000])
+def test_windowed_sum_is_bit_equal_to_jnp_sum(n):
+    """The allocation's total follows jnp.sum on the CPU bit for bit: left
+    to right up to 32 elements, windows of 32 above (float32 vectors over
+    eleven decades, several draws)."""
+    for seed in range(8):
+        rng = np.random.default_rng(10 * n + seed)
+        x = (rng.random(n) * 10.0 ** rng.integers(-5, 6, n)).astype(
+            np.float32)
+        got = coreset._windowed_sum(torch.from_numpy(x))
+        assert got.dtype == torch.float32 and got.shape == ()
+        assert np.float32(got) == np.float32(jnp.sum(jnp.asarray(x))), (
+            n, seed)
+
+
+def test_distributed_coreset_t_i_at_100_sites_equals_reference():
+    """The paper's 100 sites (t = 15,000, as in its evaluation): the port's
+    Round-1 costs, fed to the reference's allocation, give the port's t_i
+    exactly, and the Round-2 total is jnp.sum's."""
+    rng = np.random.default_rng(7)
+    data = (rng.standard_normal((3000, 4)) * rng.random((3000, 1)) * 5
+            ).astype(np.float32)
+    sp, sm = pad_partition(data, partition_indices(data, 100, "weighted",
+                                                   seed=2))
+    t = 15000
+    p = coreset.distributed_coreset(prng.PRNGKey(4), sp, sm, 3, t,
+                                    t_buffer=512, lloyd_iters=2,
+                                    device="cpu")
+    costs = p.local_costs.numpy()
+    assert costs.shape == (100,) and (costs >= 0).all()
+    want = np.asarray(jcoreset.proportional_allocation(jnp.asarray(costs),
+                                                       t))
+    np.testing.assert_array_equal(p.t_i.numpy(), want)
+    assert int(p.t_i.sum()) == t
+    assert np.float32(coreset._windowed_sum(p.local_costs)) == np.float32(
+        jnp.sum(jnp.asarray(costs)))
 
 
 # -- sampling -------------------------------------------------------------------

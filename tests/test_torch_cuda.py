@@ -92,15 +92,17 @@ def _weiszfeld_scale(p, c, w, am):
 
 def _check_weiszfeld(p, c, w):
     """ops.weiszfeld_stats on the card against the plain reduction of the
-    kernel's own assignment (weiszfeld_stats and distance_argmin assign
-    through one routine), within 1e-4 of the sums of |terms|; a rerun is
-    bit-identical."""
+    kernel's own assignment (weiszfeld_stats assigns bit for bit as
+    distance_argmin does), within 1e-4 of the sums of |terms|; a rerun is
+    bit-identical. Shapes whose block does not fit the kernel's shared
+    memory take the two-pass form and launch no weiszfeld_stats."""
     before = wz_mod.KERNEL.launches
     nums, denoms, cost = ops.weiszfeld_stats(p, c, w)
     again = ops.weiszfeld_stats(p, c, w)
     _, am = ops.min_dist_argmin(p, c)
     torch.cuda.synchronize()
-    assert wz_mod.KERNEL.launches == before + 2
+    fused = wz_mod.fits(c.shape[-2], c.shape[-1])
+    assert wz_mod.KERNEL.launches == before + (2 if fused else 0)
     assert all(torch.equal(a, b) for a, b in zip((nums, denoms, cost),
                                                  again))
     nr, dr, cr = ref.weiszfeld_reduce(p, c, w, am)
@@ -141,6 +143,106 @@ def test_cuda_weiszfeld_coincident_centres_and_ties(cuda):
     assert float(cost) == 0.0
     nums, denoms, _ = ops.weiszfeld_stats(p, torch.cat([c, c]), w)
     assert bool((denoms[35:] == 0).all()) and bool((nums[35:] == 0).all())
+
+
+# M = 1001 and 2113 are multiples of neither the 64-row tile nor the
+# 1,024-row block; k = 1 runs the same kernel with the centre padded to 64
+# sentinel columns in shared memory
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [1, 3, 33, 90, 256])
+@pytest.mark.parametrize("S,M,k", [(1, 1001, 50), (3, 2113, 1)])
+def test_cuda_weiszfeld_widths_offsets_and_ragged_rows(cuda, S, M, k, d,
+                                                       offset):
+    """The resident-centre kernel over feature widths, a points view at an
+    odd storage offset (the tile copy starts off a 16-byte boundary) and
+    ragged row counts, against the plain reduction of distance_argmin's
+    assignment; a rerun is bit-identical."""
+    rng = np.random.default_rng(100 * d + 10 * k + offset)
+    buf = torch.empty(S * M * d + offset, device=cuda)
+    p = buf[offset:].view(S, M, d)
+    p.copy_(torch.tensor(rng.standard_normal((S, M, d)),
+                         dtype=torch.float32))
+    assert p.is_contiguous() and p.storage_offset() == offset
+    c = torch.tensor(rng.standard_normal((S, k, d)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.standard_normal((S, M)), dtype=torch.float32,
+                     device=cuda)
+    _check_weiszfeld(p, c, w)
+
+
+@pytest.mark.cuda
+def test_cuda_weiszfeld_nan_row(cuda):
+    """A row holding a NaN is assigned centre 0 by both kernels (no
+    distance wins) and makes nums[0], denoms[0] and the cost NaN; every
+    other entry equals the plain reduction of the other rows within
+    tolerance (the plain one-hot product would spread the NaN over its
+    column: 0 * NaN is NaN)."""
+    rng = np.random.default_rng(11)
+    p = torch.tensor(rng.standard_normal((1001, 90)), dtype=torch.float32,
+                     device=cuda)
+    p[500, 7] = float("nan")
+    c = torch.tensor(rng.standard_normal((50, 90)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.rand(1001, device=cuda)
+    nums, denoms, cost = ops.weiszfeld_stats(p, c, w)
+    again = ops.weiszfeld_stats(p, c, w)
+    _, am = ops.min_dist_argmin(p, c)
+    keep = torch.ones(1001, dtype=torch.bool, device=cuda)
+    keep[500] = False
+    nr, dr, _ = ref.weiszfeld_reduce(p[keep], c, w[keep], am[keep])
+    torch.cuda.synchronize()
+    assert int(am[500]) == 0
+    assert bool(torch.isnan(nums[0]).all()) and bool(torch.isnan(denoms[0]))
+    assert bool(torch.isnan(cost))
+    assert bool(torch.isfinite(nums[1:]).all())
+    assert all(torch.equal(a, b) for a, b in zip((nums[1:], denoms[1:]),
+                                                 (again[0][1:],
+                                                  again[1][1:])))
+    na, _ = _weiszfeld_scale(p[keep], c, w[keep], am[keep])
+    assert bool(((nums[1:] - nr[1:]).abs() <= 1e-4 * na[1:] + 1e-4).all())
+    assert bool(((denoms[1:] - dr[1:]).abs() <= 1e-4 * dr[1:] + 1e-4).all())
+
+
+# the largest k whose block fits the kernel's shared memory at d: at d = 3
+# it takes all but 4 bytes of the 227 KiB a block may use
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d", [(6372, 3), (256, 90)])
+def test_cuda_weiszfeld_at_the_shared_memory_limit(cuda, k, d):
+    """Just under the limit the kernel launches (its own count of shared
+    memory agrees with weiszfeld.shared_floats) and matches the plain
+    reduction; one centre more takes the two-pass form, with no
+    weiszfeld_stats launch."""
+    assert wz_mod.fits(k, d) and not wz_mod.fits(k + 1, d)
+    rng = np.random.default_rng(k + d)
+    p = torch.tensor(rng.standard_normal((3000, d)), dtype=torch.float32,
+                     device=cuda)
+    c = torch.tensor(rng.standard_normal((k + 1, d)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.standard_normal(3000), dtype=torch.float32,
+                     device=cuda)
+    _check_weiszfeld(p, c[:k], w)
+    before = (wz_mod.KERNEL.launches, da_mod.KERNEL.launches)
+    nums, denoms, cost = ops.weiszfeld_stats(p, c, w)
+    _, am = ops.min_dist_argmin(p, c)
+    nr, dr, cr = ref.weiszfeld_reduce(p, c, w, am)
+    torch.cuda.synchronize()
+    assert (wz_mod.KERNEL.launches, da_mod.KERNEL.launches) == (
+        before[0], before[1] + 2)
+    assert torch.equal(nums, nr) and torch.equal(denoms, dr)
+    assert torch.equal(cost, cr)
+
+
+@pytest.mark.cuda
+def test_cuda_weiszfeld_reruns_bit_identical_at_sites_shape(cuda):
+    """The k-median path's shape (100 sites of 21,280 rows, k = 50,
+    d = 90): within tolerance of the plain reduction, and two launches
+    equal bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    p = torch.randn(100, 21280, 90, generator=g).to(cuda)
+    c = p[:, 100:150].clone()
+    w = torch.rand(100, 21280, generator=g).to(cuda)
+    _check_weiszfeld(p, c, w)
 
 
 @pytest.mark.cuda

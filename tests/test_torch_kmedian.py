@@ -90,14 +90,15 @@ def test_ops_weiszfeld_matches_pallas_kernel_in_interpret_mode(n, k, d):
 
 
 def test_weiszfeld_two_pass_form_equals_one_pass_form(monkeypatch):
-    """Above LLOYD_RESIDENT_FLOATS, weiszfeld_stats takes the two-pass form
-    (distance_argmin + weiszfeld_reduce); it computes what the one-pass
-    form computes: the same assignment and the same reduction."""
+    """Above weiszfeld.RESIDENT_FLOATS, weiszfeld_stats takes the two-pass
+    form (distance_argmin + weiszfeld_reduce); it computes what the
+    one-pass form computes: the same assignment and the same reduction."""
     pts, ctr, w = _data(700, 40, 30, seed=2)
     p, c, wt = map(torch.from_numpy, (pts, ctr, w))
-    assert 40 * 31 <= ops.LLOYD_RESIDENT_FLOATS
+    assert wz_mod.fits(40, 30)
     one = ops.weiszfeld_stats(p, c, wt)
-    monkeypatch.setattr(ops, "LLOYD_RESIDENT_FLOATS", 40 * 31 - 1)
+    monkeypatch.setattr(wz_mod, "RESIDENT_FLOATS",
+                        wz_mod.shared_floats(40, 30) - 1)
     calls = []
     monkeypatch.setattr(ops, "min_dist_argmin",
                         lambda *a: calls.append(1) or ref.min_dist_argmin_ref(
@@ -110,12 +111,49 @@ def test_weiszfeld_two_pass_form_equals_one_pass_form(monkeypatch):
 
 def test_weiszfeld_large_k_takes_two_pass_form_and_matches_jax_ref():
     pts, ctr, w = _data(512, 1100, 1024, signed=False)
-    assert 1100 * 1025 > ops.LLOYD_RESIDENT_FLOATS
+    assert not wz_mod.fits(1100, 1024)
     got = ops.weiszfeld_stats(*map(torch.from_numpy, (pts, ctr, w)))
     want = jref.weiszfeld_stats_ref(*map(jnp.asarray, (pts, ctr, w)))
     np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
                                rtol=1e-4, atol=1e-2)
     np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-3)
+
+
+# the largest k whose block fits the kernel's shared memory, per d
+LARGEST_RESIDENT_K = {1: 11517, 3: 6372, 33: 776, 90: 256, 256: 64}
+
+
+@pytest.mark.parametrize("d,k", sorted(LARGEST_RESIDENT_K.items()))
+def test_weiszfeld_routing_rule_at_the_shared_memory_limit(monkeypatch, d,
+                                                           k):
+    """The routing rule is the kernel's shared-memory count, a function of
+    k and d alone: the point stage (64 d + 4), the centres padded to the
+    64-centre tile at stride k_pad + 2 and their norms, the accumulators
+    k (d + 1), seven per-row arrays of 64 and k + 1 group starts, held to
+    227 KiB. The largest k that fits takes one pass and k + 1 takes the
+    two-pass form, which computes the same statistics."""
+    kc = -(-k // 64) * 64
+    assert wz_mod.shared_floats(k, d) == (64 * d + 4 + d * (kc + 2) + kc
+                                          + k * (d + 1) + 7 * 64 + k + 1)
+    assert wz_mod.RESIDENT_FLOATS * 4 == 227 * 1024
+    assert wz_mod.fits(k, d) and not wz_mod.fits(k + 1, d)
+    assert all(wz_mod.fits(kk, d) for kk in (1, 2, k // 2, k - 1))
+    # the main path's shape: one block takes 67,268 bytes (three per SM)
+    assert wz_mod.shared_floats(50, 90) * 4 == 67268
+    pts, ctr, w = _data(9, k + 1, d, seed=d)
+    calls = []
+    monkeypatch.setattr(ops, "min_dist_argmin",
+                        lambda *a: calls.append(1) or ref.min_dist_argmin_ref(
+                            *a))
+    p, c, wt = map(torch.from_numpy, (pts, ctr, w))
+    one = ops.weiszfeld_stats(p, c[:k], wt)
+    assert calls == []
+    two = ops.weiszfeld_stats(p, c, wt)
+    assert calls == [1]
+    want = ref.weiszfeld_stats_ref(p, c, wt)
+    for a, b in zip(two, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert one[0].shape == (k, d) and two[0].shape == (k + 1, d)
 
 
 def test_weiszfeld_site_axis_matches_vmapped_reference():
