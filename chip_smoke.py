@@ -11,7 +11,10 @@ Phases (any failed check raises, and the script exits non-zero):
 2. Hold each kernel against its plain PyTorch version on the card at the
    paths' shapes (full data, all sites batched, the 1.5M-slot coresets of
    phases 3 and 5, 256 stacked serving tenants) plus ragged, d=256,
-   forced-tie and (weiszfeld_stats) coincident-centre cases. Value error,
+   forced-tie and coincident-centre cases, and for both resident
+   statistics kernels a view from row 1 (odd offset), k = 1, the largest k
+   whose block fits shared memory and one more (the two-pass form), and a
+   NaN row. Value error,
    argmin flips (each must be a near tie) and, for the fused statistics,
    arithmetic error against the reduction recomputed from the kernel's own
    assignment are reported apart; reruns must be bit-identical, and the
@@ -20,14 +23,18 @@ Phases (any failed check raises, and the script exits non-zero):
    the centre padded to 64 sentinel rows bit for bit, at the sites' and
    (phase 3) the coreset's shapes. Then time kernel, plain version and a
    PyTorch library yardstick, beside the bound from the shapes, at full
-   data and (all three general kernels) at the sites' shape.
+   data and (all three general kernels) at the sites' shape. A sha256
+   digest of lloyd_stats' and weiszfeld_stats' outputs at the sites' and
+   the coresets' shapes, and of each route's centres, lets two trees be
+   compared bit for bit.
 3. The main path at full size -- ``graph_distributed_kmeans`` on the
    yearpredictionmsd stand-in (515,345 x 90, k=50), 100 sites on a 10x10
    grid, t = 3 k n = 15,000, flood and BFS-tree routes -- with the cost
    ratio against the centralized baseline, ledgers, wall per phase,
    launches per kernel (counted from zero just before each route), peak
    device memory, a bit-identical second run, and one traced flood run:
-   device busy time, idle share, the seeding kernel's device time.
+   device busy time, idle share, the device time of the seeding kernel
+   and of lloyd_stats_kernel over its 16 launches.
 4. The whole path with ``backend="cuda"`` against ``backend="torch"`` at
    scale 0.1: ``t_i`` and ledgers equal, centers within tolerance.
 5. Path A: the same instance as phase 3 with ``objective="kmedian"`` on
@@ -50,6 +57,7 @@ and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -165,6 +173,8 @@ def main(argv=None) -> int:
     from repro_torch.data.synthetic import paper_dataset
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import distance_argmin as da
+    from repro_torch.kernels import lloyd_update as lu
+    from repro_torch.kernels import weiszfeld as wz
     from repro_torch.serve import ClusterServeEngine, StaticCenters
 
     t_all = time.perf_counter()
@@ -270,25 +280,43 @@ def main(argv=None) -> int:
               f"near-tie flips (gap <= {D2_RTOL:g} (|p|^2+|c|^2))")
         return md, am, ar, value_err
 
-    def check_weiszfeld(label, p, c, w):
-        """weiszfeld_stats against the plain reduction of the kernel's own
-        assignment (arithmetic error, relative to the sums of |terms|) and
-        against the plain version (value error, near-tie flips included);
-        a rerun must be bit-identical."""
-        out = ops.weiszfeld_stats(p, c, w)
-        again = ops.weiszfeld_stats(p, c, w)
-        check(all(torch.equal(a, b) for a, b in zip(out, again)),
-              f"weiszfeld_stats[{label}] differs between two runs")
-        # weiszfeld_stats assigns every point bit for bit as distance_argmin
-        _, am, ar, _ = check_distance(f"{label}, assignment", p, c)
-        nr, dr, cr = ref.weiszfeld_reduce(p, c, w, am)
+    def weiszfeld_scale(p, c, w, am):
+        """The sums of |terms| of the Weiszfeld reduction given an
+        assignment: nums, denoms (themselves sums of terms >= 0) and cost."""
         idx = am.long()[..., None].expand(*am.shape, p.shape[-1])
         diff = p - torch.gather(c, -2, idx)
         d2 = (diff * diff).sum(-1)
         inv = w.clamp_min(0.0) / torch.sqrt(d2 + ref.WEISZFELD_ETA2)
         oh = torch.nn.functional.one_hot(am.long(), c.shape[-2]).float()
         na = (oh * inv[..., None]).transpose(-1, -2) @ p.abs()
-        ca = (w.abs() * torch.sqrt(d2)).sum(-1)
+        return na, (oh * inv[..., None]).sum(-2), (
+            w.abs() * torch.sqrt(d2)).sum(-1)
+
+    def check_launches(label, kern, fits, before, c):
+        """The resident kernel launched twice (a call and its rerun) where
+        its block fits shared memory, and not at all where ops takes the
+        two-pass form; returns which."""
+        fused = fits(c.shape[-2], c.shape[-1])
+        check(kern.launches == before + 2 * fused,
+              f"{kern.name}[{label}] launched {kern.launches - before} "
+              f"times, expected {2 * fused}")
+        return "one pass" if fused else "two-pass form"
+
+    def check_weiszfeld(label, p, c, w):
+        """weiszfeld_stats against the plain reduction of the kernel's own
+        assignment (arithmetic error, relative to the sums of |terms|) and
+        against the plain version (value error, near-tie flips included);
+        a rerun must be bit-identical."""
+        before = wz.KERNEL.launches
+        out = ops.weiszfeld_stats(p, c, w)
+        again = ops.weiszfeld_stats(p, c, w)
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"weiszfeld_stats[{label}] differs between two runs")
+        route = check_launches(label, wz.KERNEL, wz.fits, before, c)
+        # weiszfeld_stats assigns every point bit for bit as distance_argmin
+        _, am, ar, _ = check_distance(f"{label}, assignment", p, c)
+        nr, dr, cr = ref.weiszfeld_reduce(p, c, w, am)
+        na, _, ca = weiszfeld_scale(p, c, w, am)
         plain = ref.weiszfeld_stats_ref(p, c, w)
         torch.cuda.synchronize()
         errs = [(a - b).abs() for a, b in zip(out, (nr, dr, cr))]
@@ -304,17 +332,22 @@ def main(argv=None) -> int:
               f"{float((errs[2] / ca.clamp_min(1e-30)).max()):.2g} (from "
               f"the kernel's assignment); against the plain version "
               f"{value:.3g} with {int((am != ar).sum())} near-tie flips; "
-              f"bit-identical rerun")
+              f"bit-identical rerun; {route}")
         return arith
 
     def check_lloyd(label, p, c, w):
+        """lloyd_stats against the plain reduction of the kernel's own
+        assignment and min d2 (arithmetic error, relative to the sums of
+        |terms|); a rerun must be bit-identical."""
+        before = lu.KERNEL.launches
         sums, counts, cost = ops.lloyd_stats(p, c, w)
         again = ops.lloyd_stats(p, c, w)
         check(all(torch.equal(a, b) for a, b in
                   zip((sums, counts, cost), again)),
               f"lloyd_stats[{label}] differs between two runs")
-        # the kernel's own assignment: lloyd_stats and distance_argmin share
-        # one device routine and tile shape, so they assign identically
+        route = check_launches(label, lu.KERNEL, lu.fits, before, c)
+        # the kernel's own assignment: lloyd_stats assigns every point, and
+        # takes its min d2, bit for bit as distance_argmin
         md, am = ops.min_dist_argmin(p, c)
         _, ar = ref.min_dist_argmin_ref(p, c)
         kk = c.shape[-2]
@@ -337,8 +370,70 @@ def main(argv=None) -> int:
               f"{float(ec.max()):.3g}, cost rel err "
               f"{float((eo / costa.clamp_min(1e-30)).max()):.2g} (from the "
               f"kernel's assignment); {flips} near-tie flips vs the plain "
-              f"assignment; bit-identical rerun")
+              f"assignment; bit-identical rerun; {route}")
         return err
+
+    def check_nan_row(label, p, c, w):
+        """One row holding a NaN, through both resident kernels: the row
+        is assigned centre 0 (its min d2 is +inf), so it spoils only what
+        it adds to -- in weiszfeld_stats nums[0], denoms[0] and the cost;
+        in lloyd_stats column j0 of sums[0] and the cost (+inf), while its
+        weight and its finite features go to counts[0] and sums[0]. Every
+        other entry within SUM_RTOL of the plain reduction of the other
+        rows; reruns bit-identical off the NaN."""
+        r0, j0 = p.shape[0] // 2, 7
+        p = p.clone()
+        p[r0, j0] = float("nan")
+        kk = c.shape[-2]
+        md, am = ops.min_dist_argmin(p, c)
+        keep = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+        keep[r0] = False
+        pk, wk, mk, ak = p[keep], w[keep], md[keep], am[keep]
+        for name in ("lloyd_stats", "weiszfeld_stats"):
+            first, second, cost = getattr(ops, name)(p, c, w)
+            again = getattr(ops, name)(p, c, w)
+            if name == "lloyd_stats":
+                nr, dr, _ = ref.lloyd_reduce(pk, kk, wk, mk, ak)
+                na, da_, _ = ref.lloyd_reduce(pk.abs(), kk, wk.abs(), mk, ak)
+            else:
+                nr, dr, _ = ref.weiszfeld_reduce(pk, c, wk, ak)
+                na, da_, _ = weiszfeld_scale(pk, c, wk, ak)
+            torch.cuda.synchronize()
+            what = f"{name}[{label}]"
+            check(int(am[r0]) == 0 and float(md[r0]) == float("inf"),
+                  f"{what}: the NaN row was not assigned centre 0 at +inf")
+            check(torch.equal(first[1:], again[0][1:])
+                  and torch.equal(second[1:], again[1][1:]),
+                  f"{what} differs between two runs")
+            ok = ((first[1:] - nr[1:]).abs() <= SUM_RTOL * na[1:] + 1e-6
+                  ).all() and ((second[1:] - dr[1:]).abs()
+                               <= SUM_RTOL * da_[1:] + 1e-6).all()
+            if name == "lloyd_stats":
+                other = torch.arange(p.shape[1], device=dev) != j0
+                e0 = (first[0] - nr[0] - w[r0] * p[r0]).abs()
+                ok = ok and bool(torch.isnan(first[0, j0])) and bool(
+                    (e0 <= SUM_RTOL * (na[0] + w[r0] * p[r0].abs()) + 1e-6
+                     )[other].all()) and abs(float(
+                         second[0] - dr[0] - w[r0])) <= SUM_RTOL * float(
+                             da_[0] + w[r0]) + 1e-6 and not bool(
+                                 torch.isfinite(cost))
+            else:
+                ok = ok and bool(torch.isnan(first[0]).all()) and bool(
+                    torch.isnan(second[0])) and bool(torch.isnan(cost))
+            check(ok, f"{what}: not the plain reduction off the NaN row")
+            print(f"  {what} {tuple(p.shape)} k={kk}: the NaN row spoils "
+                  f"only centre 0's entries it adds to and the cost; the "
+                  f"rest within SUM_RTOL of the plain reduction of the "
+                  f"other rows; bit-identical rerun")
+
+    def digest(*tensors):
+        """sha256 of the tensors' bytes, in order (first 16 hex digits)."""
+        h = hashlib.sha256()
+        for x in tensors:
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    digests = {}
 
     print("phase 2: kernels against their plain versions on the card")
     c_main = rows(pts, k)
@@ -414,9 +509,9 @@ def main(argv=None) -> int:
     wz_err = check_weiszfeld("full data", pts, c_main, w_signed)
     check_weiszfeld("sites", sp, c_sites, sm.float())
     p = rows(pts, 20000)
-    check_weiszfeld("coincident centres", p, p[:k].clone(),
-                    torch.rand(20000, generator=gen).to(dev))
-
+    w = torch.rand(20000, generator=gen).to(dev)
+    check_weiszfeld("coincident centres", p, p[:k].clone(), w)
+    check_lloyd("coincident centres", p, p[:k].clone(), w)
     # the batched argmin at serving shapes: 256 tenants, k_bucket 64 with
     # 2..64 live rows each (the rest masked to the sentinel), d = 90
     T_srv, KB = 256, 64
@@ -449,6 +544,32 @@ def main(argv=None) -> int:
               f"|d2 err| {b_err:.3g} on agreeing rows, {flips} near-tie "
               f"flips; equal bit for bit to {T_srv} single-tenant launches; "
               f"bit-identical rerun")
+
+    # the resident kernels' edge cases (after the cases above, so that
+    # their draws leave the earlier inputs as they were): points as a view
+    # that starts at row 1 (off a 16-byte boundary at d = 90), one centre,
+    # the largest k whose block fits shared memory at d = 90 and one more
+    # (the two-pass form), and a NaN row
+    check(all(m.fits(256, d) and not m.fits(257, d) for m in (lu, wz)),
+          "the shared-memory limit at d = 90 is not k = 256")
+    for label, (nn, kk, off) in (("view from row 1", (20001, k, 1)),
+                                 ("k=1", (20001, 1, 0)),
+                                 ("limit k=256", (3000, 256, 0)),
+                                 ("over the limit k=257", (3000, 257, 0))):
+        p = rows(pts, nn + off)[off:]
+        check(p.is_contiguous() and p.storage_offset() == off * d,
+              f"{label}: not a contiguous view from row {off}")
+        c = rows(pts, kk)
+        w = torch.rand(nn, generator=gen).to(dev)
+        check_lloyd(label, p, c, w)
+        check_weiszfeld(label, p, c, 2.0 * w - 1.0)
+    check_nan_row("NaN row", rows(pts, 20001), rows(pts, k),
+                  torch.rand(20001, generator=gen).to(dev))
+    # the path's outputs at the sites' shape, to compare trees bit for bit
+    digests["lloyd_stats[sites]"] = digest(*ops.lloyd_stats(
+        sp, c_sites, sm.float()))
+    digests["weiszfeld_stats[sites]"] = digest(*ops.weiszfeld_stats(
+        sp, c_sites, sm.float()))
 
     # -- timing at the main path's cost/solve shape ---------------------------
     p2d, c2d = pts, c_main
@@ -523,24 +644,28 @@ def main(argv=None) -> int:
               f"{db[m][2]:.4f}, bound {b_ms:.4f} ({b_by})")
     oc = time_one_center("sites", sp, c_seed)
     w_sites = sm.float()
-    for label, fn, lib, work in (
+    for label, fn, plain, lib, work in (
             ("distance_argmin", lambda: ops.min_dist_argmin(sp, c_sites),
+             lambda: ref.min_dist_argmin_ref(sp, c_sites),
              ("cdist + min", lambda: torch.cdist(sp, c_sites).min(-1)),
              distance_work(S, M, k, d)),
             ("lloyd_stats", lambda: ops.lloyd_stats(sp, c_sites, w_sites),
+             lambda: ref.lloyd_stats_ref(sp, c_sites, w_sites),
              ("cdist + argmin + index_add_",
               lambda: lloyd_library(sp, c_sites, w_sites)),
              lloyd_work(S, M, k, d)),
             ("weiszfeld_stats", lambda: ops.weiszfeld_stats(
                 sp, c_sites, w_sites),
+             lambda: ref.weiszfeld_stats_ref(sp, c_sites, w_sites),
              ("cdist + argmin + gather + index_add_",
               lambda: weiszfeld_library(sp, c_sites, w_sites)),
              weiszfeld_work(S, M, k, d))):
         b_ms, b_by = bound(*work)
         ms = cuda_ms(fn)
-        print(f"  {label} sites ({S} x {M}): kernel {ms:.4f}, library "
-              f"(batched {lib[0]}) {cuda_ms(lib[1]):.4f}, bound {b_ms:.4f} "
-              f"({b_by}); kernel at {b_ms / ms:.3f} of the bound")
+        print(f"  {label} sites ({S} x {M}): kernel {ms:.4f}, plain "
+              f"{cuda_ms(plain, reps=5):.4f}, library (batched {lib[0]}) "
+              f"{cuda_ms(lib[1]):.4f}, bound {b_ms:.4f} ({b_by}); kernel at "
+              f"{b_ms / ms:.3f} of the bound")
 
     # -- phase 3: the main path at full size ----------------------------------
     lap("data + phase 2")
@@ -553,11 +678,12 @@ def main(argv=None) -> int:
           f"{base_cost:.6g} in {time.perf_counter() - t0:.2f} s")
     check(np.isfinite(base_cost) and base_cost > 0, "baseline cost")
 
-    def traced_route(label, run, kernel):
+    def traced_route(label, run, kernels):
         """Trace one run of a route: wall, device busy time (the union of
         the device operations' spans), idle share, the six kernels with the
-        most device time, and the device time and launches of the kernels
-        whose name holds ``kernel[0]`` (printed as ``kernel[1]``)."""
+        most device time, and for each ``(part, title)`` of ``kernels`` the
+        device time and launches of the kernels whose name holds ``part``
+        (printed as ``title``)."""
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -589,10 +715,12 @@ def main(argv=None) -> int:
         for a in top[:6]:
             print(f"    {getattr(a, 'device_time_total', 0.0) / 1e3:9.2f} ms "
                   f"x{a.count:6d} {a.key[:90]}")
-        hits = [a for a in top if kernel[0] in a.key]
-        hit_ms = sum(getattr(a, "device_time_total", 0.0) for a in hits) / 1e3
-        print(f"  traced {kernel[1]}: {hit_ms:.2f} ms of device time over "
-              f"{sum(a.count for a in hits)} launches")
+        for part, title in kernels:
+            hits = [a for a in top if part in a.key]
+            hit_ms = sum(getattr(a, "device_time_total", 0.0)
+                         for a in hits) / 1e3
+            print(f"  traced {title}: {hit_ms:.2f} ms of device time over "
+                  f"{sum(a.count for a in hits)} launches")
 
     def drive(routing, backend=None, points=sp, mask=sm, times=None):
         return graph_distributed_kmeans(
@@ -656,17 +784,25 @@ def main(argv=None) -> int:
           f"{int(cs.effective_size())} weighted slots")
 
     traced_route("flood", lambda: drive("flood"),
-                 ("one_center", "one-centre kernel (D^2 seeding)"))
+                 [("one_center", "one-centre kernel (D^2 seeding)"),
+                  ("lloyd_stats_kernel", "lloyd_stats kernel")])
 
     # the kernels at the coreset's shapes of this run
     check_one_center("coreset seeding", cs.points, rows(cs.points, 1))
     time_one_center("coreset", cs.points, rows(cs.points, 1))
     check_lloyd("coreset", cs.points, flood.centers, cs.weights)
     b_ms, b_by = bound(*lloyd_work(1, cs.points.shape[0], k, d))
-    ls_cs = cuda_ms(lambda: ops.lloyd_stats(cs.points, flood.centers,
-                                            cs.weights))
+    cs_args = (cs.points, flood.centers, cs.weights)
+    ls_cs = cuda_ms(lambda: ops.lloyd_stats(*cs_args))
     print(f"  lloyd_stats coreset ({cs.points.shape[0]} rows): kernel "
-          f"{ls_cs:.4f} ms, bound {b_ms:.4f} ({b_by})")
+          f"{ls_cs:.4f} ms, plain "
+          f"{cuda_ms(lambda: ref.lloyd_stats_ref(*cs_args)):.4f}, library "
+          f"{cuda_ms(lambda: lloyd_library(*cs_args)):.4f}, bound "
+          f"{b_ms:.4f} ({b_by})")
+    digests["lloyd_stats[coreset]"] = digest(*ops.lloyd_stats(*cs_args))
+    for routing in ("flood", "bfs"):
+        digests[f"kmeans centres[{routing}]"] = digest(
+            results[routing].centers)
 
     lap("phase 3")
 
@@ -784,10 +920,15 @@ def main(argv=None) -> int:
     print(f"  ledgers equal the analytic ones (t_i sum {int(t_i.sum())}); "
           f"flood and BFS centres bit-identical; second run bit-identical")
     traced_route("k-median flood", lambda: drive_md("flood"),
-                 ("weiszfeld_stats_kernel", "weiszfeld_stats kernel"))
+                 [("weiszfeld_stats_kernel", "weiszfeld_stats kernel")])
     cs_md = md_results["flood"].coreset
     check_weiszfeld("k-median coreset", cs_md.points,
                     md_results["flood"].centers, cs_md.weights)
+    digests["weiszfeld_stats[coreset]"] = digest(*ops.weiszfeld_stats(
+        cs_md.points, md_results["flood"].centers, cs_md.weights))
+    for routing in ("flood", "bfs"):
+        digests[f"kmedian centres[{routing}]"] = digest(
+            md_results[routing].centers)
     b_ms, b_by = bound(*weiszfeld_work(1, cs_md.points.shape[0], k, d))
     wz_cs = cuda_ms(lambda: ops.weiszfeld_stats(
         cs_md.points, md_results["flood"].centers, cs_md.weights))
@@ -902,6 +1043,7 @@ def main(argv=None) -> int:
     lap("phase 6")
 
     print(f"phase walls (s): {json.dumps(walls)}")
+    print(f"digests (sha256, first 16 hex digits): {json.dumps(digests)}")
     print(f"total wall {time.perf_counter() - t_all:.1f} s")
     kernels = [
         {"name": "distance_one_center", "route": "cuda",

@@ -1,4 +1,4 @@
-// The shared assignment step of the port's two kernels: for one tile of
+// The assignment step of the general distance_argmin tiles: for one tile of
 // points, the min squared distance and its argmin over every centre.
 //
 // d2 = |p|^2 + |c|^2 - 2 p.c, clamped at 0, in full fp32 on the CUDA cores
@@ -10,10 +10,10 @@
 // merge with (value, index) order, so the lowest index wins ties, as
 // jnp.argmin does. The (n, k) matrix never leaves registers.
 //
-// distance_argmin and lloyd_stats assign through tile_argmin, and
-// weiszfeld_stats keeps its arithmetic with both operands resident in shared
-// memory, so all three assign every point bit-identically (see the note on
-// tile shapes below).
+// distance_argmin assigns through tile_argmin, and lloyd_stats and
+// weiszfeld_stats keep its arithmetic with both operands resident in shared
+// memory (resident_tile.cuh), so all three assign every point
+// bit-identically (see the note on tile shapes below).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,11 +44,9 @@ using WideTile = Tile<16, 4, 4>;
 // Small query buckets (serving): a warp across centres, 8 points x 64
 // centres, so an 8-row tenant fills its block.
 using NarrowTile = Tile<32, 1, 2>;
-// One centre in lloyd_stats: one lane per point, 256 points.
 // distance_argmin's one-centre path (D^2 seeding) does not come here:
 // distance_one_center_kernel (distance_argmin.cu) copies the points once
 // with cp.async and keeps the same chain of roundings per pair.
-using SingleTile = Tile<1, 1, 1>;
 static_assert(WideTile::BK == kCenterTile, "centre tile mismatch");
 static_assert(NarrowTile::BK == kCenterTile, "centre tile mismatch");
 // Every tile shape gives the same result for a point: each (point, centre)

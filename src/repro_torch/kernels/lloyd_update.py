@@ -1,14 +1,17 @@
-"""Wrapper of the CUDA kernel ``csrc/lloyd_stats.cu``.
+"""Wrapper of the CUDA kernel ``csrc/lloyd_stats.cu``, and the shared-memory
+count of the resident statistics kernels (``csrc/resident_tile.cuh``).
 
 It replaces the Pallas TPU kernel ``src/repro/kernels/lloyd_update.py:
 lloyd_stats``: one pass over the points producing the weighted sums,
 counts and cost of a Lloyd step. The TPU kernel carried its accumulators
 across an in-order grid; here each block writes a partial over a fixed
 slice of rows and a second kernel sums them in block order, so results are
-bit-identical run to run. What bounds it on the card is noted in the CUDA
-source. Use :func:`repro_torch.kernels.ops.lloyd_stats`, which pads the
-centres, routes large ``k * d`` to the two-pass form and takes the plain
-version for CPU tensors.
+bit-identical run to run. Each block keeps the site's centres and one copy
+of the current point tile in shared memory, and assigns every point as
+``distance_argmin`` does, bit for bit. What bounds it on the card is noted
+in the CUDA source. Use :func:`repro_torch.kernels.ops.lloyd_stats`, which
+pads the centres, routes shapes that do not :func:`fit <fits>` to the
+two-pass form and takes the plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.kernels._build import Kernel
-from repro_torch.kernels.distance_argmin import center_tile, check_cuda
+from repro_torch.kernels.distance_argmin import (CENTER_TILE, center_tile,
+                                                check_cuda)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,10 +34,16 @@ KERNEL = Kernel("lloyd_stats", "lloyd_stats_launch", STATS_ARGS)
 # (ceil(M / ROWS_PER_BLOCK)), and so the order of the final sum
 ROWS_PER_BLOCK = 1024
 
-# floats of per-block accumulators (sums k*d + counts k) that fit the
-# shared memory a block may use on Hopper (227 KiB) beside at most 37 KiB
-# of tile staging: 184 KiB
-RESIDENT_FLOATS = 47104
+# point rows per tile of the resident kernels (kTileRows in the CUDA source)
+TILE_ROWS = 64
+
+# floats of shared memory a block may use on Hopper (227 KiB): the limit of
+# what one block of a resident kernel keeps (:func:`shared_floats`)
+RESIDENT_FLOATS = 58112
+
+# per-row arrays of a lloyd_stats block: p2, min d2, w, argmin, order and
+# its centres
+ROW_ARRAYS = 6
 
 
 def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
@@ -46,10 +56,23 @@ def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
     return launch_stats(KERNEL, points, centers, weights, k, fits)
 
 
+def shared_floats(k: int, d: int, row_arrays: int = ROW_ARRAYS) -> int:
+    """Floats of shared memory one block of a resident statistics kernel
+    holds for ``k`` centres of ``d`` features, as ``shared_floats`` in
+    ``csrc/resident_tile.cuh`` counts them: the point stage (64 rows, and 4
+    floats for its misalignment shift), the centres padded to the centre
+    tile at a row stride 2 above it, their norms, the accumulators
+    ``k (d + 1)``, ``row_arrays`` per-row arrays of 64 and ``k + 1`` group
+    starts."""
+    kc = -(-k // CENTER_TILE) * CENTER_TILE
+    return (TILE_ROWS * d + 4 + d * (kc + 2) + kc + k * (d + 1)
+            + row_arrays * TILE_ROWS + k + 1)
+
+
 def fits(k: int, d: int) -> bool:
-    """Whether the accumulators of ``k`` centres of ``d`` features fit the
-    kernel's shared memory (:data:`RESIDENT_FLOATS`)."""
-    return k * (d + 1) <= RESIDENT_FLOATS
+    """Whether ``k`` centres of ``d`` features fit the kernel's shared
+    memory; ``ops.lloyd_stats`` takes the two-pass form where not."""
+    return shared_floats(k, d) <= RESIDENT_FLOATS
 
 
 def launch_stats(kernel: Kernel, points: torch.Tensor, centers: torch.Tensor,

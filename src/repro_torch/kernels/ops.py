@@ -15,16 +15,16 @@ with ``(S, k, d)`` centres -- and then serves all sites in ONE launch, as
   the kernels mask the ragged tile edge themselves, which computes what
   zero-weight padded rows and zero features would. Point rows that callers
   pad (``pad_partition``'s slots) carry weight 0 and add nothing.
-* **Resident limits.** ``lloyd_stats`` keeps each block's accumulators,
-  ``k (d + 1)`` floats, in shared memory: ``LLOYD_RESIDENT_FLOATS = 47104``
-  floats (184 KiB of the 227 KiB a block may use on Hopper).
-  ``weiszfeld_stats`` also keeps the site's centres and one point tile
-  there: :func:`repro_torch.kernels.weiszfeld.fits` holds its count
-  against ``weiszfeld.RESIDENT_FLOATS`` (227 KiB). The TPU kernels' limit
-  was ``k d <= 2**20`` floats of resident centres (4 MiB of VMEM). Above
-  its limit each takes the two-pass form: the ``distance_argmin`` kernel,
-  then the reduction given the assignment (a plain one-hot product, as the
-  JAX package left it to XLA).
+* **Resident limits.** ``lloyd_stats`` and ``weiszfeld_stats`` keep the
+  site's centres, one point tile and the accumulators in shared memory:
+  :func:`repro_torch.kernels.lloyd_update.shared_floats` counts a block's
+  layout, and each kernel's ``fits`` holds it against
+  ``lloyd_update.RESIDENT_FLOATS`` (the 227 KiB a block may use on
+  Hopper). The TPU kernels' limit was ``k d <= 2**20`` floats of resident
+  centres (4 MiB of VMEM). Above its limit each takes the two-pass form:
+  the ``distance_argmin`` kernel, then the reduction given the assignment
+  (a plain one-hot product, as the JAX package left it to XLA). That is
+  routing by shape: a CUDA tensor still reaches a kernel.
 * **Launch counts.** :data:`KERNELS` lists each kernel entry with its
   ``launches`` counter (the batched argmin is an entry of the
   ``distance_argmin`` library with a counter of its own).
@@ -43,7 +43,6 @@ from repro_torch.kernels import lloyd_update as _lu
 from repro_torch.kernels import ref
 from repro_torch.kernels import weiszfeld as _wz
 
-LLOYD_RESIDENT_FLOATS = _lu.RESIDENT_FLOATS
 KERNELS = (_da.KERNEL, _lu.KERNEL, _wz.KERNEL, _da.KERNEL_BATCHED)
 
 
@@ -168,13 +167,14 @@ def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
                 weights: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused Lloyd statistics ``(sums (..., k, d), counts (..., k),
-    cost (...))``; two passes when ``k (d + 1)`` exceeds
-    :data:`LLOYD_RESIDENT_FLOATS`."""
+    cost (...))``; two passes -- the ``distance_argmin`` kernel, then
+    :func:`ref.lloyd_reduce` -- where
+    :func:`repro_torch.kernels.lloyd_update.fits` is false, the limit the
+    kernel's wrapper itself checks."""
     return _fused_stats(
         _lu.lloyd_stats, ref.lloyd_stats_ref,
         lambda p, c, w, md, am: ref.lloyd_reduce(p, c.shape[-2], w, md, am),
-        lambda k, d: k * (d + 1) <= LLOYD_RESIDENT_FLOATS,
-        points, centers, weights)
+        _lu.fits, points, centers, weights)
 
 
 def weiszfeld_stats(points: torch.Tensor, centers: torch.Tensor,

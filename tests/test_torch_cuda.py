@@ -50,7 +50,11 @@ def test_cuda_kernels_match_plain_versions(cuda, S, n, k, d):
     md, am = ops.min_dist_argmin(p, c)
     sums, counts, cost = ops.lloyd_stats(p, c, w)
     torch.cuda.synchronize()
-    assert [kern.launches for kern in called] == [x + 1 for x in launches]
+    # a block that does not fit shared memory takes the two-pass form: a
+    # second distance_argmin launch instead of lloyd_stats
+    fused = lu_mod.fits(k, d)
+    assert [kern.launches for kern in called] == [
+        launches[0] + (1 if fused else 2), launches[1] + (1 if fused else 0)]
     md_r, am_r = ref.min_dist_argmin_ref(p, c)
     # float32 on both sides, sums in different orders (see chip_smoke.py)
     np.testing.assert_allclose(md.cpu().numpy(), md_r.cpu().numpy(),
@@ -113,6 +117,30 @@ def _check_weiszfeld(p, c, w):
     return am
 
 
+def _check_lloyd(p, c, w):
+    """ops.lloyd_stats on the card against the plain reduction of the
+    kernel's own assignment and min d2 (lloyd_stats assigns bit for bit as
+    distance_argmin does), within 1e-4 of the sums of |terms|; a rerun is
+    bit-identical. Shapes whose block does not fit the kernel's shared
+    memory take the two-pass form and launch no lloyd_stats."""
+    before = lu_mod.KERNEL.launches
+    sums, counts, cost = ops.lloyd_stats(p, c, w)
+    again = ops.lloyd_stats(p, c, w)
+    md, am = ops.min_dist_argmin(p, c)
+    torch.cuda.synchronize()
+    k = c.shape[-2]
+    fused = lu_mod.fits(k, c.shape[-1])
+    assert lu_mod.KERNEL.launches == before + (2 if fused else 0)
+    assert all(torch.equal(a, b) for a, b in zip((sums, counts, cost),
+                                                 again))
+    sr, cr, co = ref.lloyd_reduce(p, k, w, md, am)
+    sa, ca, coa = ref.lloyd_reduce(p.abs(), k, w.abs(), md, am)
+    assert bool(((sums - sr).abs() <= 1e-4 * sa + 1e-4).all())
+    assert bool(((counts - cr).abs() <= 1e-4 * ca + 1e-4).all())
+    assert bool(((cost - co).abs() <= 1e-4 * coa + 1e-4).all())
+    return am
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("S,n,k,d", CUDA_SHAPES)
 def test_cuda_weiszfeld_matches_plain_reduction(cuda, S, n, k, d):
@@ -145,39 +173,50 @@ def test_cuda_weiszfeld_coincident_centres_and_ties(cuda):
     assert bool((denoms[35:] == 0).all()) and bool((nums[35:] == 0).all())
 
 
+# the resident statistics kernels (resident_tile.cuh) and their checks
+STATS_CHECKS = {"weiszfeld_stats": _check_weiszfeld,
+                "lloyd_stats": _check_lloyd}
+
+
 # M = 1001 and 2113 are multiples of neither the 64-row tile nor the
 # 1,024-row block; k = 1 runs the same kernel with the centre padded to 64
-# sentinel columns in shared memory
+# sentinel columns in shared memory. Offsets: 1 float, and a view that
+# starts at row 1 (d floats: off a 16-byte boundary unless 4 divides d).
 @pytest.mark.cuda
-@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("offset", ["0", "1", "row"])
 @pytest.mark.parametrize("d", [1, 3, 33, 90, 256])
 @pytest.mark.parametrize("S,M,k", [(1, 1001, 50), (3, 2113, 1)])
-def test_cuda_weiszfeld_widths_offsets_and_ragged_rows(cuda, S, M, k, d,
-                                                       offset):
-    """The resident-centre kernel over feature widths, a points view at an
-    odd storage offset (the tile copy starts off a 16-byte boundary) and
-    ragged row counts, against the plain reduction of distance_argmin's
+@pytest.mark.parametrize("name", sorted(STATS_CHECKS))
+def test_cuda_weiszfeld_widths_offsets_and_ragged_rows(cuda, name, S, M, k,
+                                                       d, offset):
+    """Both resident kernels over feature widths, a points view at an odd
+    storage offset (the tile copy starts off a 16-byte boundary) and ragged
+    row counts, against the plain reduction of distance_argmin's
     assignment; a rerun is bit-identical."""
-    rng = np.random.default_rng(100 * d + 10 * k + offset)
-    buf = torch.empty(S * M * d + offset, device=cuda)
-    p = buf[offset:].view(S, M, d)
+    shift = {"0": 0, "1": 1, "row": d}[offset]
+    rng = np.random.default_rng(100 * d + 10 * k + shift)
+    buf = torch.empty(S * M * d + shift, device=cuda)
+    p = buf[shift:].view(S, M, d)
     p.copy_(torch.tensor(rng.standard_normal((S, M, d)),
                          dtype=torch.float32))
-    assert p.is_contiguous() and p.storage_offset() == offset
+    assert p.is_contiguous() and p.storage_offset() == shift
     c = torch.tensor(rng.standard_normal((S, k, d)), dtype=torch.float32,
                      device=cuda)
     w = torch.tensor(rng.standard_normal((S, M)), dtype=torch.float32,
                      device=cuda)
-    _check_weiszfeld(p, c, w)
+    STATS_CHECKS[name](p, c, w)
 
 
 @pytest.mark.cuda
-def test_cuda_weiszfeld_nan_row(cuda):
-    """A row holding a NaN is assigned centre 0 by both kernels (no
-    distance wins) and makes nums[0], denoms[0] and the cost NaN; every
-    other entry equals the plain reduction of the other rows within
-    tolerance (the plain one-hot product would spread the NaN over its
-    column: 0 * NaN is NaN)."""
+@pytest.mark.parametrize("name", sorted(STATS_CHECKS))
+def test_cuda_weiszfeld_nan_row(cuda, name):
+    """A row holding a NaN is assigned centre 0 by every kernel (no
+    distance wins; its min d2 is +inf). In weiszfeld_stats it makes
+    nums[0], denoms[0] and the cost NaN; in lloyd_stats it makes sums[0]
+    NaN in the NaN's column only, adds its weight to counts[0] and makes
+    the cost +inf. Every other entry equals the plain reduction of the
+    other rows within tolerance (the plain one-hot product would spread the
+    NaN over its column: 0 * NaN is NaN), and a rerun is bit-identical."""
     rng = np.random.default_rng(11)
     p = torch.tensor(rng.standard_normal((1001, 90)), dtype=torch.float32,
                      device=cuda)
@@ -185,35 +224,60 @@ def test_cuda_weiszfeld_nan_row(cuda):
     c = torch.tensor(rng.standard_normal((50, 90)), dtype=torch.float32,
                      device=cuda)
     w = torch.rand(1001, device=cuda)
-    nums, denoms, cost = ops.weiszfeld_stats(p, c, w)
-    again = ops.weiszfeld_stats(p, c, w)
-    _, am = ops.min_dist_argmin(p, c)
+    stats = getattr(ops, name)
+    first, second, cost = stats(p, c, w)
+    again = stats(p, c, w)
+    md, am = ops.min_dist_argmin(p, c)
     keep = torch.ones(1001, dtype=torch.bool, device=cuda)
     keep[500] = False
-    nr, dr, _ = ref.weiszfeld_reduce(p[keep], c, w[keep], am[keep])
     torch.cuda.synchronize()
-    assert int(am[500]) == 0
-    assert bool(torch.isnan(nums[0]).all()) and bool(torch.isnan(denoms[0]))
-    assert bool(torch.isnan(cost))
-    assert bool(torch.isfinite(nums[1:]).all())
-    assert all(torch.equal(a, b) for a, b in zip((nums[1:], denoms[1:]),
+    assert int(am[500]) == 0 and float(md[500]) == float("inf")
+    assert all(torch.equal(a, b) for a, b in zip((first[1:], second[1:]),
                                                  (again[0][1:],
                                                   again[1][1:])))
-    na, _ = _weiszfeld_scale(p[keep], c, w[keep], am[keep])
-    assert bool(((nums[1:] - nr[1:]).abs() <= 1e-4 * na[1:] + 1e-4).all())
-    assert bool(((denoms[1:] - dr[1:]).abs() <= 1e-4 * dr[1:] + 1e-4).all())
+    if name == "weiszfeld_stats":
+        nr, dr, _ = ref.weiszfeld_reduce(p[keep], c, w[keep], am[keep])
+        na, _ = _weiszfeld_scale(p[keep], c, w[keep], am[keep])
+        assert bool(torch.isnan(first[0]).all())
+        assert bool(torch.isnan(second[0])) and bool(torch.isnan(cost))
+    else:
+        nr, dr, _ = ref.lloyd_reduce(p[keep], 50, w[keep], md[keep],
+                                     am[keep])
+        na, _, _ = ref.lloyd_reduce(p[keep].abs(), 50, w[keep], md[keep],
+                                    am[keep])
+        assert bool(torch.isnan(first[0, 7]))
+        assert bool(torch.isfinite(first[0, :7]).all())
+        assert bool(torch.isfinite(first[0, 8:]).all())
+        # row 500 adds its weight to counts[0] and w * p to sums[0]
+        scale = w[500] * p[500].abs()
+        rest = (first[0] - nr[0] - w[500] * p[500]).abs()
+        assert bool((rest <= 1e-4 * (na[0] + scale) + 1e-4)[
+            torch.arange(90, device=cuda) != 7].all())
+        assert abs(float(second[0] - dr[0] - w[500])) <= 1e-4 * float(
+            dr[0] + w[500]) + 1e-4
+        assert not bool(torch.isfinite(cost))
+        if float(w[500]) > 0:
+            assert float(cost) == float("inf")
+    assert bool(torch.isfinite(first[1:]).all())
+    assert bool(((first[1:] - nr[1:]).abs() <= 1e-4 * na[1:] + 1e-4).all())
+    assert bool(((second[1:] - dr[1:]).abs() <= 1e-4 * dr[1:] + 1e-4).all())
 
 
-# the largest k whose block fits the kernel's shared memory at d: at d = 3
-# it takes all but 4 bytes of the 227 KiB a block may use
+# the largest k whose block fits each kernel's shared memory at d: at
+# d = 3 weiszfeld_stats takes all but 4 bytes of the 227 KiB a block may
+# use, and lloyd_stats all of them
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,d", [(6372, 3), (256, 90)])
-def test_cuda_weiszfeld_at_the_shared_memory_limit(cuda, k, d):
+@pytest.mark.parametrize("name,k,d", [
+    ("weiszfeld_stats", 6372, 3), ("weiszfeld_stats", 256, 90),
+    ("lloyd_stats", 6385, 3), ("lloyd_stats", 256, 90)])
+def test_cuda_weiszfeld_at_the_shared_memory_limit(cuda, name, k, d):
     """Just under the limit the kernel launches (its own count of shared
-    memory agrees with weiszfeld.shared_floats) and matches the plain
-    reduction; one centre more takes the two-pass form, with no
-    weiszfeld_stats launch."""
-    assert wz_mod.fits(k, d) and not wz_mod.fits(k + 1, d)
+    memory agrees with lloyd_update.shared_floats) and matches the plain
+    reduction; one centre more takes the two-pass form, with no launch of
+    the kernel, and equals the plain reduction of distance_argmin's
+    assignment exactly."""
+    mod = {"weiszfeld_stats": wz_mod, "lloyd_stats": lu_mod}[name]
+    assert mod.fits(k, d) and not mod.fits(k + 1, d)
     rng = np.random.default_rng(k + d)
     p = torch.tensor(rng.standard_normal((3000, d)), dtype=torch.float32,
                      device=cuda)
@@ -221,28 +285,29 @@ def test_cuda_weiszfeld_at_the_shared_memory_limit(cuda, k, d):
                      device=cuda)
     w = torch.tensor(rng.standard_normal(3000), dtype=torch.float32,
                      device=cuda)
-    _check_weiszfeld(p, c[:k], w)
-    before = (wz_mod.KERNEL.launches, da_mod.KERNEL.launches)
-    nums, denoms, cost = ops.weiszfeld_stats(p, c, w)
-    _, am = ops.min_dist_argmin(p, c)
-    nr, dr, cr = ref.weiszfeld_reduce(p, c, w, am)
+    STATS_CHECKS[name](p, c[:k], w)
+    before = (mod.KERNEL.launches, da_mod.KERNEL.launches)
+    out = getattr(ops, name)(p, c, w)
+    md, am = ops.min_dist_argmin(p, c)
+    want = (ref.weiszfeld_reduce(p, c, w, am) if name == "weiszfeld_stats"
+            else ref.lloyd_reduce(p, k + 1, w, md, am))
     torch.cuda.synchronize()
-    assert (wz_mod.KERNEL.launches, da_mod.KERNEL.launches) == (
+    assert (mod.KERNEL.launches, da_mod.KERNEL.launches) == (
         before[0], before[1] + 2)
-    assert torch.equal(nums, nr) and torch.equal(denoms, dr)
-    assert torch.equal(cost, cr)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
 
 
 @pytest.mark.cuda
-def test_cuda_weiszfeld_reruns_bit_identical_at_sites_shape(cuda):
-    """The k-median path's shape (100 sites of 21,280 rows, k = 50,
-    d = 90): within tolerance of the plain reduction, and two launches
-    equal bit for bit."""
+@pytest.mark.parametrize("name", sorted(STATS_CHECKS))
+def test_cuda_weiszfeld_reruns_bit_identical_at_sites_shape(cuda, name):
+    """The main path's shape (100 sites of 21,280 rows, k = 50, d = 90):
+    within tolerance of the plain reduction, and two launches equal bit
+    for bit."""
     g = torch.Generator(device="cpu").manual_seed(5)
     p = torch.randn(100, 21280, 90, generator=g).to(cuda)
     c = p[:, 100:150].clone()
     w = torch.rand(100, 21280, generator=g).to(cuda)
-    _check_weiszfeld(p, c, w)
+    STATS_CHECKS[name](p, c, w)
 
 
 @pytest.mark.cuda

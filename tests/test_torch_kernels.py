@@ -131,15 +131,16 @@ def test_site_axis_matches_vmapped_reference():
 
 
 def test_two_pass_form_equals_one_pass_form(monkeypatch):
-    """Above LLOYD_RESIDENT_FLOATS, lloyd_stats takes the two-pass form
-    (distance_argmin + one-hot product); it computes what the one-pass
-    form computes below the limit: the same assignment and the same
-    reduction, so the results are equal."""
+    """Where lloyd_update.fits is false, lloyd_stats takes the two-pass
+    form (distance_argmin + one-hot product); it computes what the
+    one-pass form computes below the limit: the same assignment and the
+    same reduction, so the results are equal."""
     pts, ctr, w = _data(700, 40, 30, seed=2)
     p, c, wt = map(torch.from_numpy, (pts, ctr, w))
-    assert 40 * 31 <= ops.LLOYD_RESIDENT_FLOATS
+    assert lu_mod.fits(40, 30)
     one = ops.lloyd_stats(p, c, wt)
-    monkeypatch.setattr(ops, "LLOYD_RESIDENT_FLOATS", 40 * 31 - 1)
+    monkeypatch.setattr(lu_mod, "RESIDENT_FLOATS",
+                        lu_mod.shared_floats(40, 30) - 1)
     calls = []
     monkeypatch.setattr(ops, "min_dist_argmin",
                         lambda *a: calls.append(1) or ref.min_dist_argmin_ref(
@@ -151,11 +152,11 @@ def test_two_pass_form_equals_one_pass_form(monkeypatch):
 
 
 def test_large_k_takes_two_pass_form_and_matches_jax_ref():
-    """k (d + 1) beyond the shared-memory limit routes through the
+    """A block beyond the shared-memory limit routes through the
     two-pass form and still matches the oracle (tests/test_kernels.py's
     large-k case)."""
     pts, ctr, w = _data(512, 1100, 1024)
-    assert 1100 * 1025 > ops.LLOYD_RESIDENT_FLOATS
+    assert not lu_mod.fits(1100, 1024)
     sums, counts, cost = ops.lloyd_stats(torch.from_numpy(pts),
                                          torch.from_numpy(ctr),
                                          torch.from_numpy(w))

@@ -22,6 +22,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import (backend, clustering, coreset, distributed,
                               objective, prng, topology)
+from repro_torch.kernels import lloyd_update as lu_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import weiszfeld as wz_mod
 
@@ -90,14 +91,14 @@ def test_ops_weiszfeld_matches_pallas_kernel_in_interpret_mode(n, k, d):
 
 
 def test_weiszfeld_two_pass_form_equals_one_pass_form(monkeypatch):
-    """Above weiszfeld.RESIDENT_FLOATS, weiszfeld_stats takes the two-pass
+    """Where weiszfeld.fits is false, weiszfeld_stats takes the two-pass
     form (distance_argmin + weiszfeld_reduce); it computes what the
     one-pass form computes: the same assignment and the same reduction."""
     pts, ctr, w = _data(700, 40, 30, seed=2)
     p, c, wt = map(torch.from_numpy, (pts, ctr, w))
     assert wz_mod.fits(40, 30)
     one = ops.weiszfeld_stats(p, c, wt)
-    monkeypatch.setattr(wz_mod, "RESIDENT_FLOATS",
+    monkeypatch.setattr(lu_mod, "RESIDENT_FLOATS",
                         wz_mod.shared_floats(40, 30) - 1)
     calls = []
     monkeypatch.setattr(ops, "min_dist_argmin",
@@ -119,38 +120,57 @@ def test_weiszfeld_large_k_takes_two_pass_form_and_matches_jax_ref():
     np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-3)
 
 
-# the largest k whose block fits the kernel's shared memory, per d
-LARGEST_RESIDENT_K = {1: 11517, 3: 6372, 33: 776, 90: 256, 256: 64}
+# per resident statistics kernel: its wrapper module, its ops entry and
+# plain version, its per-row arrays of 64, the bytes of one block at the
+# main path's shape (k = 50, d = 90: three blocks per SM) and the largest k
+# whose block fits its shared memory, per d
+RESIDENT_KERNELS = {
+    "weiszfeld_stats": (wz_mod, "weiszfeld_stats", "weiszfeld_stats_ref", 7,
+                        67268, {1: 11517, 3: 6372, 33: 776, 90: 256,
+                                256: 64}),
+    "lloyd_stats": (lu_mod, "lloyd_stats", "lloyd_stats_ref", 6, 67012,
+                    {1: 11520, 3: 6385, 33: 778, 90: 256, 256: 64}),
+}
 
 
-@pytest.mark.parametrize("d,k", sorted(LARGEST_RESIDENT_K.items()))
-def test_weiszfeld_routing_rule_at_the_shared_memory_limit(monkeypatch, d,
-                                                           k):
-    """The routing rule is the kernel's shared-memory count, a function of
-    k and d alone: the point stage (64 d + 4), the centres padded to the
-    64-centre tile at stride k_pad + 2 and their norms, the accumulators
-    k (d + 1), seven per-row arrays of 64 and k + 1 group starts, held to
-    227 KiB. The largest k that fits takes one pass and k + 1 takes the
-    two-pass form, which computes the same statistics."""
+# the weiszfeld_stats cases keep their ids from before lloyd_stats shared
+# the layout
+@pytest.mark.parametrize("name,d,k", [
+    pytest.param(name, d, k, id=f"{d}-{k}" if name == "weiszfeld_stats"
+                 else f"{name}-{d}-{k}")
+    for name, spec in RESIDENT_KERNELS.items()
+    for d, k in sorted(spec[-1].items())])
+def test_weiszfeld_routing_rule_at_the_shared_memory_limit(monkeypatch, name,
+                                                           d, k):
+    """The routing rule of both resident statistics kernels is their
+    shared-memory count, a function of k and d alone, counted by one
+    function (lloyd_update.shared_floats): the point stage (64 d + 4), the
+    centres padded to the 64-centre tile at stride k_pad + 2 and their
+    norms, the accumulators k (d + 1), the kernel's per-row arrays of 64
+    (seven for weiszfeld_stats, six for lloyd_stats) and k + 1 group
+    starts, held to 227 KiB. The largest k that fits takes one pass and
+    k + 1 takes the two-pass form, which computes the same statistics."""
+    mod, entry, plain, row_arrays, main_bytes, _ = RESIDENT_KERNELS[name]
     kc = -(-k // 64) * 64
-    assert wz_mod.shared_floats(k, d) == (64 * d + 4 + d * (kc + 2) + kc
-                                          + k * (d + 1) + 7 * 64 + k + 1)
-    assert wz_mod.RESIDENT_FLOATS * 4 == 227 * 1024
-    assert wz_mod.fits(k, d) and not wz_mod.fits(k + 1, d)
-    assert all(wz_mod.fits(kk, d) for kk in (1, 2, k // 2, k - 1))
-    # the main path's shape: one block takes 67,268 bytes (three per SM)
-    assert wz_mod.shared_floats(50, 90) * 4 == 67268
+    assert mod.shared_floats(k, d) == (64 * d + 4 + d * (kc + 2) + kc
+                                       + k * (d + 1) + row_arrays * 64
+                                       + k + 1)
+    assert mod.shared_floats(k, d) == lu_mod.shared_floats(k, d, row_arrays)
+    assert lu_mod.RESIDENT_FLOATS * 4 == 227 * 1024
+    assert mod.fits(k, d) and not mod.fits(k + 1, d)
+    assert all(mod.fits(kk, d) for kk in (1, 2, k // 2, k - 1))
+    assert mod.shared_floats(50, 90) * 4 == main_bytes
     pts, ctr, w = _data(9, k + 1, d, seed=d)
     calls = []
     monkeypatch.setattr(ops, "min_dist_argmin",
                         lambda *a: calls.append(1) or ref.min_dist_argmin_ref(
                             *a))
     p, c, wt = map(torch.from_numpy, (pts, ctr, w))
-    one = ops.weiszfeld_stats(p, c[:k], wt)
+    one = getattr(ops, entry)(p, c[:k], wt)
     assert calls == []
-    two = ops.weiszfeld_stats(p, c, wt)
+    two = getattr(ops, entry)(p, c, wt)
     assert calls == [1]
-    want = ref.weiszfeld_stats_ref(p, c, wt)
+    want = getattr(ref, plain)(p, c, wt)
     for a, b in zip(two, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert one[0].shape == (k, d) and two[0].shape == (k + 1, d)
@@ -265,6 +285,48 @@ def test_kmedian_seeding_picks_the_reference_rows(seed):
                                       weights=jnp.asarray(w),
                                       objective="kmedian", backend="jnp")
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- sites that hold fewer points than k ----------------------------------------
+
+def test_kmedian_t_i_at_sites_with_fewer_points_than_k():
+    """A site holding fewer points than k makes every point (nearly) its own
+    centre, so its k-median local cost is the sum of sqrt(d2) at d2 ~ 0.
+    Both packages take d2 in matmul form, |p|^2 + |c|^2 - 2 p.c, whose
+    cancellation leaves noise of order 2**-24 |p|^2 for a point at its own
+    centre, and sqrt turns it into ~2**-12 |p| per point; XLA and torch
+    round that noise differently, so these sites' costs differ between the
+    packages (ROADMAP C; the reference stays as it is). The allocation is
+    largest-remainder: sum t_i == t exactly in both, and a site's t_i
+    moves with its cost only through its share t c_i / C. Here the tiny
+    sites' whole costs add up to less than one sample of that share, so
+    each t_i may differ from the reference's by at most one sample (a unit
+    of the remainder moving between two sites), and the sites that hold k
+    points or more agree on their costs to 1e-4 (float32 solves in
+    different orders)."""
+    rng = np.random.default_rng(0)
+    sizes = [2, 3, 5, 7, 30, 45, 60, 80, 100]
+    k, t = 8, 300
+    data = (3.0 * rng.standard_normal((sum(sizes), 4))).astype(np.float32)
+    edges = np.cumsum([0] + sizes)
+    sp, sm = jpartition.pad_partition(
+        data, [np.arange(a, b) for a, b in zip(edges[:-1], edges[1:])])
+    want = jcoreset.distributed_coreset(
+        jax.random.PRNGKey(0), jnp.asarray(sp), jnp.asarray(sm), k, t,
+        objective="kmedian", lloyd_iters=8, backend="jnp")
+    got = coreset.distributed_coreset(prng.PRNGKey(0), sp, sm, k, t,
+                                      objective="kmedian", lloyd_iters=8,
+                                      device="cpu")
+    t_got, t_want = got.t_i.numpy(), np.asarray(want.t_i)
+    c_got, c_want = got.local_costs.numpy(), np.asarray(want.local_costs)
+    tiny = np.asarray(sizes) < k
+    assert int(t_got.sum()) == t and int(t_want.sum()) == t
+    # the premise of the bound: the tiny sites' costs are noise worth less
+    # than one sample of the allocation in either package
+    for c in (c_got, c_want):
+        assert t * c[tiny].sum() / c.sum() < 1.0
+    np.testing.assert_allclose(c_got[~tiny], c_want[~tiny], rtol=1e-4)
+    assert np.abs(t_got.astype(int) - t_want.astype(int)).max() <= 1
 
 
 # -- Algorithm 2 with k-median on the quickstart instance ---------------------
