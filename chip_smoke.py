@@ -2,7 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 GPU. It needs a CUDA device and the CUDA toolkit (nvcc), and no network.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--argmin-digests]
+
+``--argmin-digests`` prints only phase 2's digests of distance_argmin (at
+the shapes of ``argmin_inputs``) after the build and exits; it calls only
+entry points every version of the port has, so a copy of this file put in
+the root of an unpacked ``git archive`` of another commit digests that
+commit's kernels on the same inputs.
 
 Phases (any failed check raises, and the script exits non-zero):
 
@@ -19,19 +25,27 @@ Phases (any failed check raises, and the script exits non-zero):
    arithmetic error against the reduction recomputed from the kernel's own
    assignment are reported apart; reruns must be bit-identical, and the
    batched argmin must equal a loop of single-tenant launches bit for bit,
-   and the one-centre kernel (D^2 seeding) must equal the general tile with
-   the centre padded to 64 sentinel rows bit for bit, at the sites' and
-   (phase 3) the coreset's shapes. Then time kernel, plain version and a
-   PyTorch library yardstick, beside the bound from the shapes, at full
-   data and (all three general kernels) at the sites' shape. A sha256
-   digest of lloyd_stats' and weiszfeld_stats' outputs at the sites' and
-   the coresets' shapes, and of each route's centres, lets two trees be
-   compared bit for bit.
+   and the one-centre kernel (D^2 seeding) must equal the resident and the
+   general tile with the centre padded to 64 sentinel rows bit for bit, at
+   the sites' and (phase 3) the coreset's shapes. The resident
+   distance_argmin tile must equal the general tile bit for bit (each
+   through its own entry, and the routed entry's output too, whose launch
+   must count under the kernel the routing picks) on the full data, the
+   sites and the serving buckets m = 8, 16, 32, 64 and 1,024, and the two
+   are timed side by side there: CUDA events in turns (resident, tile,
+   tile, resident) and the profiler's device time per launch. Then time
+   kernel, plain version and a PyTorch library yardstick, beside the bound
+   from the shapes, at full data and (all three general kernels) at the
+   sites' shape. A sha256 digest of distance_argmin's outputs at those
+   seven shapes and 30 small ones, of lloyd_stats' and weiszfeld_stats'
+   outputs at the sites' and the coresets' shapes, and of each route's
+   centres, lets two trees be compared bit for bit.
 3. The main path at full size -- ``graph_distributed_kmeans`` on the
    yearpredictionmsd stand-in (515,345 x 90, k=50), 100 sites on a 10x10
    grid, t = 3 k n = 15,000, flood and BFS-tree routes -- with the cost
    ratio against the centralized baseline, ledgers, wall per phase,
-   launches per kernel (counted from zero just before each route), peak
+   launches per kernel (counted from zero just before each route; the
+   distance_argmin launches split by the kernel that served them), peak
    device memory, a bit-identical second run, and one traced flood run:
    device busy time, idle share, the device time of the seeding kernel
    and of lloyd_stats_kernel over its 16 launches.
@@ -48,7 +62,8 @@ Phases (any failed check raises, and the script exits non-zero):
    phases 3 and 5 and 254 static ones) serving 20 steps of bursts; every
    result equal bit for bit to a per-tenant ``query_assignments`` on the
    card and within tolerance of the plain version; batched launches equal
-   to dispatches; queries per second and step latency, beside the same
+   to dispatches, split between the two tiles as the engine's dispatches
+   per shape say; queries per second and step latency, beside the same
    traffic through the per-tenant loop.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
@@ -93,6 +108,62 @@ MAX_COST_RATIO = 1.35
 
 class CheckFailed(RuntimeError):
     pass
+
+
+def digest(*tensors):
+    """sha256 of the tensors' bytes, in order (first 16 hex digits)."""
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def argmin_inputs(pts, sp, k, seed, sentinel):
+    """The shapes at which distance_argmin's outputs are digested, made from
+    ``seed`` with numpy: label -> (batched, points, centres). The full data
+    and the sites with ``k`` centres (data rows); serving's 256 tenants, 64
+    centre rows each with 2..64 live (the rest at ``sentinel``), against 8,
+    16, 32, 64 and 1,024 queries each; and 30 small shapes, 3 sites of
+    1,001 rows, d in {1, 3, 33, 90, 256} x k in {2, 50, 64, 65, 256, 320},
+    the points a view from one float into their storage with a NaN row."""
+    rng = np.random.default_rng(seed)
+    dev, (n, d) = pts.device, pts.shape
+
+    def pick(x, count):
+        """``count`` random rows of x (..., m, d) per leading index."""
+        idx = torch.from_numpy(rng.integers(0, x.shape[-2], count))
+        return x[..., idx.to(dev), :].contiguous()
+
+    cases = {"full data": (False, pts[None], pick(pts, k)[None]),
+             "sites": (False, sp, pick(sp, k))}
+    T, KB = 256, 64
+    live = torch.from_numpy(np.arange(KB)[None, :] < rng.integers(
+        2, KB + 1, T)[:, None]).to(dev)
+    c_srv = torch.where(live[..., None], pick(pts, T * KB).view(T, KB, d),
+                        sentinel)
+    for m in (8, 16, 32, 64, 1024):
+        cases[f"batched m={m}"] = (True, pick(pts, T * m).view(T, m, d),
+                                   c_srv)
+    for dd in (1, 3, 33, 90, 256):
+        for kk in (2, 50, 64, 65, 256, 320):
+            p = torch.empty(3 * 1001 * dd + 1, device=dev)[1:].view(
+                3, 1001, dd)
+            p.copy_(torch.from_numpy(rng.standard_normal(
+                (3, 1001, dd), dtype=np.float32)))
+            p[2, 500, 0] = float("nan")
+            cases[f"d={dd} k={kk}"] = (False, p, torch.from_numpy(
+                rng.standard_normal((3, kk, dd), dtype=np.float32)).to(dev))
+    return cases
+
+
+def argmin_digests(cases, ops):
+    """Digests of ``(min_d2, argmin)`` at each of :func:`argmin_inputs`'
+    shapes, through the entry points every version of the port has."""
+    out = {}
+    for label, (batched, p, c) in cases.items():
+        fn = ops.min_dist_argmin_batched if batched else ops.min_dist_argmin
+        out[f"distance_argmin[{label}]"] = digest(*fn(p, c))
+    return out
 
 
 def check(ok, what):
@@ -156,6 +227,10 @@ def batched_work(T, m, k_live, d):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--argmin-digests", action="store_true",
+                    help="print only distance_argmin's digests and exit; "
+                    "a copy of this file in the root of another checkout "
+                    "digests that checkout's kernels")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -219,8 +294,13 @@ def main(argv=None) -> int:
           f"{[(k.name, k.library) for k in ops.KERNELS]}")
 
     def reset_counts():
-        for kern in (*ops.KERNELS, da.ONE_CENTER):
+        for kern in (*ops.KERNELS, *da.ROUTES):
             kern.launches = 0
+
+    def route_counts():
+        """Launches of both distance_argmin entries by the kernel that
+        served them (one-centre, resident tile, general tile)."""
+        return {kern.name: kern.launches for kern in da.ROUTES}
 
     def counts():
         return {kern.name: kern.launches for kern in ops.KERNELS}
@@ -242,6 +322,12 @@ def main(argv=None) -> int:
     S, M = sp.shape[0], sp.shape[1]
     print(f"data: yearpredictionmsd stand-in {data.shape} k={k}, {S} sites "
           f"padded to M={M}, t={t} ({time.perf_counter() - t0:.1f} s)")
+    argmin_cases = argmin_inputs(pts, sp, k, args.seed + 2,
+                                 ref.CENTER_SENTINEL)
+    if args.argmin_digests:
+        print(f"argmin digests: "
+              f"{json.dumps(argmin_digests(argmin_cases, ops))}")
+        return 0
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
 
     def rows(x, count):
@@ -426,13 +512,6 @@ def main(argv=None) -> int:
                   f"rest within SUM_RTOL of the plain reduction of the "
                   f"other rows; bit-identical rerun")
 
-    def digest(*tensors):
-        """sha256 of the tensors' bytes, in order (first 16 hex digits)."""
-        h = hashlib.sha256()
-        for x in tensors:
-            h.update(x.detach().contiguous().cpu().numpy().tobytes())
-        return h.hexdigest()[:16]
-
     digests = {}
 
     print("phase 2: kernels against their plain versions on the card")
@@ -441,19 +520,21 @@ def main(argv=None) -> int:
 
     def check_one_center(label, p, c1):
         """The one-centre kernel, as D^2 seeding calls it, against the plain
-        version, and bit for bit against the general tile with the centre
-        padded to CENTER_TILE rows at the sentinel."""
+        version, and bit for bit against the resident and the general tile
+        with the centre padded to CENTER_TILE rows at the sentinel."""
         md, am, _, err = check_distance(label, p, c1)
         p3, c3 = (p, c1) if p.ndim == 3 else (p[None], c1[None])
         pad = c3.new_full((c3.shape[0], da.CENTER_TILE - 1, c3.shape[2]),
                           ref.CENTER_SENTINEL)
-        mg, ag = da.distance_argmin(p3, torch.cat([c3, pad], 1))
-        torch.cuda.synchronize()
-        check(torch.equal(md, mg.view_as(md)) and torch.equal(
-            am, ag.view_as(am)), f"one-centre kernel [{label}] differs from "
-            f"the general tile")
+        padded = torch.cat([c3, pad], 1)
+        for entry in (da.distance_argmin_resident, da.distance_argmin_tile):
+            mg, ag = entry(p3, padded)
+            torch.cuda.synchronize()
+            check(torch.equal(md, mg.view_as(md)) and torch.equal(
+                am, ag.view_as(am)), f"one-centre kernel [{label}] differs "
+                f"from {entry.__name__}")
         print(f"  distance_argmin[{label}]: one-centre kernel equal bit for "
-              f"bit to the general tile (centre padded to "
+              f"bit to the resident and the general tile (centre padded to "
               f"{da.CENTER_TILE} sentinel rows)")
         return err
 
@@ -516,6 +597,7 @@ def main(argv=None) -> int:
     # 2..64 live rows each (the rest masked to the sentinel), d = 90
     T_srv, KB = 256, 64
     k_live = torch.randint(2, KB + 1, (T_srv,), generator=gen).to(dev)
+    k_sum = int(k_live.sum())
     live = torch.arange(KB, device=dev)[None, :] < k_live[:, None]
     c_srv = torch.where(live[..., None], rows(pts, T_srv * KB).view(
         T_srv, KB, d), ref.CENTER_SENTINEL)
@@ -570,6 +652,69 @@ def main(argv=None) -> int:
         sp, c_sites, sm.float()))
     digests["weiszfeld_stats[sites]"] = digest(*ops.weiszfeld_stats(
         sp, c_sites, sm.float()))
+
+    def device_ms(fn, reps=10):
+        """The profiler's device time per launch of each kernel ``fn``
+        launches, by kernel name (per launch the profiler recorded: it may
+        drop a few of a run's events)."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return {a.key: getattr(a, "device_time_total", 0.0) / 1e3 / a.count
+                for a in prof.key_averages()
+                if getattr(a, "device_time_total", 0.0) > 0}
+
+    # distance_argmin's digests at argmin_inputs' shapes; at the paths'
+    # shapes the resident tile against the general tile: the routed entry
+    # reports the kernel the routing picks (the general tile's 8-point
+    # shape for serving's 8-row bucket, else the resident tile), the three outputs are equal bit for bit, and the two kernels
+    # are timed side by side
+    digests.update(argmin_digests(argmin_cases, ops))
+    for label, (batched, p, c) in argmin_cases.items():
+        if label.startswith("d="):
+            continue
+        c = ops.pad_centers(c)
+        S1, M1 = p.shape[:2]
+        entry = da.distance_argmin_batched if batched else da.distance_argmin
+        served = da.TILE if batched and M1 <= 8 else da.RESIDENT
+        before = route_counts()
+        md, am = entry(p, c)
+        torch.cuda.synchronize()
+        moved = {name: n_ - before[name] for name, n_ in
+                 route_counts().items()}
+        check(moved == {kern.name: int(kern is served)
+                        for kern in da.ROUTES},
+              f"distance_argmin[{label}]: launches by kernel {moved}, "
+              f"expected one on {served.name}")
+        mr, ar = da.distance_argmin_resident(p, c)
+        mt, at = da.distance_argmin_tile(p, c)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in
+                  ((md, mt), (am, at), (mr, mt), (ar, at))),
+              f"distance_argmin[{label}]: the resident tile differs from "
+              f"the general tile")
+        if batched:
+            live = int((c[..., 0] != ref.CENTER_SENTINEL).sum())
+            work = batched_work(S1, M1, live, d)
+        else:
+            work = distance_work(S1, M1, k, d)
+        b_ms, b_by = bound(*work)
+        res, tile = da.distance_argmin_resident, da.distance_argmin_tile
+        tt = [cuda_ms(lambda: fn(p, c)) for fn in (res, tile, tile, res)]
+        dev_res = sum(device_ms(lambda: res(p, c)).values())
+        dev_tile = sum(device_ms(lambda: tile(p, c)).values())
+        lib = cuda_ms(lambda: torch.cdist(p, c).min(-1))
+        print(f"  distance_argmin[{label}] {tuple(p.shape)} k_pad="
+              f"{c.shape[1]}: resident tile equal bit for bit to the general "
+              f"tile (the entry launched {served.name}); resident "
+              f"{tt[0]:.4f} / {tt[3]:.4f} ms (device {dev_res:.4f}), general "
+              f"tile {tt[1]:.4f} / {tt[2]:.4f} ms (device {dev_tile:.4f}); "
+              f"bound {b_ms:.4f} ({b_by}), library (cdist + min) {lib:.4f}; "
+              f"resident at {2 * b_ms / (tt[0] + tt[3]):.3f} of the bound")
 
     # -- timing at the main path's cost/solve shape ---------------------------
     p2d, c2d = pts, c_main
@@ -631,7 +776,6 @@ def main(argv=None) -> int:
           f"library (cdist + argmin + gather + index_add_) {wz_lib:.4f}, "
           f"bound {wz_bound:.4f} ({wz_by})")
     db = {}
-    k_sum = int(k_live.sum())
     for m, q in q_srv.items():
         b_ms, b_by = bound(*batched_work(T_srv, m, k_sum, d))
         db[m] = (cuda_ms(lambda: ops.min_dist_argmin_batched(q, c_srv)),
@@ -740,6 +884,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[routing] = counts()
+        by_kernel = route_counts()
         one_center_launches = da.ONE_CENTER.launches
         peak = torch.cuda.max_memory_allocated() / 2**30
         results[routing] = res
@@ -750,7 +895,8 @@ def main(argv=None) -> int:
               f"peak device memory {peak:.2f} GiB")
         print(f"  {routing} ledger: "
               f"{json.dumps(res.ledger.as_dict(by_phase=True))}")
-        print(f"  {routing} launches: {json.dumps(launches[routing])}")
+        print(f"  {routing} launches: {json.dumps(launches[routing])}; "
+              f"distance_argmin by kernel: {json.dumps(by_kernel)}")
         check(res.centers.shape == (k, d)
               and bool(torch.isfinite(res.centers).all()),
               f"{routing}: centers not finite of shape ({k}, {d})")
@@ -762,9 +908,11 @@ def main(argv=None) -> int:
         # (not per site): k seeding steps + 1 in Round 1, k in the solve
         check(launches[routing]["distance_argmin"] == 2 * k + 1,
               f"{routing}: distance_argmin launches {launches[routing]}")
-        # all but the sensitivities' launch take the one-centre kernel
-        check(one_center_launches == 2 * k,
-              f"{routing}: {one_center_launches} one-centre launches")
+        # all but the sensitivities' launch take the one-centre kernel, and
+        # that one (k = 50 at d = 90) the resident tile
+        check(by_kernel == {da.ONE_CENTER.name: 2 * k, da.RESIDENT.name: 1,
+                            da.TILE.name: 0},
+              f"{routing}: distance_argmin launches by kernel {by_kernel}")
         if routing == "flood":
             oc_launches = one_center_launches
         check(launches[routing]["lloyd_stats"] == 2 * 8,
@@ -883,6 +1031,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         md_launches[routing] = counts()
+        md_by_kernel = route_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
         md_results[routing] = res
         ratio = float(clustering.cost(pts, res.centers, objective="kmedian",
@@ -893,7 +1042,8 @@ def main(argv=None) -> int:
               f"{json.dumps({p: round(s, 4) for p, s in times.items()})}, "
               f"peak device memory {peak:.2f} GiB")
         print(f"  {routing} ledger: {json.dumps(ledger)}")
-        print(f"  {routing} launches: {json.dumps(md_launches[routing])}")
+        print(f"  {routing} launches: {json.dumps(md_launches[routing])}; "
+              f"distance_argmin by kernel: {json.dumps(md_by_kernel)}")
         check(res.centers.shape == (k, d)
               and bool(torch.isfinite(res.centers).all()),
               f"k-median {routing}: centers not finite of shape ({k}, {d})")
@@ -912,6 +1062,10 @@ def main(argv=None) -> int:
         check(md_launches[routing] == expect,
               f"k-median {routing}: launches {md_launches[routing]}, "
               f"expected {expect}")
+        check(md_by_kernel == {da.ONE_CENTER.name: 2 * k,
+                               da.RESIDENT.name: 1, da.TILE.name: 0},
+              f"k-median {routing}: distance_argmin launches by kernel "
+              f"{md_by_kernel}")
     check(torch.equal(md_results["flood"].centers,
                       md_results["bfs"].centers),
           "k-median: flood and BFS routes solved different centers")
@@ -980,6 +1134,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
     srv_launches = counts()
+    srv_by_kernel = route_counts()
     st = eng.stats
     check(all(tk.done for _, _, tk in tickets), "serving: a ticket is open")
     check(st.n_queries == sum(q.shape[0] for _, q, _ in tickets),
@@ -988,6 +1143,17 @@ def main(argv=None) -> int:
                            "weiszfeld_stats": 0,
                            "distance_argmin_batched": st.n_dispatches},
           f"serving: launches {srv_launches}, {st.n_dispatches} dispatches")
+    # every dispatch pads its centres to 64 rows at d = 90: the general
+    # tile's 8-point shape for the 8-row bucket, else the resident tile, by
+    # the engine's own count of dispatches per shape
+    check(sum(eng.dispatches_by_shape.values()) == st.n_dispatches,
+          f"serving: dispatches by shape {eng.dispatches_by_shape}")
+    narrow = sum(count for shape, count in eng.dispatches_by_shape.items()
+                 if shape[1] <= 8)
+    check(srv_by_kernel == {da.ONE_CENTER.name: 0,
+                            da.RESIDENT.name: st.n_dispatches - narrow,
+                            da.TILE.name: narrow},
+          f"serving: distance_argmin launches by kernel {srv_by_kernel}")
     big = [tk for _, q, tk in tickets if q.shape[0] == BIG]
     check(len(big) == 1 and big[0].n_padded == 5 * 1024 - BIG,
           "serving: the 5,000-row burst was not split into 5 chunks")
@@ -1039,7 +1205,9 @@ def main(argv=None) -> int:
     print(f"  results equal the per-tenant loop bit for bit; against the "
           f"plain version max |d2 err| {srv_err:.3g}, {srv_flips} near-tie "
           f"flips; batched launches {srv_launches['distance_argmin_batched']}"
-          f" == dispatches")
+          f" == dispatches ({srv_by_kernel[da.RESIDENT.name]} on the "
+          f"resident tile, {srv_by_kernel[da.TILE.name]} on the general "
+          f"tile)")
     lap("phase 6")
 
     print(f"phase walls (s): {json.dumps(walls)}")

@@ -10,10 +10,12 @@
 // merge with (value, index) order, so the lowest index wins ties, as
 // jnp.argmin does. The (n, k) matrix never leaves registers.
 //
-// distance_argmin assigns through tile_argmin, and lloyd_stats and
-// weiszfeld_stats keep its arithmetic with both operands resident in shared
-// memory (resident_tile.cuh), so all three assign every point
-// bit-identically (see the note on tile shapes below).
+// distance_argmin's general tile assigns through tile_argmin (the shapes
+// whose resident block does not fit shared memory, and the exported tile
+// entry); its resident tile, lloyd_stats and weiszfeld_stats keep the same
+// arithmetic with both operands resident in shared memory
+// (resident_tile.cuh), so all of them assign every point bit-identically
+// (see the note on tile shapes below).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,8 +43,8 @@ struct Tile {
 
 // General tile: 16 lanes across centres, 64 points x 64 centres.
 using WideTile = Tile<16, 4, 4>;
-// Small query buckets (serving): a warp across centres, 8 points x 64
-// centres, so an 8-row tenant fills its block.
+// Up to 32 rows per site: a warp across centres, 8 points x 64 centres, so
+// an 8-row site fills its block.
 using NarrowTile = Tile<32, 1, 2>;
 // distance_argmin's one-centre path (D^2 seeding) does not come here:
 // distance_one_center_kernel (distance_argmin.cu) copies the points once

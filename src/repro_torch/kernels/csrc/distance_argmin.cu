@@ -11,20 +11,32 @@
 // by operations. With one centre (D^2 seeding, k launches in a row) it reads
 // 4 d bytes for 3 d flops and is bound by bytes: 0.234 ms for the 100 x
 // 21,280 x 90 sites.
-// Design: with k_pad > 1 each block owns a tile of points and sweeps every
-// centre tile through shared memory, keeping the running min/argmin in
-// registers (argmin_tile.cuh); the (n, k) matrix is never written. fp32
-// FMAs on the CUDA cores, not the tensor cores: TF32 would flip argmins,
-// and exact-fp32 tensor-core emulation is later work. With k_pad == 1 a
-// kernel of its own streams the points once, coalesced, through shared
-// memory (distance_one_center_kernel below).
+// Design, by shape (route() below; every entry reports the kernel it
+// launched, which distance_argmin.ROUTES counts):
+// * k_pad == 1: a kernel of its own streams the points once, coalesced,
+//   through shared memory (distance_one_center_kernel).
+// * k_pad > 1 and more than kNarrowRows rows per site where the block fits
+//   shared memory: the resident tile (distance_argmin_resident_kernel), on
+//   the core of the resident statistics kernels (resident_tile.cuh): the
+//   site's centres and their norms stay in shared memory for the block's
+//   life, and each 64-row point tile is copied once with cp.async and
+//   assigned from that copy.
+// * otherwise the general tile (distance_argmin_kernel, from
+//   argmin_tile.cuh), which stages points and centres 32 features at a
+//   time: larger k_pad x d, and sites of up to 8 rows (serving's smallest
+//   bucket), where its 8-point shape does an eighth of the resident tile's
+//   64-row work.
+// Every route gives each (point, centre) pair the same chain of roundings
+// and reduces with the same order (argmin_tile.cuh's note on tile shapes),
+// so the output does not depend on the route. fp32 FMAs on the CUDA cores,
+// not the tensor cores: TF32 would flip argmins, and exact-fp32 tensor-core
+// emulation is later work. The (n, k) matrix is never written.
 #include <limits.h>
 
 #include <algorithm>
 #include <atomic>
 
-#include "argmin_tile.cuh"
-#include "cp_async.cuh"
+#include "resident_tile.cuh"
 
 namespace {
 
@@ -65,6 +77,145 @@ int launch(K kernel, const float* P, const float* C, float* out_min,
   if (k_pad % T::BK != 0) return (int)cudaErrorInvalidValue;
   dim3 grid((M + T::BN - 1) / T::BN, S);
   kernel<<<grid, kThreads, 0, stream>>>(P, C, out_min, out_arg, M, k_pad, d);
+  return (int)cudaGetLastError();
+}
+
+// The general tile: 8-point tiles for up to 32 rows per site (a small
+// serving bucket fills its block), 64-point tiles above.
+int launch_tile(const float* P, const float* C, float* out_min, int* out_arg,
+                int S, int M, int k_pad, int d, cudaStream_t stream) {
+  if (M <= 4 * NarrowTile::BN)
+    return launch<NarrowTile>(distance_argmin_kernel<32, 1, 2>, P, C, out_min,
+                              out_arg, S, M, k_pad, d, stream);
+  return launch<WideTile>(distance_argmin_kernel<16, 4, 4>, P, C, out_min,
+                          out_arg, S, M, k_pad, d, stream);
+}
+
+// ---- resident tile (k_pad > 1) ---------------------------------------------
+//
+// One block owns a fixed slice of rows_per_block rows of one site
+// (blockIdx.y). Once per block it stages the site's centres with
+// stage_centers (transposed, k_pad a multiple of the 64-centre tile, norms
+// from the shared copy); then for each 64-row tile of its slice copy_rows
+// copies the rows once with cp.async, tile_norms takes p2 from that copy and
+// assign_tile runs the 4 x 4 assignment, and lane tx == 0 of each point
+// writes its min d2 and argmin. No accumulators, no partials, no second
+// launch: the layout is ResidentTile's with k = 0 and no per-row array of
+// the kernel's own.
+//
+// Bit for bit the general tile's output (tile_argmin): for every pair, p2,
+// c2 and p.c are fmaf chains over j = 0..d-1 from 0.f (the general tile's
+// zero-padded features past d add fmaf(0, 0, acc) = acc), and d2 is
+// (p2 + c2) - 2 p.c with the same explicit roundings, clamped at 0. Both
+// reduce with a strict `<` within a lane and across centre tiles, and with
+// (value, index) order across lanes, so both return the least d2 and, among
+// equal values, the lowest index, whichever lane held which centre. A row
+// whose every d2 is NaN (a NaN feature) or +inf keeps best = +inf at index
+// 0 in both. The centres past k are sentinel rows of the caller's k_pad
+// rows in both.
+//
+// Rows per block: the output has no sum across rows, so any slice gives the
+// same per-row result, and the slice is chosen per launch to fill the card:
+// as many blocks as fit at once share each site's tiles evenly, at least
+// one block per site and at most one per tile (resident_rows). The launch
+// is then one wave and each block pays its centre staging once.
+//
+// One point stage: the next tile's copy starts after this tile's
+// assignment, and the SM's other blocks (four at k = 50, d = 90) hide its
+// wait. A second stage, copying tile t + 1 while tile t is assigned, was
+// measured slower on an H100 where the work is (PERF.md): it takes three
+// blocks per SM instead of four.
+
+// Floats of dynamic shared memory of one resident block: ResidentTile's
+// layout with no accumulators and no per-row array of the kernel's own
+// (distance_argmin.resident_fits counts the same).
+__host__ __device__ inline long long argmin_floats(int k_pad, int d) {
+  return shared_floats(0, resident_centers(k_pad), d, 0);
+}
+
+// Rows per block for S sites of M rows when `slots` blocks fit on the card
+// at once.
+inline int resident_rows(int S, int M, int slots) {
+  const int tiles = (M + kTileRows - 1) / kTileRows;
+  const int blocks = std::min(tiles, std::max(1, slots / S));
+  return (tiles + blocks - 1) / blocks * kTileRows;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    distance_argmin_resident_kernel(const float* __restrict__ P,
+                                    const float* __restrict__ C,
+                                    float* __restrict__ out_min,
+                                    int* __restrict__ out_arg, int M,
+                                    int k_pad, int d, int rows_per_block) {
+  extern __shared__ float4 smem4[];
+  const ResidentTile<0> s(smem4, 0, k_pad, d);
+  const int tx = threadIdx.x % kTX;
+  const int ty = threadIdx.x / kTX;
+  const int b = blockIdx.y;
+  const int first = blockIdx.x * rows_per_block;
+  const int stop = min(M, first + rows_per_block);
+  const float* Pb = P + (size_t)b * M * d;
+  float* mins = out_min + (size_t)b * M;
+  int* args = out_arg + (size_t)b * M;
+
+  int mis = copy_rows(s.stage, Pb, first, min(kTileRows, stop - first), d);
+  stage_centers(s, C + (size_t)b * k_pad * d, 0, k_pad, d);
+
+  for (int row0 = first; row0 < stop; row0 += kTileRows) {
+    const int rows = min(kTileRows, stop - row0);
+    wait_tile();
+    __syncthreads();  // every thread's copies of this tile have landed
+    const float* x = s.stage + mis;  // row r at x + r d
+    tile_norms(x, s.p2s, rows, d);
+    float best[kTM];
+    int arg[kTM];
+    assign_tile(s, x, d, best, arg);
+    if (tx == 0) {
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const int r = ty + i * kTY;
+        if (r < rows) {
+          mins[row0 + r] = best[i];
+          args[row0 + r] = arg[i];
+        }
+      }
+    }
+    __syncthreads();  // the stage and p2s are free again
+    if (row0 + kTileRows < stop)
+      mis = copy_rows(s.stage, Pb, row0 + kTileRows,
+                      min(kTileRows, stop - row0 - kTileRows), d);
+  }
+}
+
+// Launch the resident kernel with a block of `bytes` of shared memory (its
+// limit already raised by route()).
+int launch_resident_argmin(const float* P, const float* C, float* out_min,
+                           int* out_arg, int S, int M, int k_pad, int d,
+                           int bytes, cudaStream_t stream) {
+  // blocks that fit on the card at once for the last block size launched
+  // on each device (serving repeats one size), as (bytes << 20) | slots
+  constexpr int kMaxDevices = 64;
+  static std::atomic<long long> fit[kMaxDevices];  // 0: none worked out
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  long long known = fit[dev].load(std::memory_order_relaxed);
+  if (known >> 20 != bytes) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, distance_argmin_resident_kernel, kThreads, bytes)) !=
+            cudaSuccess)
+      return (int)err;
+    known = (long long)bytes << 20 | sms * std::max(per_sm, 1);
+    fit[dev].store(known, std::memory_order_relaxed);
+  }
+  const int rows = resident_rows(S, M, (int)(known & ((1 << 20) - 1)));
+  distance_argmin_resident_kernel<<<dim3((M + rows - 1) / rows, S), kThreads,
+                                    (size_t)bytes, stream>>>(
+      P, C, out_min, out_arg, M, k_pad, d, rows);
   return (int)cudaGetLastError();
 }
 
@@ -308,40 +459,121 @@ int launch_one_center(const float* P, const float* C, float* out_min,
                                      kOneCenterThreads, stream);
 }
 
+// Which kernel serves a launch; the codes are the order of
+// distance_argmin.ROUTES.
+enum Route { kOneCenter = 0, kResident = 1, kTile = 2 };
+
+// Up to this many rows per site take the general tile (its 8-point shape)
+// even where the resident block fits: at 8 rows the 8-point tile measured
+// faster on an H100, at 16 and 32 rows the resident tile (PERF.md).
+constexpr int kNarrowRows = NarrowTile::BN;
+
+// The resident block's bytes of shared memory for k_pad centres of d
+// features, and whether it fits the device (the kernel's limit raised).
+cudaError_t resident_block(int k_pad, int d, bool* fits, int* bytes) {
+  int most = 0;
+  const cudaError_t err =
+      shared_limit<distance_argmin_resident_kernel>(&most);
+  if (err != cudaSuccess) return err;
+  const long long need = (long long)sizeof(float) * argmin_floats(k_pad, d);
+  *fits = need <= most;
+  *bytes = (int)std::min(need, (long long)most);
+  return cudaSuccess;
+}
+
+// The kernel for M rows per site and k_pad centres of d features, and the
+// resident block's bytes of shared memory.
+cudaError_t route(int M, int k_pad, int d, int* which, int* bytes) {
+  if (k_pad == 1) {
+    *which = kOneCenter;
+    return cudaSuccess;
+  }
+  bool fits = false;
+  const cudaError_t err = resident_block(k_pad, d, &fits, bytes);
+  *which = fits && M > kNarrowRows ? kResident : kTile;
+  return err;
+}
+
+// Both entries: points (S, M, d), centres (S, k_pad, d) with k_pad 1 or a
+// multiple of 64, outputs (S, M); all contiguous. *served is the Route of
+// the kernel launched.
+int launch_routed(const float* P, const float* C, float* out_min,
+                  int* out_arg, int S, int M, int k_pad, int d,
+                  cudaStream_t stream, int* served) {
+  if (S < 1 || M < 1 || d < 1 || k_pad < 1 ||
+      (k_pad > 1 && k_pad % kCenterTile != 0))
+    return (int)cudaErrorInvalidValue;
+  int which = kTile, bytes = 0;
+  const cudaError_t err = route(M, k_pad, d, &which, &bytes);
+  if (err != cudaSuccess) return (int)err;
+  *served = which;
+  switch (which) {
+    case kOneCenter:
+      return launch_one_center(P, C, out_min, out_arg, S, M, d, stream);
+    case kResident:
+      return launch_resident_argmin(P, C, out_min, out_arg, S, M, k_pad, d,
+                                    bytes, stream);
+    default:
+      return launch_tile(P, C, out_min, out_arg, S, M, k_pad, d, stream);
+  }
+}
+
 }  // namespace
 
 // points (S, M, d), centres (S, k_pad, d), outputs (S, M); all contiguous.
-// Returns the CUDA error of the launch (0 on success).
+// Every entry returns the CUDA error of the launch (0 on success) and
+// writes the Route of the kernel it launched to *served (a host int).
 extern "C" int distance_argmin_launch(const float* P, const float* C,
                                       float* out_min, int* out_arg, int S,
-                                      int M, int k_pad, int d, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k_pad == 1)
-    return launch_one_center(P, C, out_min, out_arg, S, M, d, st);
-  return launch<WideTile>(distance_argmin_kernel<16, 4, 4>, P, C, out_min,
-                          out_arg, S, M, k_pad, d, st);
+                                      int M, int k_pad, int d, void* stream,
+                                      int* served) {
+  return launch_routed(P, C, out_min, out_arg, S, M, k_pad, d,
+                       static_cast<cudaStream_t>(stream), served);
 }
 
 // The stacked-tenant entry (replaces the Pallas TPU kernel
 // src/repro/kernels/distance_argmin.py:distance_argmin_batched, whose grid
 // (T, m/bn, k/bk) led with the tenant axis): T tenants' queries (T, m, d)
 // against their own centres (T, k_pad, d), tenant on blockIdx.y. Masked
-// centre rows arrive at the sentinel. Serving's query buckets are small
-// (m from 8 rows), so up to 32 rows per tenant take the 8-point tile;
-// larger buckets take the general one. Any tile shape gives what
-// distance_argmin_launch gives for the same tenant (argmin_tile.cuh), and
-// one centre per tenant takes the same one-centre kernel, so a fused
+// centre rows arrive at the sentinel. It takes the same route as
+// distance_argmin_launch for the same shape, and no route's output depends
+// on the route, the number of tenants or the rows per block, so a fused
 // dispatch equals a loop of single-tenant launches bit for bit.
 extern "C" int distance_argmin_batched_launch(const float* P, const float* C,
                                               float* out_min, int* out_arg,
                                               int T, int m, int k_pad, int d,
-                                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k_pad == 1)
-    return launch_one_center(P, C, out_min, out_arg, T, m, d, st);
-  if (m <= 4 * NarrowTile::BN)
-    return launch<NarrowTile>(distance_argmin_kernel<32, 1, 2>, P, C, out_min,
-                              out_arg, T, m, k_pad, d, st);
-  return launch<WideTile>(distance_argmin_kernel<16, 4, 4>, P, C, out_min,
-                          out_arg, T, m, k_pad, d, st);
+                                              void* stream, int* served) {
+  return launch_routed(P, C, out_min, out_arg, T, m, k_pad, d,
+                       static_cast<cudaStream_t>(stream), served);
+}
+
+// The general tile alone, whatever the shape (k_pad a multiple of 64), so
+// the resident tile can be held against it bit for bit.
+extern "C" int distance_argmin_tile_launch(const float* P, const float* C,
+                                           float* out_min, int* out_arg,
+                                           int S, int M, int k_pad, int d,
+                                           void* stream, int* served) {
+  if (S < 1 || M < 1 || d < 1 || k_pad < 1) return (int)cudaErrorInvalidValue;
+  *served = kTile;
+  return launch_tile(P, C, out_min, out_arg, S, M, k_pad, d,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The resident tile alone at any row count (k_pad a multiple of 64 whose
+// block fits shared memory, else cudaErrorInvalidValue), so it can be held
+// against the general tile where the entries route to that.
+extern "C" int distance_argmin_resident_launch(const float* P, const float* C,
+                                               float* out_min, int* out_arg,
+                                               int S, int M, int k_pad, int d,
+                                               void* stream, int* served) {
+  if (S < 1 || M < 1 || d < 1 || k_pad < 2 || k_pad % kCenterTile != 0)
+    return (int)cudaErrorInvalidValue;
+  bool fits = false;
+  int bytes = 0;
+  const cudaError_t err = resident_block(k_pad, d, &fits, &bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (!fits) return (int)cudaErrorInvalidValue;
+  *served = kResident;
+  return launch_resident_argmin(P, C, out_min, out_arg, S, M, k_pad, d,
+                                bytes, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,8 @@
 // The core of the resident statistics kernels (lloyd_stats,
 // weiszfeld_stats): per-centre sums over a site's points, with each point
 // assigned to its nearest centre bit for bit as distance_argmin assigns it.
+// distance_argmin's resident tile (distance_argmin.cu) runs steps 1-3 alone,
+// with no accumulators (k = 0) and no per-row array of its own.
 //
 // Each block owns a fixed slice of rows_per_block rows of one site and
 // writes one partial of k d + k + 1 floats (partials.cuh sums a site's
@@ -11,7 +13,7 @@
 //    the 64-centre tile, so k_pad = 1 takes the same kernel), and their
 //    norms are taken once from that copy.
 // 2. One copy of each point tile. A 64-row tile is a contiguous span of
-//    rows x d floats; copy_tile copies it once with 16-byte cp.async into a
+//    rows x d floats; copy_rows copies it once with 16-byte cp.async into a
 //    stage shifted by the span's misalignment (scalar head and tail), so odd
 //    d and odd storage offsets work. Everything the kernel computes for a
 //    row reads this copy.
@@ -106,11 +108,10 @@ struct ResidentTile {
   }
 };
 
-// Start the cp.async copies of one tile (rows x d floats from row0, and its
-// weights); returns the stage shift, the span's misalignment in floats.
-__device__ __forceinline__ int copy_tile(float* stage, float* ws,
+// Start the cp.async copies of one tile's rows (rows x d floats from row0);
+// returns the stage shift, the span's misalignment in floats.
+__device__ __forceinline__ int copy_rows(float* stage,
                                          const float* __restrict__ P,
-                                         const float* __restrict__ W,
                                          int row0, int rows, int d) {
   const int tid = threadIdx.x;
   const float* src = P + (size_t)row0 * d;
@@ -124,7 +125,16 @@ __device__ __forceinline__ int copy_tile(float* stage, float* ws,
     cp_async16(dst + head + 4 * i, src + head + 4 * i);
   if (tid < head) cp_async4(dst + tid, src + tid);
   if (tid < len - body) cp_async4(dst + body + tid, src + body + tid);
-  if (tid < rows) cp_async4(ws + tid, W + row0 + tid);
+  return mis;
+}
+
+// copy_rows, and the tile's weights after them.
+__device__ __forceinline__ int copy_tile(float* stage, float* ws,
+                                         const float* __restrict__ P,
+                                         const float* __restrict__ W,
+                                         int row0, int rows, int d) {
+  const int mis = copy_rows(stage, P, row0, rows, d);
+  if (threadIdx.x < rows) cp_async4(ws + threadIdx.x, W + row0 + threadIdx.x);
   return mis;
 }
 
@@ -326,7 +336,7 @@ using ResidentKernel = void (*)(const float*, const float*, const float*,
 
 // The most dynamic shared memory a block may use on this device; Kernel's
 // limit is raised to it at its first launch on each device.
-template <ResidentKernel Kernel>
+template <auto Kernel>
 cudaError_t shared_limit(int* bytes) {
   constexpr int kMaxDevices = 64;
   static std::atomic<int> limit[kMaxDevices];  // 0: not worked out yet

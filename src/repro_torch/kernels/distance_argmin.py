@@ -3,10 +3,16 @@
 It replaces the Pallas TPU kernel
 ``src/repro/kernels/distance_argmin.py:distance_argmin``: per point, the
 min squared distance over k centres and its argmin (lowest index on
-ties), with the (n, k) matrix never leaving the chip's registers. What
-bounds it on the card and how its design answers that is noted in the
-CUDA source. Use :func:`repro_torch.kernels.ops.min_dist_argmin`, which
-pads the centres and takes the plain version for CPU tensors.
+ties), with the (n, k) matrix never leaving the chip's registers. Both
+entries route by shape inside the CUDA library (``route`` in the source):
+one centre to the one-centre kernel; more to the resident tile where its
+block fits shared memory (:func:`resident_fits`) and a site has more than
+8 rows; else to the general tile. Each launch reports the kernel it
+took, and :data:`ROUTES` counts it. Every route gives the same output
+bit for bit.
+What bounds it on the card and how its design answers that is noted in
+the CUDA source. Use :func:`repro_torch.kernels.ops.min_dist_argmin`,
+which pads the centres and takes the plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -20,19 +26,40 @@ from repro_torch.kernels._build import Kernel
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+# points, centres, min d2, argmin, S, M, k_pad, d, stream, and a host int
+# the entry sets to the code of the kernel it launched (ROUTES' order)
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _P, ctypes.POINTER(_I)]
 KERNEL = Kernel("distance_argmin", "distance_argmin_launch", _ARGS)
 KERNEL_BATCHED = Kernel("distance_argmin_batched",
                         "distance_argmin_batched_launch", _ARGS,
                         library="distance_argmin")
-# the one-centre kernel that both entries launch for k_pad == 1 (D^2
-# seeding): its launches are counted here as well as under the entry's own
+# The kernels both entries route to: the one-centre kernel (D^2 seeding),
+# the resident tile and the general tile. Each launch of an entry is
+# counted under the entry and under the kernel the library reports it
+# launched. The resident and general tiles have entries of their own too,
+# whose launches their counts also take, so that each can be held against
+# the other.
 ONE_CENTER = Kernel("distance_one_center", "distance_argmin_launch", _ARGS,
                     library="distance_argmin")
+RESIDENT = Kernel("distance_argmin_resident",
+                  "distance_argmin_resident_launch", _ARGS,
+                  library="distance_argmin")
+TILE = Kernel("distance_argmin_tile", "distance_argmin_tile_launch", _ARGS,
+              library="distance_argmin")
+# in the order of the codes the entries report (enum Route in the source)
+ROUTES = (ONE_CENTER, RESIDENT, TILE)
 
 # centres per tile of the general tile shape; must equal kCenterTile in
 # csrc/argmin_tile.cuh (the kernel refuses other paddings)
 CENTER_TILE = 64
+
+# point rows per tile of the resident kernels (kTileRows in
+# csrc/resident_tile.cuh)
+TILE_ROWS = 64
+
+# floats of shared memory a block may use on Hopper (227 KiB): the limit of
+# what one block of a resident kernel keeps
+RESIDENT_FLOATS = 58112
 
 
 def center_tile(k: int) -> int:
@@ -41,6 +68,19 @@ def center_tile(k: int) -> int:
     what the general tile gives for the centre padded to CENTER_TILE rows,
     bit for bit), else CENTER_TILE."""
     return 1 if k == 1 else CENTER_TILE
+
+
+def resident_fits(k_pad: int, d: int) -> bool:
+    """Whether a resident block for ``k_pad`` centres of ``d`` features fits
+    shared memory; where not, the entries take the general tile. It counts
+    the floats as ``argmin_floats`` in ``csrc/distance_argmin.cu`` does:
+    the layout of ``resident_tile.cuh`` with no accumulators and no per-row
+    array of the kernel's own (the point stage, 64 rows and 4 floats of
+    shift; the centres at a row stride 2 above the 64-centre tile; their
+    norms; five per-row arrays of 64 and one group start)."""
+    kc = -(-k_pad // CENTER_TILE) * CENTER_TILE
+    floats = TILE_ROWS * d + 4 + d * (kc + 2) + kc + 5 * TILE_ROWS + 1
+    return floats <= RESIDENT_FLOATS
 
 
 def check_cuda(t: torch.Tensor, name: str, ndim: int,
@@ -75,11 +115,29 @@ def distance_argmin_batched(queries: torch.Tensor, centers: torch.Tensor
     ``src/repro/kernels/distance_argmin.py:distance_argmin_batched``): one
     launch over T tenants, queries ``(T, m, d)`` and centres
     ``(T, k_pad, d)`` (masked rows at ``ref.CENTER_SENTINEL``), shapes as
-    :func:`distance_argmin`. It takes a narrower point tile for small
-    query buckets, and gives bit for bit what a loop of
-    :func:`distance_argmin` over the tenants gives; it counts its launches
-    apart, so a run shows that serving went through it."""
+    :func:`distance_argmin`. It takes the kernel :func:`distance_argmin`
+    takes for the same shape, and gives bit for bit what a loop of :func:`distance_argmin`
+    over the tenants gives; it counts its launches apart, so a run shows
+    that serving went through it."""
     return _launch(KERNEL_BATCHED, queries, centers)
+
+
+def distance_argmin_tile(points: torch.Tensor, centers: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The general tile alone at any shape (``k_pad`` a multiple of
+    :data:`CENTER_TILE`), shapes as :func:`distance_argmin`: what the
+    entries route to where the resident tile does not serve, and what the
+    resident tile is held to bit for bit."""
+    return _launch(TILE, points, centers)
+
+
+def distance_argmin_resident(points: torch.Tensor, centers: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The resident tile alone at any row count (``k_pad`` a multiple of
+    :data:`CENTER_TILE` whose block :func:`fits <resident_fits>`), shapes
+    as :func:`distance_argmin`, so that it can be held against the general
+    tile where the entries route to that."""
+    return _launch(RESIDENT, points, centers)
 
 
 def _launch(kernel: Kernel, points: torch.Tensor, centers: torch.Tensor
@@ -96,22 +154,37 @@ def _launch(kernel: Kernel, points: torch.Tensor, centers: torch.Tensor
     if min(S, M, d, k_pad) == 0:
         raise ValueError(f"empty input: points {tuple(points.shape)}, "
                          f"centers {tuple(centers.shape)}")
-    if k_pad % center_tile(k_pad):
+    if k_pad % (CENTER_TILE if kernel in (TILE, RESIDENT)
+                else center_tile(k_pad)):
         raise ValueError(f"{k_pad} centre rows: pad to a multiple of "
                          f"{CENTER_TILE} (ops.min_dist_argmin does)")
+    if kernel is RESIDENT and not resident_fits(k_pad, d):
+        raise ValueError(f"{k_pad} centres of {d} features exceed the "
+                         f"resident tile's shared memory")
     if S > 65535:
         raise ValueError(f"{S} sites exceed the grid's 65535")
     out_min = torch.empty((S, M), dtype=torch.float32, device=points.device)
     out_arg = torch.empty((S, M), dtype=torch.int32, device=points.device)
+    served = _I(-1)
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = kernel.fn()(points.data_ptr(), centers.data_ptr(),
                          out_min.data_ptr(), out_arg.data_ptr(), S, M, k_pad,
-                         d, stream)
+                         d, stream, ctypes.byref(served))
     if rc != 0:
         raise RuntimeError(f"{kernel.name} launch failed with CUDA error "
                            f"{rc}")
-    kernel.launches += 1
-    if k_pad == 1:
-        ONE_CENTER.launches += 1
+    count_launch(kernel, served.value)
     return out_min, out_arg
+
+
+def count_launch(entry: Kernel, served: int) -> None:
+    """Count one launch of ``entry`` that the library reports served by
+    the kernel of code ``served`` (the index into :data:`ROUTES`): under
+    the entry, and under that kernel unless the entry is that kernel's
+    own."""
+    if not 0 <= served < len(ROUTES):
+        raise RuntimeError(f"{entry.name} reported kernel code {served}")
+    entry.launches += 1
+    if ROUTES[served] is not entry:
+        ROUTES[served].launches += 1

@@ -21,8 +21,9 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.kernels._build import Kernel
-from repro_torch.kernels.distance_argmin import (CENTER_TILE, center_tile,
-                                                check_cuda)
+from repro_torch.kernels.distance_argmin import (CENTER_TILE,
+                                                RESIDENT_FLOATS, TILE_ROWS,
+                                                center_tile, check_cuda)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,13 +34,6 @@ KERNEL = Kernel("lloyd_stats", "lloyd_stats_launch", STATS_ARGS)
 # rows each block owns: sets the number of partials of a site
 # (ceil(M / ROWS_PER_BLOCK)), and so the order of the final sum
 ROWS_PER_BLOCK = 1024
-
-# point rows per tile of the resident kernels (kTileRows in the CUDA source)
-TILE_ROWS = 64
-
-# floats of shared memory a block may use on Hopper (227 KiB): the limit of
-# what one block of a resident kernel keeps (:func:`shared_floats`)
-RESIDENT_FLOATS = 58112
 
 # per-row arrays of a lloyd_stats block: p2, min d2, w, argmin, order and
 # its centres

@@ -27,7 +27,9 @@ with ``(S, k, d)`` centres -- and then serves all sites in ONE launch, as
   routing by shape: a CUDA tensor still reaches a kernel.
 * **Launch counts.** :data:`KERNELS` lists each kernel entry with its
   ``launches`` counter (the batched argmin is an entry of the
-  ``distance_argmin`` library with a counter of its own).
+  ``distance_argmin`` library with a counter of its own);
+  ``distance_argmin.ROUTES`` counts the same entries' launches again by
+  the kernel that served them (one-centre, resident tile, general tile).
 * **Query buckets.** :func:`query_bucket`, :func:`pad_queries` and
   :func:`chunk_queries` bound the shapes serving dispatches to powers of
   two (DESIGN.md Sec. 9).

@@ -13,7 +13,8 @@ the batched ``distance_argmin`` entry on the card):
   the queue, splits batches above ``max_bucket`` into chunks, and groups
   chunks by ``(d, k_bucket, padded size, objective)``, so ragged traffic
   assembles into stacked batches over a bounded set of dispatched shapes
-  (``compiled_shapes`` records the set);
+  (``compiled_shapes`` records the set, ``dispatches_by_shape`` the
+  dispatches of each);
 * **stacked-centre dispatch**: each group stacks up to ``max_group``
   tenants' centres into one ``(T, k_bucket, d)`` buffer with a live-row
   mask (the tenant axis padded to a power of two) and makes ONE dispatch
@@ -170,6 +171,8 @@ class ClusterServeEngine:
         self.refresh_budget = refresh_budget
         self.stats = EngineStats()
         self.compiled_shapes: set = set()   # (T_pad, bucket, k_pad, d, obj)
+        # dispatches issued per shape of compiled_shapes
+        self.dispatches_by_shape: Dict[tuple, int] = {}
         self._tenants: Dict[int, _Tenant] = {}
         self._next_tid = 0
         # steady traffic re-assembles the same tenant composition every
@@ -331,7 +334,10 @@ class ClusterServeEngine:
         dist = dist.cpu().numpy()
         self.stats.n_dispatches += 1
         self.stats.n_tenant_dispatches += T
-        self.compiled_shapes.add((Tp, b, kb, d, objective))
+        shape = (Tp, b, kb, d, objective)
+        self.compiled_shapes.add(shape)
+        self.dispatches_by_shape[shape] = (
+            self.dispatches_by_shape.get(shape, 0) + 1)
         served = 0
         for i, (_, ticket, off, part) in enumerate(items):
             n = part.shape[0]

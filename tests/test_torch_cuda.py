@@ -313,12 +313,18 @@ def test_cuda_weiszfeld_reruns_bit_identical_at_sites_shape(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,m,k,d", [(1, 8, 4, 3), (256, 8, 64, 90),
                                      (33, 64, 17, 90), (5, 1024, 50, 90),
-                                     (7, 200, 1, 33)])
+                                     (7, 200, 1, 33), (64, 16, 64, 90),
+                                     (40, 32, 33, 90), (1024, 8, 50, 90),
+                                     (3, 1024, 64, 90)])
 def test_cuda_batched_argmin_equals_per_tenant_loop(cuda, T, m, k, d):
     """The stacked-tenant entry against a loop of single-tenant launches
     over the same stacked buffers, bit for bit (DESIGN.md Sec. 13), and
-    against the plain version within float32 tolerance; masked rows
-    (sentinel) never win."""
+    against the resident and the general tile on the same stacked buffers,
+    bit for bit; and against the plain version within float32 tolerance;
+    masked rows (sentinel) never win. The launch is counted under the
+    kernel the library reports it launched: one centre the one-centre
+    kernel, else the general tile's 8-point shape up to 8 rows and the
+    resident tile above."""
     rng = np.random.default_rng(T * m)
     q = torch.tensor(rng.standard_normal((T, m, d)), dtype=torch.float32,
                      device=cuda)
@@ -328,13 +334,22 @@ def test_cuda_batched_argmin_equals_per_tenant_loop(cuda, T, m, k, d):
     mask = torch.arange(k, device=cuda)[None, :] < k_real[:, None]
     c = torch.where(mask[..., None], c, ref.CENTER_SENTINEL)
     before = (da_mod.KERNEL.launches, da_mod.KERNEL_BATCHED.launches)
+    served = (da_mod.ONE_CENTER if k == 1 else da_mod.TILE if m <= 8
+              else da_mod.RESIDENT)
+    by_kernel = _route_counts()
     md, am = ops.min_dist_argmin_batched(q, c)
     torch.cuda.synchronize()
     assert (da_mod.KERNEL.launches,
             da_mod.KERNEL_BATCHED.launches) == (before[0], before[1] + 1)
+    moved = {name: n - by_kernel[name] for name, n in _route_counts().items()}
+    assert moved == {kern.name: int(kern is served) for kern in da_mod.ROUTES}
     for t in range(T):
         md_t, am_t = ops.min_dist_argmin(q[t], c[t])
         assert torch.equal(md[t], md_t) and torch.equal(am[t], am_t)
+    for entry in (da_mod.distance_argmin_tile,
+                  da_mod.distance_argmin_resident):
+        md_g, am_g = entry(q, _padded_to_tile(c))
+        assert torch.equal(md, md_g) and torch.equal(am, am_g)
     assert bool((am < k_real[:, None]).all())
     md_r, am_r = ref.min_dist_argmin_batched_ref(q, c)
     np.testing.assert_allclose(md.cpu().numpy(), md_r.cpu().numpy(),
@@ -345,8 +360,15 @@ def test_cuda_batched_argmin_equals_per_tenant_loop(cuda, T, m, k, d):
 def _with_sentinels(c):
     """One centre per site ``(S, 1, d)`` padded to the general tile's
     ``CENTER_TILE`` rows with the sentinel, so the entries take the
-    general (or narrow) tile instead of the one-centre kernel."""
-    pad = c.new_full((c.shape[0], da_mod.CENTER_TILE - 1, c.shape[2]),
+    resident tile instead of the one-centre kernel."""
+    return _padded_to_tile(c)
+
+
+def _padded_to_tile(c):
+    """``(S, k, d)`` centres padded with sentinel rows to a multiple of
+    ``CENTER_TILE`` (one centre too), as the general tile takes them."""
+    k = c.shape[1]
+    pad = c.new_full((c.shape[0], -k % da_mod.CENTER_TILE, c.shape[2]),
                      ref.CENTER_SENTINEL)
     return torch.cat([c, pad], dim=1)
 
@@ -372,14 +394,16 @@ def _points_at_offset(rng, S, M, d, offset, device):
 @pytest.mark.parametrize("S,M", [(1, 40), (1, 1001), (7, 40), (7, 1001)])
 def test_cuda_one_center_equals_general_tile(cuda, S, M, d, offset):
     """Both C entries at k_pad = 1 (the one-centre kernel) against the same
-    entry with the centre padded to 64 sentinel rows (the general tile):
-    the same chain of roundings, so equal bit for bit; a NaN row gives +inf
-    at index 0 in both; a second launch is bit-identical."""
+    entry with the centre padded to 64 sentinel rows (the resident tile)
+    and against the general tile on those rows: the same chain of
+    roundings, so equal bit for bit; a NaN row gives +inf at index 0 in
+    all; a second launch is bit-identical."""
     rng = np.random.default_rng(1000 * S + M + 7 * d + offset)
     p = _points_at_offset(rng, S, M, d, offset, cuda)
     c = torch.tensor(rng.standard_normal((S, 1, d)), dtype=torch.float32,
                      device=cuda)
     wide = _with_sentinels(c)
+    md_t, am_t = da_mod.distance_argmin_tile(p, wide)
     for entry, kern in ((da_mod.distance_argmin, da_mod.KERNEL),
                         (da_mod.distance_argmin_batched,
                          da_mod.KERNEL_BATCHED)):
@@ -390,6 +414,7 @@ def test_cuda_one_center_equals_general_tile(cuda, S, M, d, offset):
         torch.cuda.synchronize()
         assert kern.launches == before + 3
         assert torch.equal(md, md_g) and torch.equal(am, am_g)
+        assert torch.equal(md, md_t) and torch.equal(am, am_t)
         assert torch.equal(md, again[0]) and torch.equal(am, again[1])
         assert not bool(am.any())
         assert float(md[S - 1, M // 2]) == float("inf")
@@ -420,3 +445,164 @@ def test_cuda_one_center_reruns_bit_identical_at_seeding_shape(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     assert all(torch.equal(a, b) for a, b in zip(first, general))
     assert float(first[0][:, 17].abs().max()) <= 1e-3
+
+
+def _route_counts():
+    return {kern.name: kern.launches for kern in da_mod.ROUTES}
+
+
+# k = 320 is the two-pass form of the statistics kernels at d = 90; at
+# d = 256 the blocks of k = 256 and 320 do not fit and take the general
+# tile. M = 40 lies below one 64-row tile; 1001 is not a multiple of 64.
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", ["0", "row"])
+@pytest.mark.parametrize("M", [40, 1001])
+@pytest.mark.parametrize("k", [2, 50, 64, 65, 256, 320])
+@pytest.mark.parametrize("d", [1, 3, 33, 90, 256])
+def test_cuda_resident_tile_equals_general_tile(cuda, d, k, M, offset):
+    """Both entries at k_pad > 1 take the resident tile where its block
+    fits shared memory, else the general tile (the counters, which count
+    the kernel the library reports, show which) and give the
+    general tile's output bit for bit, on 3 sites with points as a view
+    from row 1 (off a 16-byte boundary unless 4 divides d) and a NaN row,
+    which gets +inf at index 0; a rerun is bit-identical; within float32
+    tolerance of the plain version off the NaN row."""
+    S = 3
+    rng = np.random.default_rng(1000 * d + 10 * k + M)
+    p = _points_at_offset(rng, S, M, d, {"0": 0, "row": d}[offset], cuda)
+    c = torch.tensor(rng.standard_normal((S, k, d)), dtype=torch.float32,
+                     device=cuda)
+    c_pad = _padded_to_tile(c)
+    served = (da_mod.RESIDENT if da_mod.resident_fits(c_pad.shape[1], d)
+              else da_mod.TILE)
+    before = _route_counts()
+    md, am = da_mod.distance_argmin(p, c_pad)
+    again = da_mod.distance_argmin(p, c_pad)
+    md_b, am_b = da_mod.distance_argmin_batched(p, c_pad)
+    md_t, am_t = da_mod.distance_argmin_tile(p, c_pad)
+    torch.cuda.synchronize()
+    moved = {name: n - before[name] for name, n in _route_counts().items()}
+    expect = {kern.name: 0 for kern in da_mod.ROUTES}
+    expect[da_mod.TILE.name] += 1
+    expect[served.name] += 3
+    assert moved == expect
+    for x, y in ((md, md_t), (am, am_t), (again[0], md), (again[1], am),
+                 (md_b, md_t), (am_b, am_t)):
+        assert torch.equal(x, y)
+    assert float(md[S - 1, M // 2]) == float("inf")
+    assert int(am[S - 1, M // 2]) == 0
+    finite = torch.ones_like(md, dtype=torch.bool)
+    finite[S - 1, M // 2] = False
+    md_r, am_r = ref.min_dist_argmin_ref(p, c)
+    np.testing.assert_allclose(md[finite].cpu().numpy(),
+                               md_r[finite].cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    _assert_argmins(md[finite].cpu(), am[finite].cpu(),
+                    md_r[finite].cpu(), am_r[finite].cpu())
+
+
+# the largest k_pad x d whose resident block fits the 227 KiB (at d = 444
+# it takes all but 12 bytes), and one centre tile or one feature more
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,fits", [(512, 90, True), (520, 90, False),
+                                      (64, 444, True), (2, 445, False)])
+def test_cuda_at_and_beyond_the_resident_limit(cuda, k, d, fits):
+    """At the limit the resident tile launches; beyond it both entries
+    take the general tile (the counters show it), and either way the
+    output is the general tile's bit for bit."""
+    rng = np.random.default_rng(k + d)
+    p = torch.tensor(rng.standard_normal((2, 300, d)), dtype=torch.float32,
+                     device=cuda)
+    c = _padded_to_tile(torch.tensor(rng.standard_normal((2, k, d)),
+                                     dtype=torch.float32, device=cuda))
+    served = da_mod.RESIDENT if fits else da_mod.TILE
+    assert da_mod.resident_fits(c.shape[1], d) is fits
+    before = _route_counts()
+    out = [da_mod.distance_argmin(p, c), da_mod.distance_argmin_batched(p, c)]
+    md_t, am_t = da_mod.distance_argmin_tile(p, c)
+    torch.cuda.synchronize()
+    moved = {name: n - before[name] for name, n in _route_counts().items()}
+    assert moved[served.name] == (2 if fits else 3)
+    assert moved[da_mod.ONE_CENTER.name] == 0
+    assert moved[da_mod.RESIDENT.name] == (2 if fits else 0)
+    for md, am in out:
+        assert torch.equal(md, md_t) and torch.equal(am, am_t)
+    md_r, _ = ref.min_dist_argmin_ref(p, c)
+    np.testing.assert_allclose(md_t.cpu().numpy(), md_r.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+# where the entries switch from the general tile's 8-point shape to the
+# resident tile, at the main path's width and at the resident limit
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 8, 9, 32])
+@pytest.mark.parametrize("k,d", [(50, 90), (512, 90), (2, 3)])
+def test_cuda_entries_report_the_kernel_they_launched(cuda, k, d, rows):
+    """Both entries take the general tile up to 8 rows per site and the
+    resident tile above (the block fits at these shapes); the counters
+    move under the kernel the library reports, and the output is the
+    other kernel's bit for bit."""
+    rng = np.random.default_rng(k + d + rows)
+    p = torch.tensor(rng.standard_normal((4, rows, d)), dtype=torch.float32,
+                     device=cuda)
+    c = _padded_to_tile(torch.tensor(rng.standard_normal((4, k, d)),
+                                     dtype=torch.float32, device=cuda))
+    served, other = ((da_mod.TILE, da_mod.distance_argmin_resident)
+                     if rows <= 8 else
+                     (da_mod.RESIDENT, da_mod.distance_argmin_tile))
+    for entry in (da_mod.distance_argmin, da_mod.distance_argmin_batched):
+        before = _route_counts()
+        md, am = entry(p, c)
+        moved = {name: n - before[name]
+                 for name, n in _route_counts().items()}
+        assert moved == {kern.name: int(kern is served)
+                         for kern in da_mod.ROUTES}
+        md_o, am_o = other(p, c)
+        torch.cuda.synchronize()
+        assert torch.equal(md, md_o) and torch.equal(am, am_o)
+
+
+# blocks that own several 64-row tiles and a ragged last one: one site of
+# 100,003 rows, sites of 577 rows, 1,000 sites of 129 rows, the full data
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,M", [(1, 100_003), (2, 64 * 9 + 1),
+                                 (1000, 129), (1, 515_345)])
+def test_cuda_resident_tile_writes_every_row_once(cuda, S, M):
+    """The resident tile's rows per block (worked out from the blocks that
+    fit on the card) cover every row: its outputs, in buffers that held
+    poison just before, equal the general tile's bit for bit."""
+    rng = np.random.default_rng(S + M)
+    p = torch.tensor(rng.standard_normal((S, M, 16)), dtype=torch.float32,
+                     device=cuda)
+    c = _padded_to_tile(torch.tensor(rng.standard_normal((S, 50, 16)),
+                                     dtype=torch.float32, device=cuda))
+    md_t, am_t = da_mod.distance_argmin_tile(p, c)
+    # two freed buffers of the outputs' size, all bits set (NaN, -1): the
+    # caching allocator hands them to the resident tile's outputs
+    poison = [torch.full((S, M), -1, dtype=torch.int32, device=cuda)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    del poison
+    md, am = da_mod.distance_argmin_resident(p, c)
+    torch.cuda.synchronize()
+    assert torch.equal(md, md_t) and torch.equal(am, am_t)
+    assert bool((am >= 0).all()) and bool(torch.isfinite(md).all())
+
+
+@pytest.mark.cuda
+def test_cuda_resident_tile_at_the_sites_shape(cuda):
+    """The sensitivities' shape (100 sites of 21,280 rows, k = 50, d = 90)
+    through ops.min_dist_argmin: the resident tile, equal bit for bit to
+    the general tile, and two launches equal bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    p = torch.randn(100, 21280, 90, generator=g).to(cuda)
+    c = p[:, 200:250].clone()
+    before = da_mod.RESIDENT.launches
+    first = ops.min_dist_argmin(p, c)
+    second = ops.min_dist_argmin(p, c)
+    general = da_mod.distance_argmin_tile(p, ops.pad_centers(c))
+    torch.cuda.synchronize()
+    assert da_mod.RESIDENT.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(first, general))
+    assert float(first[0][:, 200:250].abs().max()) <= 1e-2

@@ -210,3 +210,73 @@ def test_ops_on_cpu_launch_no_kernel():
     ops.min_dist_argmin(torch.from_numpy(pts), torch.from_numpy(ctr))
     ops.lloyd_stats(*map(torch.from_numpy, (pts, ctr, w)))
     assert [k.launches for k in ops.KERNELS] == before
+
+
+def _argmin_layout_floats(k_pad, d):
+    """The resident tile's shared memory as csrc/distance_argmin.cu lays it
+    out, counted here apart from the wrapper: resident_tile.cuh's layout
+    with no accumulators and no per-row array of the kernel's own -- the
+    point stage (64 d + 4), the centres padded to the 64-centre tile at a
+    row stride 2 above it, their norms, five per-row arrays of 64 and one
+    group start."""
+    kc = -(-k_pad // 64) * 64
+    return 64 * d + 4 + d * (kc + 2) + kc + 5 * 64 + 1
+
+
+# the largest k_pad (a multiple of 64) whose resident block fits the 227 KiB
+# at each d, and the next one; at d = 444 the largest d with 64 centres
+@pytest.mark.parametrize("k_pad,d,fits", [
+    (64, 90, True), (512, 90, True), (576, 90, False), (64, 444, True),
+    (64, 445, False), (128, 256, True), (192, 256, False),
+    (14336, 3, True), (14400, 3, False), (28800, 1, True),
+    (28864, 1, False)])
+def test_resident_fits_at_the_layout_boundary(k_pad, d, fits):
+    """distance_argmin.resident_fits is the header's layout count against
+    the shared memory a block may use on Hopper (227 KiB); where it is
+    false the entries take the general tile."""
+    assert da_mod.RESIDENT_FLOATS * 4 == 227 * 1024
+    assert (_argmin_layout_floats(k_pad, d) <= 227 * 1024 // 4) is fits
+    assert da_mod.resident_fits(k_pad, d) is fits
+    # the main path's block: 48,356 bytes, four blocks per SM
+    assert _argmin_layout_floats(64, 90) * 4 == 48356
+
+
+def test_route_counters_are_kernels_of_the_distance_argmin_library():
+    """Every launch of either entry is counted under one of the kernels it
+    routes to, in the order of the C side's route codes; each counter names
+    the library its kernel is built into."""
+    assert da_mod.ROUTES == (da_mod.ONE_CENTER, da_mod.RESIDENT, da_mod.TILE)
+    assert {k.library for k in da_mod.ROUTES} == {"distance_argmin"}
+    assert da_mod.TILE.function == "distance_argmin_tile_launch"
+    assert da_mod.RESIDENT.function == "distance_argmin_resident_launch"
+    assert len({k.name for k in (*ops.KERNELS, *da_mod.ROUTES)}) == 7
+
+
+@pytest.mark.parametrize("entry,served", [
+    ("KERNEL", 0), ("KERNEL", 1), ("KERNEL", 2), ("KERNEL_BATCHED", 0),
+    ("KERNEL_BATCHED", 1), ("KERNEL_BATCHED", 2), ("RESIDENT", 1),
+    ("TILE", 2)])
+def test_count_launch_counts_the_entry_and_the_kernel_reported(entry,
+                                                               served):
+    """A launch counts once under its entry and once under the kernel the
+    library reports it launched; an entry of one kernel alone counts once,
+    under that kernel."""
+    kern = getattr(da_mod, entry)
+    counters = (da_mod.KERNEL, da_mod.KERNEL_BATCHED, *da_mod.ROUTES)
+    before = [c.launches for c in counters]
+    da_mod.count_launch(kern, served)
+    moved = [c.launches - b for c, b in zip(counters, before)]
+    expect = [int(c is kern) + int(c is da_mod.ROUTES[served]
+                                   and c is not kern) for c in counters]
+    assert moved == expect
+    assert sum(moved) == (1 if kern is da_mod.ROUTES[served] else 2)
+
+
+@pytest.mark.parametrize("served", [-1, 3])
+def test_count_launch_refuses_an_unknown_kernel_code(served):
+    """A code outside ROUTES (a library that reported nothing) raises and
+    counts nothing."""
+    before = [c.launches for c in (da_mod.KERNEL, *da_mod.ROUTES)]
+    with pytest.raises(RuntimeError):
+        da_mod.count_launch(da_mod.KERNEL, served)
+    assert [c.launches for c in (da_mod.KERNEL, *da_mod.ROUTES)] == before

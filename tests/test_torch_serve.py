@@ -204,6 +204,29 @@ def test_dispatched_shape_set_bounded_under_adversarial_sweep():
     assert len(eng.compiled_shapes) <= 2 * (int(math.log2(64 / 8)) + 1)
 
 
+def test_dispatches_by_shape_counts_every_dispatch_of_its_bucket():
+    """Each dispatch counts once under its (T_pad, bucket, k_pad, d,
+    objective) shape: the keys are compiled_shapes, the counts sum to
+    n_dispatches, and one query batch of n rows per step (one tenant)
+    lands in the bucket query_bucket gives n."""
+    rng = np.random.default_rng(6)
+    eng = ClusterServeEngine(min_bucket=8, max_bucket=64, device="cpu")
+    tid = eng.add_tenant(StaticCenters(rng.standard_normal((4, 8))), k=4,
+                         d=8)
+    sizes = [1, 8, 9, 16, 17, 33, 64, 5, 40, 130]
+    for n in sizes:
+        eng.enqueue(tid, rng.standard_normal((n, 8)).astype(np.float32))
+        eng.run()
+    assert set(eng.dispatches_by_shape) == eng.compiled_shapes
+    assert sum(eng.dispatches_by_shape.values()) == eng.stats.n_dispatches
+    by_bucket = {}
+    for (_, b, _, _, _), n in eng.dispatches_by_shape.items():
+        by_bucket[b] = by_bucket.get(b, 0) + n
+    # 130 rows are chunks of 64, 64 and 2: one dispatch of two 64-row
+    # chunks and one of 8
+    assert by_bucket == {8: 4, 16: 2, 32: 1, 64: 4}
+
+
 class _Source:
     """A centre source that solves on refresh (a new array each time) and
     turns stale on demand; it fits both packages' engines."""
