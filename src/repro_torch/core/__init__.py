@@ -1,9 +1,9 @@
 """The paper's contribution, ported: distributed coreset construction and
 clustering on general topologies (Algorithms 1 and 2)."""
 
-from repro_torch.core import (backend, clustering, comm, coreset,
-                              distributed, objective, partition, prng,
-                              strategy, topology)
+from repro_torch.core import (backend, baselines, clustering, comm,
+                              coreset, distributed, objective, partition,
+                              prng, strategy, topology)
 from repro_torch.core.backend import (ClusteringBackend, available_backends,
                                       get_backend, query_assignments,
                                       query_assignments_batched,
@@ -20,12 +20,15 @@ from repro_torch.core.distributed import (ClusteringResult,
 from repro_torch.core.strategy import (CoresetStrategy, available_strategies,
                                        get_strategy, register_strategy)
 from repro_torch.core.topology import (Graph, SpanningTree,
-                                       bfs_spanning_tree, erdos_renyi, grid,
-                                       spanning_tree)
+                                       bfs_spanning_tree, diameter,
+                                       erdos_renyi, grid, heterogeneous,
+                                       mst_spanning_tree, preferential, ring,
+                                       spanning_tree, star, torus,
+                                       wan_clusters)
 
 __all__ = [
-    "backend", "clustering", "comm", "coreset", "distributed", "objective",
-    "partition", "prng", "strategy", "topology",
+    "backend", "baselines", "clustering", "comm", "coreset", "distributed",
+    "objective", "partition", "prng", "strategy", "topology",
     "ClusteringBackend", "available_backends", "get_backend",
     "query_assignments", "query_assignments_batched", "register_backend",
     "use_backend",
@@ -37,6 +40,7 @@ __all__ = [
     "graph_distributed_kmeans",
     "CoresetStrategy", "available_strategies", "get_strategy",
     "register_strategy",
-    "Graph", "SpanningTree", "bfs_spanning_tree", "erdos_renyi", "grid",
-    "spanning_tree",
+    "Graph", "SpanningTree", "bfs_spanning_tree", "diameter", "erdos_renyi",
+    "grid", "heterogeneous", "mst_spanning_tree", "preferential", "ring",
+    "spanning_tree", "star", "torus", "wan_clusters",
 ]

@@ -174,27 +174,35 @@ def build_coreset(key, points, k: int, t: int, weights=None,
     key = as_tensor(key, dev)
     w = (points.new_ones(points.shape[0]) if weights is None
          else as_tensor(weights, dev))
-    obj = objective_mod.get_objective(objective)
-    b = backend_mod.get_backend(backend, dev)
+    cs = _build_coresets(key[None], points[None], w[None], k, t,
+                         objective_mod.get_objective(objective),
+                         backend_mod.get_backend(backend, dev), lloyd_iters,
+                         clip_negative)
+    return Coreset(cs.points[0], cs.weights[0])
+
+
+def _build_coresets(keys, points, w, k: int, t: int, obj, b,
+                    lloyd_iters: int, clip_negative: bool) -> Coreset:
+    """:func:`build_coreset` for S instances at once (the reference's
+    ``jax.vmap`` of it): keys (S, 2), points (S, M, d), weights (S, M) ->
+    a site-batched Coreset (S, t + k, d); one backend call per step."""
     # solve B on the non-negative part of the measure; the signed w stays
     # authoritative for sensitivities and the weight identities
     w_solve = torch.clamp_min(w, 0.0)
-    split = prng.split(key)
-    key, ks = split[0], split[1]
-    centers = clustering._kmeans_pp_init(key[None], points[None],
-                                         w_solve[None], k, obj, b)
-    centers, _ = clustering._lloyd(points[None], centers, w_solve[None],
-                                   lloyd_iters, obj, b)
-    m, assign, w_eff = obj.sensitivities(b, points[None], centers, w[None])
-    total_m = m.sum(-1)
-    t_vec = torch.full((1,), float(t), device=dev)
+    split = prng.split(keys)
+    key, ks = split[:, 0], split[:, 1]
+    centers = clustering._kmeans_pp_init(key, points, w_solve, k, obj, b)
+    centers, _ = clustering._lloyd(points, centers, w_solve, lloyd_iters,
+                                   obj, b)
+    m, assign, w_eff = obj.sensitivities(b, points, centers, w)
+    S = points.shape[0]
     sampled, w_s, w_b = _sample_and_weight(
-        ks[None], points[None], m, w_eff, assign, k,
-        torch.full((1,), t, device=dev), t, total_m, t_vec)
+        ks, points, m, w_eff, assign, k,
+        torch.full((S,), t, device=points.device), t, m.sum(-1),
+        torch.full((S,), float(t), device=points.device))
     if clip_negative:
         w_b = torch.clamp_min(w_b, 0.0)
-    return Coreset.concat(Coreset(sampled[0], w_s[0]),
-                          Coreset(centers[0], w_b[0]))
+    return Coreset.concat(Coreset(sampled, w_s), Coreset(centers, w_b))
 
 
 # width of the windows of XLA's CPU reduction of a long vector
@@ -202,21 +210,23 @@ _SUM_WINDOW = 32
 
 
 def _windowed_sum(x: torch.Tensor) -> torch.Tensor:
-    """Float32 sum of a vector in the order of ``jnp.sum`` on the CPU (XLA's
-    CPU reduction), the same on every device: up to 32 elements, left to
-    right from 0; above that, the vector zero-padded to a multiple of 32
-    (``pad // 2`` zeros in front, the rest behind), each window of 32 summed
-    from 0 left to right, and the same rule applied to the window sums until
-    one is left. Whole-tensor adds: 32 per level, none per element."""
+    """Float32 sum over the last axis in the order of ``jnp.sum`` on the CPU
+    (XLA's CPU reduction; per row, as under ``jax.vmap``), the same on
+    every device: up to 32 elements, left to right from 0; above that, the
+    vector zero-padded to a multiple of 32 (``pad // 2`` zeros in front,
+    the rest behind), each window of 32 summed from 0 left to right, and
+    the same rule applied to the window sums until one is left.
+    Whole-tensor adds: 32 per level, none per element."""
     while True:
-        pad = -x.shape[0] % _SUM_WINDOW if x.shape[0] else _SUM_WINDOW
+        n = x.shape[-1]
+        pad = -n % _SUM_WINDOW if n else _SUM_WINDOW
         x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-        windows = x.reshape(-1, _SUM_WINDOW)
-        total = windows.new_zeros(windows.shape[0])
+        windows = x.reshape(*x.shape[:-1], -1, _SUM_WINDOW)
+        total = windows.new_zeros(windows.shape[:-1])
         for j in range(_SUM_WINDOW):
-            total = total + windows[:, j]
-        if total.shape[0] == 1:
-            return total[0]
+            total = total + windows[..., j]
+        if total.shape[-1] == 1:
+            return total[..., 0]
         x = total
 
 
@@ -282,8 +292,10 @@ def distributed_coreset(key, site_points, site_mask, k: int, t: int,
                         ) -> DistributedCoreset:
     """The distributed coreset rounds over all sites at once, driven by a
     registered :class:`~repro_torch.core.strategy.CoresetStrategy`
-    (``"algorithm1"``). The only cross-site quantities are the
-    ``local_costs`` (Round 1: n scalars) and their sum.
+    (``"algorithm1"``, ``"cohen_addad"`` or ``"mapreduce"``). For
+    exchanging strategies the only cross-site quantities are the
+    ``local_costs`` (Round 1: n scalars) and their sum; single-shuffle
+    strategies (``"mapreduce"``) use none.
 
     ``site_weights`` (n_sites, M) generalizes each site to a weighted
     instance; when given, ``site_mask`` is ignored. ``phase_times``, when a
@@ -310,7 +322,10 @@ def distributed_coreset(key, site_points, site_mask, k: int, t: int,
     with _phase(phase_times, "round2", dev):
         local_costs = r1.local_costs
         t_i = strat.allocate(local_costs, t)
-        totals = _windowed_sum(local_costs).expand(n_sites)
+        if strat.needs_exchange:
+            totals = _windowed_sum(local_costs).expand(n_sites)
+        else:
+            totals = strat.local_totals(local_costs)
         portions = strat.contribute(keys[:, 1], site_points, r1, t_i, totals,
                                     k=k, t=t, t_buffer=t_buffer,
                                     clip_negative=clip_negative)
@@ -337,17 +352,43 @@ def round1_local_solves(keys, site_points, w_site, k: int, objective: str,
     return centers, m, assign, m.sum(-1), w_eff
 
 
-def round2_local_samples(keys, site_points, m, w_eff, assign, centers, t_i,
-                         total_m, k: int, t: int, t_buffer: int,
-                         clip_negative: bool) -> Coreset:
-    """Algorithm 1 Round 2, the purely local stage: every site draws its
-    ``t_i`` samples and assembles its portion S_i u B_i (a site-batched
-    :class:`Coreset`). ``total_m`` is the global sensitivity total each
-    site received, per site (n,)."""
-    t_total = torch.full(t_i.shape, float(t), device=site_points.device)
+def _round2_portions(keys, site_points, m, w_eff, assign, centers, t_i,
+                     total_m, t_total, k: int, t_buffer: int,
+                     clip_negative: bool) -> Coreset:
+    """Every site draws its ``t_i`` samples and assembles its portion
+    S_i u B_i (a site-batched :class:`Coreset`); the sample weights divide
+    by ``total_m`` and ``t_total``, per site (n,)."""
     sampled, w_s, w_b = _sample_and_weight(keys, site_points, m, w_eff,
                                            assign, k, t_i, t_buffer, total_m,
                                            t_total)
     if clip_negative:
         w_b = torch.clamp_min(w_b, 0.0)
     return Coreset.concat(Coreset(sampled, w_s), Coreset(centers, w_b))
+
+
+def round2_local_samples(keys, site_points, m, w_eff, assign, centers, t_i,
+                         total_m, k: int, t: int, t_buffer: int,
+                         clip_negative: bool) -> Coreset:
+    """Algorithm 1 Round 2, the purely local stage: every site draws its
+    ``t_i`` samples and assembles its portion S_i u B_i. ``total_m`` is the
+    global sensitivity total each site received, per site (n,); the sample
+    weights divide by Algorithm 1's ``sample_t_total`` (the global t)."""
+    from repro_torch.core.strategy import ALGORITHM1
+    return _round2_portions(keys, site_points, m, w_eff, assign, centers,
+                            t_i, total_m, ALGORITHM1.sample_t_total(t, t_i),
+                            k, t_buffer, clip_negative)
+
+
+def round2_local_samples_localized(keys, site_points, m, w_eff, assign,
+                                   centers, t_i, total_m, k: int,
+                                   t_buffer: int,
+                                   clip_negative: bool) -> Coreset:
+    """Round 2 with per-site normalization (the mapreduce strategy's local
+    stage): each site's weight formula uses its own sensitivity total
+    (``total_m`` holds each site's own scalar) and mapreduce's
+    ``sample_t_total`` (its own draw count ``t_i``), so each portion is a
+    standalone coreset of its site's data."""
+    from repro_torch.core.strategy import MAPREDUCE
+    return _round2_portions(keys, site_points, m, w_eff, assign, centers,
+                            t_i, total_m, MAPREDUCE.sample_t_total(None, t_i),
+                            k, t_buffer, clip_negative)

@@ -5,8 +5,9 @@ simulation paths of ``repro.core.distributed``).
   ``Graph``: Round 1 floods the n local-cost scalars, Round 2 floods the n
   local portions, and every node solves the same weighted instance. The
   :class:`CommLedger` is the analytic Theorem-2 accounting.
-  ``routing="bfs"`` runs the Theorem-3 tree protocol on a BFS spanning tree
-  instead.
+  ``routing="bfs"`` / ``"min_cost"`` runs the Theorem-3 tree protocol on a
+  BFS / min-cost (Prim) spanning tree instead; a single-shuffle strategy
+  (``"mapreduce"``) has no flood and takes the BFS tree.
 * :func:`distributed_kmeans_tree` -- the same over a rooted spanning tree
   (Theorem 3 accounting: everything moves O(h) edges).
 
@@ -107,9 +108,12 @@ def graph_distributed_kmeans(
     """Algorithm 2 on a general graph. With ``routing="flood"`` Round 1
     floods n scalars (2mn messages) and Round 2 floods the n local portions
     (2m * sum_i |D_i| points); every node then solves the identical
-    weighted instance. ``routing="bfs"`` restricts communication to a BFS
-    spanning tree rooted at ``root`` and runs the Theorem-3 tree protocol
-    -- same math, same centers, but the ledger prices only tree edges.
+    weighted instance. ``routing="bfs"`` / ``"min_cost"`` restricts
+    communication to a spanning tree rooted at ``root`` (hop-minimal BFS or
+    Prim over the link costs) and runs the Theorem-3 tree protocol -- same
+    math, same centers, but the ledger prices only tree edges. A strategy
+    with no exchange round (``"mapreduce"``) never floods: ``"flood"``
+    takes the BFS tree.
 
     Runs on ``device`` (CUDA unless the caller asks for the CPU).
     ``phase_times``, when a dict, receives the wall seconds of
@@ -118,6 +122,10 @@ def graph_distributed_kmeans(
     strategy = strategy_mod.resolve_name(strategy)
     strat = strategy_mod.get_strategy(strategy)
     _check_engine(engine)
+    if not strat.needs_exchange and routing == "flood":
+        # single-shuffle strategies never flood: with no scalar round, the
+        # portions move map -> shuffle -> reduce along a BFS tree
+        routing = "bfs"
     if routing == "bfs" or routing == "min_cost":
         tree = spanning_tree(graph, root=root, routing=routing)
         return distributed_kmeans_tree(key, site_points, site_mask, k, t,
@@ -128,7 +136,7 @@ def graph_distributed_kmeans(
                                        phase_times=phase_times)
     if routing != "flood":
         raise ValueError(f"unknown routing {routing!r}: expected "
-                         f"'flood'|'bfs'")
+                         f"'flood'|'bfs'|'min_cost'")
     dc, cs, centers = _coreset_and_solve(
         key, site_points, site_mask, k, t, objective, lloyd_iters, backend,
         strategy, device, phase_times)
@@ -168,6 +176,7 @@ def distributed_kmeans_tree(
     back. Arguments as :func:`graph_distributed_kmeans`."""
     objective = objective_mod.resolve_name(objective)
     strategy = strategy_mod.resolve_name(strategy)
+    strat = strategy_mod.get_strategy(strategy)
     _check_engine(engine)
     dc, cs, centers = _coreset_and_solve(
         key, site_points, site_mask, k, t, objective, lloyd_iters, backend,
@@ -176,7 +185,11 @@ def distributed_kmeans_tree(
     t_i = [float(x) for x in dc.t_i.cpu().numpy()]
     per_node = [t_i[v] + k for v in range(tree.n)]
     up = tree_up_cost(tree, per_node, dim=d).tag("round2_gather")
-    ledger = tree_allocation_cost(tree).tag("round1").add(up)
+    if strat.needs_exchange:
+        ledger = tree_allocation_cost(tree).tag("round1").add(up)
+    else:
+        # single shuffle: no scalar round, no allocation traffic
+        ledger = up
     ledger = ledger.add(tree_broadcast_cost(tree, unit_points=float(k),
                                             dim=d).tag("round2_broadcast"))
     return ClusteringResult(centers, cs, ledger, dc.local_costs)

@@ -10,8 +10,9 @@ coreset slots:
 * a key is an int64 tensor of shape ``(..., 2)`` holding the two uint32
   words of a raw JAX key (``jax.random.PRNGKey(seed)``); leading axes batch
   independent keys, as ``jax.vmap`` over keys does;
-* :func:`split`, :func:`uniform` and :func:`categorical` (Gumbel-max,
-  ``mode="low"``) follow ``jax/_src/prng.py`` and ``jax/_src/random.py``.
+* :func:`split`, :func:`fold_in`, :func:`uniform` and :func:`categorical`
+  (Gumbel-max, ``mode="low"``) follow ``jax/_src/prng.py`` and
+  ``jax/_src/random.py``.
 
 uint32 arithmetic runs in int64 with explicit 32-bit masks: PyTorch has no
 full set of unsigned 32-bit operations on every device.
@@ -95,6 +96,16 @@ def _hash_counters(key: torch.Tensor, shape):
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     """``jax.random.split``: keys of shape ``(..., *num, 2)``."""
     b1, b2 = _hash_counters(key, _shape(num))
+    return torch.stack([b1, b2], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: threefry of the seed pair ``(0, data mod
+    2**32)`` under the key; shape ``(..., 2)``."""
+    _check_key(key)
+    k1, k2 = key[..., 0], key[..., 1]
+    lo = torch.full_like(k1, int(data) & _MASK)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return torch.stack([b1, b2], dim=-1)
 
 

@@ -319,15 +319,17 @@ def test_coreset_concat_and_compact():
 
 
 def test_unknown_strategy_and_objective_raise():
-    with pytest.raises(ValueError, match="not yet ported"):
-        strategy.resolve_name("mapreduce")
+    """Unknown names raise; the ported strategies and parametrized
+    objectives resolve."""
+    assert strategy.resolve_name("mapreduce") == "mapreduce"
+    assert strategy.resolve_name("cohen_addad") == "cohen_addad"
     with pytest.raises(ValueError, match="unknown strategy"):
         strategy.resolve_name("algorithm2")
-    with pytest.raises(ValueError, match="not yet ported"):
-        objective.resolve_name("power(3)")
-    with pytest.raises(ValueError, match="not yet ported"):
-        objective.resolve_name("kmeans_trimmed(5)")
+    assert objective.resolve_name("power(3)") == "power(3)"
+    assert objective.resolve_name("kmeans_trimmed(5)") == "kmeans_trimmed(5)"
     with pytest.raises(ValueError, match="unknown objective"):
         objective.resolve_name("kmeans ")
+    with pytest.raises(ValueError, match="unknown objective"):
+        objective.resolve_name("kmeans_trimmed(5.0)")
     assert objective.resolve_name(None) == "kmeans"
     assert strategy.resolve_name(None) == "algorithm1"

@@ -216,14 +216,19 @@ def test_weiszfeld_wrapper_refuses_cpu_tensors():
 # -- the k-median objective --------------------------------------------------
 
 def test_kmedian_is_registered_and_the_rest_still_raise():
+    """k-median is registered; power(1) is k-median's fused step under
+    another name; malformed objectives still raise."""
     assert objective.resolve_name("kmedian") == "kmedian"
     assert objective.get_objective("kmedian").power_z == 1.0
     assert objective.WEISZFELD_ITERS == jobjective.WEISZFELD_ITERS
+    assert (objective.get_objective("power(1)").update_stats
+            is objective.KMEDIAN.update_stats)
     for name in ("power(3)", "kmeans_trimmed(5)"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            objective.resolve_name(name)
-    with pytest.raises(ValueError, match="not yet ported"):
-        objective.Objective(name="cubic", power_z=3.0)
+        assert objective.resolve_name(name) == name
+    with pytest.raises(ValueError, match="unknown objective"):
+        objective.resolve_name("power(-1)")
+    with pytest.raises(ValueError, match="power_z must be > 0"):
+        objective.Objective(name="cubic", power_z=0.0)
 
 
 def test_point_and_clamped_costs_match_reference():

@@ -137,17 +137,39 @@ def test_solve_with_restarts_matches_reference(instance, runs):
 
 
 def test_engines_and_routings_not_ported_raise(instance):
+    """engine="exec" / "async" are not ported and raise, as unknown names
+    do; min-cost routing, the cohen_addad / mapreduce strategies and the
+    power / trimmed objectives are ported and run."""
     _, sp, sm = instance
     g = topology.grid(3, 3)
     for kw, match in (({"engine": "exec"}, "not yet ported"),
+                      ({"engine": "async"}, "not yet ported"),
                       ({"engine": "nope"}, "unknown engine"),
-                      ({"routing": "min_cost"}, "not yet ported"),
                       ({"routing": "nope"}, "unknown routing"),
-                      ({"strategy": "cohen_addad"}, "not yet ported"),
-                      ({"objective": "power(3)"}, "not yet ported")):
+                      ({"strategy": "algorithm2"}, "unknown strategy"),
+                      ({"objective": "power(abc)"}, "unknown objective")):
         with pytest.raises(ValueError, match=match):
             distributed.graph_distributed_kmeans(prng.PRNGKey(0), sp, sm, K,
                                                  T, g, device="cpu", **kw)
+    for kw in ({"routing": "min_cost"}, {"strategy": "cohen_addad"},
+               {"strategy": "mapreduce"}, {"objective": "power(3)"},
+               {"objective": "kmeans_trimmed(0.05)"}):
+        res = distributed.graph_distributed_kmeans(
+            prng.PRNGKey(0), sp, sm, K, T, g, device="cpu", **kw)
+        assert res.centers.shape == (K, 10)
+        assert bool(torch.isfinite(res.centers).all())
+
+
+def test_min_cost_route_is_the_bfs_route_on_uniform_costs(runs, instance):
+    """On grid(3, 3) every link costs 1, so Prim returns the BFS tree: the
+    same centres and the same ledger as the BFS route."""
+    _, sp, sm = instance
+    res = distributed.graph_distributed_kmeans(
+        prng.PRNGKey(0), sp, sm, K, T, topology.grid(3, 3),
+        routing="min_cost", device="cpu")
+    assert torch.equal(res.centers, runs["port"]["bfs"].centers)
+    assert (res.ledger.as_dict(by_phase=True)
+            == runs["port"]["bfs"].ledger.as_dict(by_phase=True))
 
 
 # -- the device rule --------------------------------------------------------

@@ -308,9 +308,13 @@ def test_engine_validation_errors():
     with pytest.raises(ValueError, match="unknown objective"):
         eng.add_tenant(StaticCenters(np.zeros((3, 4), np.float32)),
                        k=3, d=4, objective="kmeans ")
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="unknown objective"):
         eng.add_tenant(StaticCenters(np.zeros((3, 4), np.float32)),
-                       k=3, d=4, objective="power(3)")
+                       k=3, d=4, objective="power(0)")
+    # the power and trimmed objectives are ported: tenants may use them
+    for name in ("power(3)", "kmeans_trimmed(2)"):
+        eng.add_tenant(StaticCenters(np.zeros((3, 4), np.float32)),
+                       k=3, d=4, objective=name)
     with pytest.raises(KeyError, match="unknown tenant"):
         eng.enqueue(tid + 999, np.zeros((2, 4), np.float32))
     with pytest.raises(ValueError, match="query points"):

@@ -1,0 +1,342 @@
+"""The port's ``"cohen_addad"`` and ``"mapreduce"`` strategies against the
+JAX package's: the refined sensitivities and the uniform allocation, the
+localized Round 2 slot by slot on the reference's Round-1 state, the
+strategy hooks, and Algorithm 2 end to end on the flood, BFS and min-cost
+routes (9 sites, k = 5)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import clustering as jclustering
+from repro.core import coreset as jcoreset
+from repro.core import distributed as jdistributed
+from repro.core import strategy as jstrategy
+from repro.core import topology as jtopology
+from repro.core.partition import pad_partition, partition_indices
+from repro_torch import interop
+from repro_torch.core import (clustering, comm, coreset, distributed, prng,
+                              strategy, topology)
+
+K, T = 5, 400
+STRATEGIES = ["cohen_addad", "mapreduce"]
+
+
+@pytest.fixture(scope="module")
+def sites():
+    """The quickstart instance: 20,000 points in R^10, 9 weighted sites."""
+    rng = np.random.default_rng(0)
+    centers = 3.0 * rng.standard_normal((K, 10))
+    data = np.concatenate(
+        [c + 0.2 * rng.standard_normal((4000, 10)) for c in centers]
+    ).astype(np.float32)
+    sp, sm = pad_partition(data, partition_indices(data, 9, "weighted",
+                                                   seed=1))
+    return data, sp, sm
+
+
+@pytest.fixture(scope="module")
+def jax_round1(sites):
+    """The JAX package's Algorithm-1 Round 1 on the quickstart sites."""
+    _, sp, sm = sites
+    keys = jstrategy.ALGORITHM1.keys(jax.random.PRNGKey(3), 9)
+    r1 = jcoreset.round1_local_solves(
+        keys[:, 0], jnp.asarray(sp), jnp.asarray(sm, jnp.float32), k=K,
+        objective="kmeans", lloyd_iters=5, backend="jnp")
+    return keys, tuple(np.asarray(x) for x in r1)
+
+
+def _t(x):
+    return interop.tensor(np.asarray(x), "cpu")
+
+
+# -- cohen_addad: the refined sensitivities -----------------------------------
+
+def test_refined_sensitivities_bit_equal_given_reference_round1(jax_round1):
+    """On the reference's Round-1 masses: every refined sensitivity, every
+    site's total and so the allocation are the reference's exactly (the
+    cluster masses are sums of 0/1 weights, and the totals are summed in
+    jnp.sum's order)."""
+    _, (c, m, a, lc, w) = jax_round1
+    sj = np.asarray(jstrategy._refine_batch(m, a, w, k=K))
+    sp_ = strategy._refined_sensitivities(_t(m), _t(a), _t(w), K)
+    np.testing.assert_array_equal(sp_.numpy(), sj)
+    lj = np.asarray(jnp.sum(jnp.asarray(sj), axis=1))
+    lp = coreset._windowed_sum(sp_)
+    np.testing.assert_array_equal(lp.numpy(), lj)
+    np.testing.assert_array_equal(
+        coreset.proportional_allocation(lp, T).numpy(),
+        np.asarray(jcoreset.proportional_allocation(jnp.asarray(lj), T)))
+
+
+def test_refined_sensitivities_signed_weights_match_reference(jax_round1):
+    """Signed, fractional weights (the cluster masses are float sums in
+    another order): within rtol 1e-6."""
+    _, (c, m, a, lc, w) = jax_round1
+    rng = np.random.default_rng(2)
+    w = (w * (rng.random(w.shape) * 4.0 - 1.0)).astype(np.float32)
+    sj = np.asarray(jstrategy._refine_batch(m, a, w, k=K))
+    sp_ = strategy._refined_sensitivities(_t(m), _t(a), _t(w), K).numpy()
+    np.testing.assert_array_equal(sp_ == 0, sj == 0)
+    np.testing.assert_allclose(sp_, sj, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("name", ["algorithm1", "cohen_addad"])
+def test_site_sensitivities_match_reference(sites, jax_round1, name):
+    """The unbatched rule on one site (the SPMD and staged engines' hook):
+    assignments exact, masses within 1e-5 of the site's total (float32
+    distances in another order)."""
+    _, sp, sm = sites
+    _, (c, *_) = jax_round1
+    s = 4
+    mj, aj, wj = jstrategy.get_strategy(name).site_sensitivities(
+        jnp.asarray(sp[s]), jnp.asarray(c[s]), jnp.asarray(sm[s], jnp.float32),
+        objective="kmeans", backend="jnp")
+    mp, ap, wp = strategy.get_strategy(name).site_sensitivities(
+        torch.from_numpy(sp[s]), _t(c[s]), torch.from_numpy(sm[s]).float(),
+        objective="kmeans", backend="torch")
+    np.testing.assert_array_equal(ap.numpy(), np.asarray(aj))
+    np.testing.assert_array_equal(wp.numpy(), np.asarray(wj))
+    np.testing.assert_allclose(mp.numpy(), np.asarray(mj), rtol=0,
+                               atol=1e-5 * float(np.asarray(mj).sum()))
+
+
+# -- mapreduce: the uniform allocation and the localized Round 2 --------------
+
+@pytest.mark.parametrize("n_sites", [1, 2, 7, 9, 33, 100])
+@pytest.mark.parametrize("t", [1, 10, 400, 15000])
+def test_uniform_allocation_matches_reference(n_sites, t):
+    costs = np.random.default_rng(n_sites).random(n_sites).astype(
+        np.float32)
+    j = np.asarray(jstrategy.MAPREDUCE.allocate(jnp.asarray(costs), t))
+    p = strategy.MAPREDUCE.allocate(torch.from_numpy(costs), t).numpy()
+    np.testing.assert_array_equal(p, j)
+    assert p.sum() == t
+
+
+def test_localized_round2_slot_by_slot_given_reference_round1(sites,
+                                                             jax_round1):
+    """mapreduce's Round 2 on the reference's Round-1 state: every slot
+    draws the same point and carries the same weight to float32 rounding
+    (each site normalized by its own total and its own t_i)."""
+    _, sp, _ = sites
+    keys, (c, m, a, lc, w) = jax_round1
+    t_i = jstrategy.MAPREDUCE.allocate(jnp.asarray(lc), T)
+    ref = jcoreset.round2_local_samples_localized(
+        keys[:, 1], jnp.asarray(sp), jnp.asarray(m), jnp.asarray(w),
+        jnp.asarray(a), jnp.asarray(c), t_i, jnp.asarray(lc), k=K,
+        t_buffer=T, clip_negative=False)
+    port = coreset.round2_local_samples_localized(
+        interop.key(np.asarray(keys[:, 1]), "cpu"), torch.from_numpy(sp),
+        _t(m), _t(w), _t(a), _t(c), _t(t_i), _t(lc), K, T, False)
+    np.testing.assert_array_equal(port.points.numpy(),
+                                  np.asarray(ref.points))
+    np.testing.assert_allclose(port.weights.numpy(), np.asarray(ref.weights),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(port.weights.numpy() == 0,
+                                  np.asarray(ref.weights) == 0)
+    # each portion is a coreset of its own site: it keeps |P_i|
+    np.testing.assert_allclose(port.weights.double().sum(-1).numpy(),
+                               w.sum(-1), rtol=1e-5)
+
+
+# -- the hooks ----------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["algorithm1"] + STRATEGIES)
+def test_hooks_match_reference(name):
+    j, p = jstrategy.get_strategy(name), strategy.get_strategy(name)
+    assert strategy.resolve_name(name) == jstrategy.resolve_name(name) == name
+    assert p.needs_exchange == j.needs_exchange
+    assert (p.exchange_spec() is None) == (j.exchange_spec() is None)
+    if p.exchange_spec() is not None:
+        assert (p.exchange_spec().unit_scalars
+                == j.exchange_spec().unit_scalars)
+    t_i = np.asarray([3, 0, 7, 44], np.int32)
+    np.testing.assert_array_equal(
+        p.sample_t_total(400, torch.from_numpy(t_i)).numpy(),
+        np.asarray(j.sample_t_total(400, jnp.asarray(t_i))))
+    lc = np.asarray([1.5, 2.0, 0.0, 9.0], np.float32)
+    np.testing.assert_array_equal(
+        p.local_totals(torch.from_numpy(lc)).numpy(),
+        np.asarray(j.local_totals(jnp.asarray(lc))))
+    pts = np.arange(4 * 3 * 2, dtype=np.float32).reshape(4, 3, 2)
+    w = np.arange(12, dtype=np.float32).reshape(4, 3)
+    cj = j.assemble(jnp.asarray(pts), jnp.asarray(w))
+    cp = p.assemble(torch.from_numpy(pts), torch.from_numpy(w))
+    np.testing.assert_array_equal(cp.points.numpy(), np.asarray(cj.points))
+    np.testing.assert_array_equal(cp.weights.numpy(), np.asarray(cj.weights))
+    assert set(strategy.available_strategies()) >= {"algorithm1",
+                                                    *STRATEGIES}
+
+
+def test_keys_are_the_same_for_every_strategy():
+    for name in STRATEGIES:
+        j = jstrategy.get_strategy(name).keys(jax.random.PRNGKey(9), 9)
+        p = strategy.get_strategy(name).keys(prng.PRNGKey(9), 9)
+        np.testing.assert_array_equal(p.numpy(),
+                                      np.asarray(j).astype(np.int64))
+
+
+# -- Algorithm 2 end to end ---------------------------------------------------
+
+ROUTES = ["flood", "bfs", "min_cost"]
+
+
+@pytest.fixture(scope="module")
+def runs(sites):
+    _, sp, sm = sites
+    jg, tg = jtopology.grid(3, 3), topology.grid(3, 3)
+    jkey, tkey = jax.random.PRNGKey(0), prng.PRNGKey(0)
+    k1 = jax.random.split(jkey)[0]
+    out = {}
+    for name in STRATEGIES:
+        for routing in ROUTES:
+            out[name, routing] = (
+                jdistributed.graph_distributed_kmeans(
+                    jkey, jnp.asarray(sp), jnp.asarray(sm), K, T, jg,
+                    strategy=name, routing=routing, backend="jnp"),
+                distributed.graph_distributed_kmeans(
+                    tkey, sp, sm, K, T, tg, strategy=name, routing=routing,
+                    device="cpu"))
+        out[name, "coreset"] = (
+            jcoreset.distributed_coreset(k1, jnp.asarray(sp),
+                                         jnp.asarray(sm), K, T,
+                                         strategy=name, lloyd_iters=8,
+                                         backend="jnp"),
+            coreset.distributed_coreset(interop.key(np.asarray(k1), "cpu"),
+                                        sp, sm, K, T, strategy=name,
+                                        lloyd_iters=8, device="cpu"))
+    return out
+
+
+def _tree_ledger(tree, t_i, exchange, d=10):
+    """The analytic tree ledger of distributed_kmeans_tree for ``t_i``."""
+    up = comm.tree_up_cost(tree, [float(x) + K for x in t_i],
+                           dim=d).tag("round2_gather")
+    ledger = (comm.tree_allocation_cost(tree).tag("round1").add(up)
+              if exchange else up)
+    return ledger.add(comm.tree_broadcast_cost(
+        tree, unit_points=float(K), dim=d).tag("round2_broadcast"))
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_mapreduce_matches_reference(runs, route):
+    """t_i (uniform) and every ledger exact: the flood route is redirected
+    to the BFS tree, with no Round-1 traffic."""
+    jdc, pdc = runs["mapreduce", "coreset"]
+    np.testing.assert_array_equal(pdc.t_i.numpy(), np.asarray(jdc.t_i))
+    j, p = runs["mapreduce", route]
+    ledger = p.ledger.as_dict(by_phase=True)
+    assert ledger == j.ledger.as_dict(by_phase=True)
+    assert "round1" not in ledger["phases"]
+    tree = topology.bfs_spanning_tree(topology.grid(3, 3))
+    assert ledger == _tree_ledger(tree, pdc.t_i.numpy(), False).as_dict(
+        by_phase=True)
+
+
+def _check_solution(data, runs, name):
+    """Where a few Round-2 draws differ (the masses differ in the last
+    bits), the final solve does not absorb that to 1e-3 on this instance.
+    What holds: at least 99% of the sampled slots are the reference's
+    points, the final solve on the reference's coreset is its solve to
+    1e-4, and the full-data cost of the port's centres is the reference's
+    to 1e-3 relative."""
+    jdc, pdc = runs[name, "coreset"]
+    jw = np.asarray(jdc.weights)[:, :T]
+    same = (np.asarray(jdc.points)[:, :T] == pdc.points.numpy()[:, :T]
+            ).all(-1)
+    assert same[jw != 0].mean() >= 0.99
+    j, p = runs[name, "flood"]
+    k2 = jax.random.split(jax.random.PRNGKey(0))[1]
+    c_j = jdistributed._solve_on_coreset(k2, j.coreset, K, "kmeans", 8,
+                                         "jnp")
+    cs = interop.coreset(np.asarray(j.coreset.points),
+                         np.asarray(j.coreset.weights), "cpu")
+    c_p = distributed._solve_on_coreset(interop.key(np.asarray(k2), "cpu"),
+                                        cs, K, "kmeans", 8, "torch")
+    np.testing.assert_allclose(c_p.numpy(), np.asarray(c_j), rtol=1e-4,
+                               atol=1e-4)
+    cj = float(jclustering.cost(jnp.asarray(data), j.centers, backend="jnp"))
+    cp = float(clustering.cost(data, p.centers, device="cpu"))
+    assert abs(cp - cj) <= 1e-3 * cj
+
+
+def test_mapreduce_solution_matches_reference(sites, runs):
+    _check_solution(sites[0], runs, "mapreduce")
+
+
+def test_cohen_addad_t_i_within_one_of_reference(runs):
+    """A limit of parity: every site's refined total is 1 + its number of
+    non-empty clusters up to rounding (6 at all nine sites here), so the
+    largest-remainder ranking of the allocation rests on the last bits of
+    Round 1, which the two packages compute in other orders. t_i sums to t
+    on both and each differs by at most one; fed the reference's Round 1,
+    the port's allocation is the reference's exactly (test above)."""
+    jdc, pdc = runs["cohen_addad", "coreset"]
+    jt, pt = np.asarray(jdc.t_i), pdc.t_i.numpy()
+    assert pt.sum() == jt.sum() == T
+    assert np.abs(pt - jt).max() <= 1
+    np.testing.assert_allclose(pdc.local_costs.numpy(),
+                               np.asarray(jdc.local_costs), rtol=1e-6)
+    np.testing.assert_allclose(pdc.local_costs.numpy(), 6.0, rtol=1e-6)
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_cohen_addad_ledgers(runs, route):
+    """The flood ledger depends on the t_i only through their sum and
+    equals the reference's; each tree ledger is the analytic one of the
+    port's own t_i (as the reference's is of its own)."""
+    jdc, pdc = runs["cohen_addad", "coreset"]
+    j, p = runs["cohen_addad", route]
+    if route == "flood":
+        assert (p.ledger.as_dict(by_phase=True)
+                == j.ledger.as_dict(by_phase=True))
+        return
+    tree = topology.spanning_tree(topology.grid(3, 3), routing=route)
+    jtree = jtopology.spanning_tree(jtopology.grid(3, 3), routing=route)
+    assert p.ledger.as_dict(by_phase=True) == _tree_ledger(
+        tree, pdc.t_i.numpy(), True).as_dict(by_phase=True)
+    assert j.ledger.as_dict(by_phase=True) == _tree_ledger(
+        jtree, np.asarray(jdc.t_i), True).as_dict(by_phase=True)
+
+
+def test_cohen_addad_solution_matches_reference(sites, runs):
+    """With t_i differing by one at a few sites the coresets hold slightly
+    different draws; the solution is held as mapreduce's is."""
+    _check_solution(sites[0], runs, "cohen_addad")
+
+
+@pytest.mark.parametrize("name", STRATEGIES)
+def test_routes_solve_the_same_centers_and_rerun_bit_identical(sites, runs,
+                                                               name):
+    _, sp, sm = sites
+    p = [runs[name, r][1].centers for r in ROUTES]
+    assert all(torch.equal(p[0], c) for c in p[1:])
+    again = distributed.graph_distributed_kmeans(
+        prng.PRNGKey(0), sp, sm, K, T, topology.grid(3, 3), strategy=name,
+        device="cpu")
+    assert torch.equal(again.centers, p[0])
+
+
+def test_min_cost_routing_on_wan_clusters_matches_reference(sites):
+    """Nine sites on three racks of three: the min-cost tree's ledger is the
+    reference's exactly and prices less link cost than the BFS tree's; the
+    centres are the flood route's (routing changes only the ledger)."""
+    _, sp, sm = sites
+    jg, tg = jtopology.wan_clusters(3, 3), topology.wan_clusters(3, 3)
+    out = {}
+    for routing in ("bfs", "min_cost"):
+        j = jdistributed.graph_distributed_kmeans(
+            jax.random.PRNGKey(1), jnp.asarray(sp), jnp.asarray(sm), K, T,
+            jg, routing=routing, backend="jnp")
+        p = distributed.graph_distributed_kmeans(
+            prng.PRNGKey(1), sp, sm, K, T, tg, routing=routing, device="cpu")
+        assert (p.ledger.as_dict(by_phase=True)
+                == j.ledger.as_dict(by_phase=True))
+        out[routing] = p
+    flood = distributed.graph_distributed_kmeans(
+        prng.PRNGKey(1), sp, sm, K, T, tg, device="cpu")
+    assert torch.equal(out["min_cost"].centers, flood.centers)
+    assert torch.equal(out["bfs"].centers, flood.centers)
+    assert out["min_cost"].ledger.link_cost < out["bfs"].ledger.link_cost
