@@ -81,6 +81,18 @@ Phases (any failed check raises, and the script exits non-zero):
    tolerances stated at the top (the power objectives' centres printed
    only, their IRLS step off the data points held). ``--spread N`` repeats Figure 2
    and the trimmed route on N more keys and with the plain backend.
+8. The topology execution engine (``engine="exec"``, backend='cuda'), each
+   run held to ``engine="sim"`` on the same inputs and key: the flood on
+   ``grid(5, 5)`` (the full data in 25 weighted sites, t = 3 k n = 3,750)
+   for k-means and k-median (centres, coreset and every ledger axis equal
+   to sim's, every node's table, allocation and total equal to node 0's,
+   nodes 0, 12 and 24 solving the same centres, complete within the
+   diameter, the same launches as sim); the BFS tree on phase 3's sites
+   (centres equal to phase 3's BFS centres and digest, ledger equal by
+   phase, every node holding the centres); the min-cost tree on
+   ``wan_clusters(10, 10)`` (ledger, link cost included, equal to phase
+   7's sim). Each run prints its wall beside sim's, its phases, each
+   executed primitive's rounds and wall, and its peak device memory.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -275,7 +287,9 @@ def phase7(seed, dev, pts, sp, sm, g, k, t, base_cost, flood, counts,
     distance_argmin launches by the kernel that served them). With
     ``spread`` > 0, Figure 2 and the trimmed run are also repeated with the
     plain backend at run 0's key and on ``spread`` further keys. Adds its
-    digests to ``digests``; any failed check raises."""
+    digests to ``digests``; any failed check raises. Returns the results
+    of the BFS and min-cost routes on ``wan_clusters(10, 10)``, by
+    routing."""
     reset_counts, entry_counts, route_counts = counts
     from repro_torch.core import clustering, comm, prng
     from repro_torch.core.backend import get_backend
@@ -608,6 +622,186 @@ def phase7(seed, dev, pts, sp, sm, g, k, t, base_cost, flood, counts,
     check(not fails, "phase 7 backend parity: " + "; ".join(fails))
     if spread:
         phase7_spread(seed, dev, pts, sp, sm, g, k, t, ratio, solve, spread)
+    return {routing: res for routing, (res, _) in routed.items()}
+
+
+def phase8(seed, dev, data, k, sp, sm, g, t, sim_bfs, sim_wan, counts,
+           digests):
+    """The topology execution engine (``engine="exec"``) on the card, each
+    run with backend='cuda' and held to ``engine="sim"`` on the same inputs
+    and key: the flood on ``grid(5, 5)`` (the full ``data``, ``weighted``
+    partition, t = 3 k n) for k-means and k-median, both engines run here;
+    the BFS tree on phase 3's sites ``sp`` / ``sm`` over ``g`` at budget
+    ``t`` against phase 3's BFS result ``sim_bfs``; the min-cost tree on
+    ``wan_clusters(10, 10)`` against phase 7's ``sim_wan``. ``counts`` as
+    in :func:`phase7`; adds digests to ``digests``; any failed check
+    raises."""
+    reset_counts, entry_counts, route_counts = counts
+    from repro_torch.core import prng
+    from repro_torch.core.coreset import Coreset
+    from repro_torch.core.distributed import (_solve_on_coreset,
+                                              distributed_kmeans_tree,
+                                              graph_distributed_kmeans)
+    from repro_torch.core.objective import WEISZFELD_ITERS
+    from repro_torch.core.partition import pad_partition, partition_indices
+    from repro_torch.core.topology import (bfs_spanning_tree, diameter,
+                                           grid, wan_clusters)
+
+    key = prng.PRNGKey(seed, device=dev)
+    k2 = prng.split(key)[1]   # the final solve's key of every engine
+    print("phase 8: the topology execution engine (engine='exec') on the "
+          "card, held to engine='sim'")
+
+    def run(fn, *args, **kw):
+        """One run with the launch counts from zero and the peak memory
+        reset: (result, wall s, phase walls, launches, distance_argmin
+        launches by kernel, (peak GiB, peak GiB above the memory allocated
+        at the start))."""
+        times = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = fn(key, *args, backend="cuda", device=dev, phase_times=times,
+                 **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        return (res, wall, times, entry_counts(), route_counts(),
+                (peak / 2**30, (peak - start) / 2**30))
+
+    def show(label, out):
+        res, wall, times, launches, by_kernel, (peak, above) = out
+        print(f"  {label}: wall {wall:.3f} s "
+              f"{json.dumps({p: round(x, 4) for p, x in times.items()})}, "
+              f"peak device memory {peak:.2f} GiB ({above:.2f} above the "
+              f"run's start), launches "
+              f"{json.dumps(launches)}; distance_argmin by kernel "
+              f"{json.dumps(by_kernel)}")
+        if res.exec_detail is not None:
+            for name, r in res.exec_detail.rounds.items():
+                print(f"    {name}: {r.rounds} rounds (complete after "
+                      f"{r.rounds_to_complete}), {r.wall_s:.4f} s, "
+                      f"{sum(r.per_round_transmissions)} transmissions")
+
+    def same_run(label, ex, sim):
+        """exec against sim: centres and coreset bit for bit, every ledger
+        axis by phase, and the same launches per kernel."""
+        check(torch.equal(ex[0].centers, sim[0].centers),
+              f"{label}: exec centres differ from sim's")
+        check(torch.equal(ex[0].coreset.points, sim[0].coreset.points)
+              and torch.equal(ex[0].coreset.weights, sim[0].coreset.weights),
+              f"{label}: exec coreset differs from sim's")
+        check(ex[0].ledger.as_dict(by_phase=True)
+              == sim[0].ledger.as_dict(by_phase=True),
+              f"{label}: measured ledger {ex[0].ledger.as_dict()} differs "
+              f"from the analytic {sim[0].ledger.as_dict()}")
+        check(ex[3] == sim[3] and ex[4] == sim[4],
+              f"{label}: exec launches {ex[3]} {ex[4]}, sim {sim[3]} "
+              f"{sim[4]}")
+        print(f"  {label}: exec / sim wall {ex[1] / sim[1]:.3f}; centres, "
+              f"coreset, ledger and launches equal")
+
+    # -- the flood on grid(5, 5), 25 sites of the full data -------------------
+    g25 = grid(5, 5)
+    idx = partition_indices(data, g25.n, "weighted", seed=seed + 1,
+                            degrees=g25.degrees())
+    sp25, sm25 = (torch.from_numpy(a).to(dev)
+                  for a in pad_partition(data, idx))
+    t25 = 3 * k * g25.n
+    print(f"  flood: {g25.n} sites on grid(5, 5) (diameter {diameter(g25)}),"
+          f" padded to M={sp25.shape[1]}, t={t25}")
+    walls = {}
+    for objective in ("kmeans", "kmedian"):
+        out = {engine: run(graph_distributed_kmeans, sp25, sm25, k, t25, g25,
+                           objective=objective, engine=engine)
+               for engine in ("sim", "exec")}
+        for engine in ("sim", "exec"):
+            show(f"{objective} flood {engine}", out[engine])
+        same_run(f"{objective} flood", out["exec"], out["sim"])
+        want = ({"lloyd_stats": 2 * 8, "weiszfeld_stats": 0}
+                if objective == "kmeans" else
+                {"lloyd_stats": 0,
+                 "weiszfeld_stats": 2 * 8 * WEISZFELD_ITERS})
+        want.update(distance_argmin=2 * k + 1, distance_argmin_batched=0)
+        check(out["exec"][3] == want
+              and out["exec"][4]["distance_one_center"] == 2 * k
+              and out["exec"][4]["distance_argmin_resident"] == 1,
+              f"{objective} flood exec: launches {out['exec'][3]} "
+              f"{out['exec'][4]}, expected {want}")
+        ex = out["exec"][0]
+        det = ex.exec_detail
+        for v in range(g25.n):
+            check(torch.equal(det.node_points[v], det.node_points[0])
+                  and torch.equal(det.node_weights[v], det.node_weights[0])
+                  and torch.equal(det.node_alloc[v], det.node_alloc[0])
+                  and torch.equal(det.node_totals[v], det.node_totals[0]),
+                  f"{objective} flood: node {v} holds another instance")
+        check(int(det.node_alloc[0].sum()) == t25,
+              f"{objective} flood: allocation sums to "
+              f"{int(det.node_alloc[0].sum())}")
+        for name, r in det.rounds.items():
+            check(r.rounds_to_complete <= diameter(g25),
+                  f"{objective} flood {name}: complete after "
+                  f"{r.rounds_to_complete} rounds")
+        for v in (0, 12, 24):
+            cs_v = Coreset(det.node_points[v].contiguous(),
+                           det.node_weights[v].contiguous())
+            check(torch.equal(_solve_on_coreset(k2, cs_v, k, objective, 8,
+                                                "cuda"), ex.centers),
+                  f"{objective} flood: node {v} solves other centres")
+        digests[f"exec {objective} centres[grid(5, 5) flood]"] = digest(
+            ex.centers)
+        digests[f"exec {objective} node 0 table[grid(5, 5) flood]"] = \
+            digest(det.node_points[0], det.node_weights[0])
+        walls[objective] = (out["sim"][1], out["exec"][1])
+        print(f"  {objective} flood: every node's table, allocation and "
+              f"total equal node 0's; nodes 0, 12 and 24 solve the same "
+              f"centres")
+        del out, ex, det   # free the tables before the next run
+
+    # -- the BFS tree on phase 3's 100 sites ----------------------------------
+    tree = bfs_spanning_tree(g, root=0)
+    ex = run(distributed_kmeans_tree, sp, sm, k, t, tree, engine="exec")
+    show(f"kmeans BFS tree exec ({g.n} sites, height {tree.height})", ex)
+    expect_launches("BFS tree exec", ex[3], ex[4], argmin_one_center=2 * k,
+                    argmin_resident=1, lloyd=2 * 8)
+    check(torch.equal(ex[0].centers, sim_bfs.centers)
+          and digest(ex[0].centers) == digests["kmeans centres[bfs]"],
+          "BFS tree exec: centres differ from phase 3's BFS sim centres")
+    check(ex[0].ledger.as_dict(by_phase=True)
+          == sim_bfs.ledger.as_dict(by_phase=True),
+          "BFS tree exec: measured ledger differs from the analytic one")
+    nc = ex[0].exec_detail.node_centers
+    check(all(torch.equal(nc[v], ex[0].centers) for v in range(g.n)),
+          "BFS tree exec: a node received other centres")
+    digests["exec kmeans centres[bfs tree]"] = digest(ex[0].centers)
+    print(f"  BFS tree exec: centres equal phase 3's BFS sim centres "
+          f"(digest {digests['kmeans centres[bfs]']}), ledger equal by "
+          f"phase, every node holds the centres")
+
+    # -- the min-cost tree on wan_clusters(10, 10) ----------------------------
+    del ex, nc
+    gw = wan_clusters(10, 10)
+    ex = run(graph_distributed_kmeans, sp, sm, k, t, gw, routing="min_cost",
+             engine="exec")
+    show("kmeans min-cost tree exec on wan_clusters(10, 10)", ex)
+    sim = sim_wan["min_cost"]
+    check(ex[0].ledger.link_cost == sim.ledger.link_cost
+          and ex[0].ledger.as_dict(by_phase=True)
+          == sim.ledger.as_dict(by_phase=True),
+          f"min-cost tree exec: link cost {ex[0].ledger.link_cost}, phase "
+          f"7's sim {sim.ledger.link_cost}")
+    check(torch.equal(ex[0].centers, sim.centers),
+          "min-cost tree exec: centres differ from phase 7's")
+    digests["exec kmeans centres[wan_clusters min_cost]"] = digest(
+        ex[0].centers)
+    print(f"  min-cost tree exec: link cost {ex[0].ledger.link_cost:.0f} "
+          f"equals phase 7's sim ledger (by phase), centres equal; exec / "
+          f"sim wall: "
+          + ", ".join(f"{o} flood {w[1] / w[0]:.3f}"
+                      for o, w in walls.items()))
 
 
 def phase7_spread(seed, dev, pts, sp, sm, g, k, t, ratio, solve, spread):
@@ -1648,10 +1842,15 @@ def main(argv=None) -> int:
     lap("phase 6")
 
     # -- phase 7: the paper's comparisons and the remaining core paths -------
-    phase7(args.seed, dev, pts, sp, sm, g, k, t, base_cost,
-           results["flood"], (reset_counts, counts, route_counts), digests,
-           (data_s, sp_s, sm_s), args.spread)
+    wan = phase7(args.seed, dev, pts, sp, sm, g, k, t, base_cost,
+                 results["flood"], (reset_counts, counts, route_counts),
+                 digests, (data_s, sp_s, sm_s), args.spread)
     lap("phase 7")
+
+    # -- phase 8: the topology execution engine -------------------------------
+    phase8(args.seed, dev, data, k, sp, sm, g, t, results["bfs"], wan,
+           (reset_counts, counts, route_counts), digests)
+    lap("phase 8")
 
     print(f"phase walls (s): {json.dumps(walls)}")
     print(f"digests (sha256, first 16 hex digits): {json.dumps(digests)}")

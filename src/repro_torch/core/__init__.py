@@ -2,8 +2,8 @@
 clustering on general topologies (Algorithms 1 and 2)."""
 
 from repro_torch.core import (backend, baselines, clustering, comm,
-                              coreset, distributed, objective, partition,
-                              prng, strategy, topology)
+                              coreset, distributed, message_passing,
+                              objective, partition, prng, strategy, topology)
 from repro_torch.core.backend import (ClusteringBackend, available_backends,
                                       get_backend, query_assignments,
                                       query_assignments_batched,
@@ -13,10 +13,16 @@ from repro_torch.core.clustering import (cost, kmeans_pp_init, lloyd,
 from repro_torch.core.comm import CommLedger
 from repro_torch.core.coreset import (Coreset, DistributedCoreset,
                                       build_coreset, distributed_coreset)
-from repro_torch.core.distributed import (ClusteringResult,
+from repro_torch.core.distributed import (ClusteringResult, ExecDetail,
                                           distributed_kmeans,
                                           distributed_kmeans_tree,
                                           graph_distributed_kmeans)
+from repro_torch.core.message_passing import (ExecResult, GossipSchedule,
+                                              TreeSchedule, flood_exec,
+                                              tree_broadcast_exec,
+                                              tree_gather_exec,
+                                              tree_scatter_exec,
+                                              tree_up_sum_exec)
 from repro_torch.core.strategy import (CoresetStrategy, available_strategies,
                                        get_strategy, register_strategy)
 from repro_torch.core.topology import (Graph, SpanningTree,
@@ -28,7 +34,8 @@ from repro_torch.core.topology import (Graph, SpanningTree,
 
 __all__ = [
     "backend", "baselines", "clustering", "comm", "coreset", "distributed",
-    "objective", "partition", "prng", "strategy", "topology",
+    "message_passing", "objective", "partition", "prng", "strategy",
+    "topology",
     "ClusteringBackend", "available_backends", "get_backend",
     "query_assignments", "query_assignments_batched", "register_backend",
     "use_backend",
@@ -36,8 +43,11 @@ __all__ = [
     "solve",
     "CommLedger", "Coreset", "DistributedCoreset", "build_coreset",
     "distributed_coreset",
-    "ClusteringResult", "distributed_kmeans", "distributed_kmeans_tree",
-    "graph_distributed_kmeans",
+    "ClusteringResult", "ExecDetail", "distributed_kmeans",
+    "distributed_kmeans_tree", "graph_distributed_kmeans",
+    "ExecResult", "GossipSchedule", "TreeSchedule", "flood_exec",
+    "tree_broadcast_exec", "tree_gather_exec", "tree_scatter_exec",
+    "tree_up_sum_exec",
     "CoresetStrategy", "available_strategies", "get_strategy",
     "register_strategy",
     "Graph", "SpanningTree", "bfs_spanning_tree", "diameter", "erdos_renyi",

@@ -28,6 +28,8 @@ Registered backends:
 
 * ``"torch"`` -- the plain PyTorch versions (:mod:`repro_torch.kernels.ref`),
   dense (n, k) distances, on whatever device the tensors are;
+* ``"torch_chunked"`` -- the same over blocks of ``chunk`` points, so the
+  distance block is (chunk, k) (:class:`TorchChunkedBackend`);
 * ``"cuda"``  -- the hand-written CUDA kernels through
   :mod:`repro_torch.kernels.ops` (their plain versions for CPU tensors).
 
@@ -121,6 +123,78 @@ class TorchBackend:
         return ref.weiszfeld_stats_ref(points, centers, weights)
 
 
+class TorchChunkedBackend:
+    """Bounded-memory variant of ``"torch"``: the point axis is cut into
+    blocks of ``chunk`` points (the tail block padded with weight-0 rows),
+    so the materialized distance block is (chunk, k) instead of (n, k).
+    Per-block statistics are summed over the blocks in the order of the
+    reference's ``sums.sum(axis=0)`` (left to right from zero); the costs
+    in the order of its ``cost.sum()``."""
+
+    def __init__(self, chunk: int = 65536, name: str = "torch_chunked"):
+        self.chunk = int(chunk)
+        self.name = name
+
+    def _blocks(self, points, weights):
+        """(..., n, d), (..., n) -> the blocks (..., B, chunk, d) and
+        (..., B, chunk), padded with zero rows of weight 0."""
+        pad = (-points.shape[-2]) % self.chunk
+        pts = torch.nn.functional.pad(points, (0, 0, 0, pad))
+        w = torch.nn.functional.pad(weights, (0, pad))
+        return (pts.unflatten(-2, (-1, self.chunk)),
+                w.unflatten(-1, (-1, self.chunk)))
+
+    def min_dist_argmin(self, points, centers):
+        n = points.shape[-2]
+        if n <= self.chunk:
+            return ref.min_dist_argmin_ref(points, centers)
+        pts, _ = self._blocks(points, points.new_zeros(points.shape[:-1]))
+        parts = [ref.min_dist_argmin_ref(pts[..., b, :, :], centers)
+                 for b in range(pts.shape[-3])]
+        return (torch.cat([md for md, _ in parts], -1)[..., :n],
+                torch.cat([am for _, am in parts], -1)[..., :n])
+
+    def min_dist_argmin_batched(self, queries, centers):
+        T, m, _ = queries.shape
+        if T * m <= self.chunk:
+            return ref.min_dist_argmin_batched_ref(queries, centers)
+        # fixed-size tenant blocks: the distance block is (blk, m, k);
+        # padding tenants carry sentinel centres and are sliced off
+        blk = max(1, self.chunk // max(m, 1))
+        pad = (-T) % blk
+        q = torch.nn.functional.pad(queries, (0, 0, 0, 0, 0, pad))
+        c = torch.nn.functional.pad(centers, (0, 0, 0, 0, 0, pad),
+                                    value=ref.CENTER_SENTINEL)
+        parts = [ref.min_dist_argmin_batched_ref(q[s:s + blk], c[s:s + blk])
+                 for s in range(0, T + pad, blk)]
+        return (torch.cat([md for md, _ in parts])[:T],
+                torch.cat([am for _, am in parts])[:T])
+
+    def _stats(self, plain, points, centers, weights):
+        w = (points.new_ones(points.shape[:-1]) if weights is None
+             else weights.float())
+        if points.shape[-2] <= self.chunk:
+            return plain(points, centers, w)
+        from repro_torch.core.coreset import _windowed_sum
+        pts, ws = self._blocks(points, w)
+        parts = [plain(pts[..., b, :, :], centers, ws[..., b, :])
+                 for b in range(pts.shape[-3])]
+        sums = torch.zeros_like(parts[0][0])
+        counts = torch.zeros_like(parts[0][1])
+        for s, c, _ in parts:
+            sums = sums + s
+            counts = counts + c
+        return sums, counts, _windowed_sum(torch.stack(
+            [cost for _, _, cost in parts], -1))
+
+    def lloyd_stats(self, points, centers, weights=None):
+        return self._stats(ref.lloyd_stats_ref, points, centers, weights)
+
+    def weiszfeld_stats(self, points, centers, weights=None):
+        return self._stats(ref.weiszfeld_stats_ref, points, centers,
+                           weights)
+
+
 class CudaBackend:
     """The hand-written CUDA kernels (plain versions for CPU tensors)."""
 
@@ -156,6 +230,7 @@ def available_backends() -> Tuple[str, ...]:
 
 
 register_backend(TorchBackend())
+register_backend(TorchChunkedBackend())
 register_backend(CudaBackend())
 
 

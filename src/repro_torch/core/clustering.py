@@ -38,13 +38,28 @@ def _inputs(device: DeviceLike, points, *rest):
     return dev, out
 
 
-def min_dist_argmin(points, centers, backend: BackendLike = None,
-                    device: DeviceLike = None
+def _costing_backend(chunk: Optional[int], backend: BackendLike,
+                     device: torch.device):
+    """The backend instance of a costing call: ``chunk`` upgrades a resolved
+    ``"torch"`` backend (explicit or ambient) to a
+    :class:`~repro_torch.core.backend.TorchChunkedBackend` of that many
+    points, and leaves every other backend alone (the kernels tile, and
+    ``"torch_chunked"`` has its own chunk)."""
+    b = backend_mod.get_backend(backend, device)
+    if chunk is not None and type(b) is backend_mod.TorchBackend:
+        b = backend_mod.TorchChunkedBackend(chunk)
+    return b
+
+
+def min_dist_argmin(points, centers, chunk: Optional[int] = None,
+                    backend: BackendLike = None, device: DeviceLike = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Min squared distance and argmin center per point, via the dispatch
-    layer (leading site axis optional)."""
+    layer (leading site axis optional). ``chunk`` bounds the materialized
+    (chunk, k) distance block of the plain path (see
+    :func:`_costing_backend`)."""
     dev, (points, centers) = _inputs(device, points, centers)
-    return backend_mod.get_backend(backend, dev).min_dist_argmin(points,
+    return _costing_backend(chunk, backend, dev).min_dist_argmin(points,
                                                                  centers)
 
 
@@ -59,14 +74,15 @@ def lloyd_stats(points, centers, weights=None, backend: BackendLike = None,
 
 
 def cost(points, centers, weights=None, objective: ObjectiveLike = "kmeans",
-         backend: BackendLike = None, device: DeviceLike = None
-         ) -> torch.Tensor:
+         chunk: Optional[int] = None, backend: BackendLike = None,
+         device: DeviceLike = None) -> torch.Tensor:
     """Weighted clustering cost: sum_p w_p d(p, X)^z (per site when the
-    inputs carry a leading site axis)."""
+    inputs carry a leading site axis); ``chunk`` as in
+    :func:`min_dist_argmin`."""
     dev, (points, centers, weights) = _inputs(device, points, centers,
                                               weights)
     obj = objective_mod.get_objective(objective)
-    per_point, _ = obj.costs(backend_mod.get_backend(backend, dev), points,
+    per_point, _ = obj.costs(_costing_backend(chunk, backend, dev), points,
                              centers, weights)
     if weights is not None:
         per_point = per_point * weights
@@ -74,14 +90,14 @@ def cost(points, centers, weights=None, objective: ObjectiveLike = "kmeans",
 
 
 def point_costs(points, centers, objective: ObjectiveLike = "kmeans",
-                backend: BackendLike = None, weights=None,
-                device: DeviceLike = None):
+                chunk: Optional[int] = None, backend: BackendLike = None,
+                weights=None, device: DeviceLike = None):
     """Per-point (unweighted) cost to the nearest center, and the
-    assignment."""
+    assignment; ``chunk`` as in :func:`min_dist_argmin`."""
     dev, (points, centers, weights) = _inputs(device, points, centers,
                                               weights)
     obj = objective_mod.get_objective(objective)
-    return obj.costs(backend_mod.get_backend(backend, dev), points, centers,
+    return obj.costs(_costing_backend(chunk, backend, dev), points, centers,
                      weights)
 
 
@@ -157,11 +173,13 @@ def _lloyd(points: torch.Tensor, centers: torch.Tensor,
 
 
 def lloyd(points, centers, weights=None, iters: int = 10,
-          objective: ObjectiveLike = "kmeans", backend: BackendLike = None,
-          device: DeviceLike = None) -> Tuple[torch.Tensor, torch.Tensor]:
+          objective: ObjectiveLike = "kmeans", k: Optional[int] = None,
+          backend: BackendLike = None, device: DeviceLike = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Weighted center-update iterations in the objective's metric (Lloyd
     steps for k-means, fused Weiszfeld passes for k-median). Returns
-    (centers, cost_history (iters,)).
+    (centers, cost_history (iters,)). ``k`` is the reference's static
+    centre count; the steps take it from ``centers``.
 
     Handles negative weights (signed coreset measures): clusters whose
     total weight is <= eps keep their previous center."""

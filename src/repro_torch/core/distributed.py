@@ -1,24 +1,32 @@
 """Algorithm 2 -- distributed clustering, end to end (the port of the host
-simulation paths of ``repro.core.distributed``).
+paths of ``repro.core.distributed``).
 
 * :func:`graph_distributed_kmeans` -- Algorithm 2 over an arbitrary
   ``Graph``: Round 1 floods the n local-cost scalars, Round 2 floods the n
-  local portions, and every node solves the same weighted instance. The
-  :class:`CommLedger` is the analytic Theorem-2 accounting.
-  ``routing="bfs"`` / ``"min_cost"`` runs the Theorem-3 tree protocol on a
-  BFS / min-cost (Prim) spanning tree instead; a single-shuffle strategy
-  (``"mapreduce"``) has no flood and takes the BFS tree.
+  local portions, and every node solves the same weighted instance.
+  ``engine="sim"`` computes the rounds globally and prices them with the
+  analytic Theorem-2 :class:`CommLedger`; ``engine="exec"`` routes the
+  identical math through the topology execution engine
+  (:mod:`repro_torch.core.message_passing`): the scalars and portions move
+  edge by edge, every node ends holding the bit-identical global coreset,
+  and the ledger is *measured* from the executed schedule (it equals the
+  analytic one exactly). ``routing="bfs"`` / ``"min_cost"`` runs the
+  Theorem-3 tree protocol on a BFS / min-cost (Prim) spanning tree
+  instead; a single-shuffle strategy (``"mapreduce"``) has no flood and
+  takes the BFS tree.
 * :func:`distributed_kmeans_tree` -- the same over a rooted spanning tree
-  (Theorem 3 accounting: everything moves O(h) edges).
+  (Theorem 3 accounting: everything moves O(h) edges), with the same
+  ``engine="sim"|"exec"`` choice (gather / scatter / broadcast schedules).
 
-This slice ports ``engine="sim"``. The JAX package's executed-schedule,
-asynchronous and SPMD engines are not ported yet and raise.
+The JAX package's asynchronous (WAN) and SPMD engines are not ported yet:
+``engine="async"`` raises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_mod
@@ -31,10 +39,40 @@ from repro_torch.core.comm import (CommLedger, flood_cost,
                                    flood_portions_cost,
                                    tree_allocation_cost,
                                    tree_broadcast_cost, tree_up_cost)
-from repro_torch.core.coreset import Coreset, _phase, distributed_coreset
+from repro_torch.core.coreset import (Coreset, _phase, _windowed_sum,
+                                      distributed_coreset)
+from repro_torch.core.message_passing import (ExecResult, GossipSchedule,
+                                              TreeSchedule, flood_exec,
+                                              gossip_schedule, pack_payload,
+                                              tree_broadcast_exec,
+                                              tree_gather_exec,
+                                              tree_scatter_exec,
+                                              unpack_payload)
 from repro_torch.core.objective import ObjectiveLike
 from repro_torch.core.strategy import StrategyLike
 from repro_torch.core.topology import Graph, SpanningTree, spanning_tree
+
+
+@dataclasses.dataclass
+class ExecDetail:
+    """Per-node state after the executed communication rounds -- the
+    verification surface for engine-vs-simulation parity tests.
+
+    Graph engine: ``node_points``/``node_weights`` are every node's
+    assembled global coreset (n, n*S, d) / (n, n*S) (views of the relayed
+    tables) and ``node_alloc`` the (n, n) allocation vector each node
+    computed from its received scalars (all rows bit-identical). Tree
+    engine: ``node_centers`` (n, k, d) holds the solution every node
+    received from the root's broadcast and ``node_alloc`` the (n,) per-node
+    allocations delivered by the scatter. ``node_totals`` is the global
+    cost total as known at each node."""
+
+    node_points: Optional[torch.Tensor] = None
+    node_weights: Optional[torch.Tensor] = None
+    node_centers: Optional[torch.Tensor] = None
+    node_alloc: Optional[torch.Tensor] = None
+    node_totals: Optional[torch.Tensor] = None
+    rounds: Dict[str, ExecResult] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -43,6 +81,7 @@ class ClusteringResult:
     coreset: Coreset
     ledger: CommLedger
     local_costs: torch.Tensor
+    exec_detail: Optional[ExecDetail] = None
 
 
 def _solve_on_coreset(key: torch.Tensor, cs: Coreset, k: int,
@@ -61,11 +100,12 @@ def _solve_on_coreset(key: torch.Tensor, cs: Coreset, k: int,
 
 
 def _check_engine(engine: str) -> None:
-    if engine in ("exec", "async"):
+    if engine == "async":
         raise ValueError(f"engine {engine!r} is not yet ported to "
-                         f"repro_torch; use engine='sim'")
-    if engine != "sim":
-        raise ValueError(f"unknown engine {engine!r}: expected 'sim'")
+                         f"repro_torch; use engine='sim' or 'exec'")
+    if engine not in ("sim", "exec"):
+        raise ValueError(f"unknown engine {engine!r}: expected "
+                         f"'sim'|'exec'")
 
 
 def _coreset_and_solve(key, site_points, site_mask, k, t, objective,
@@ -115,6 +155,13 @@ def graph_distributed_kmeans(
     with no exchange round (``"mapreduce"``) never floods: ``"flood"``
     takes the BFS tree.
 
+    ``engine="sim"`` computes the rounds globally and prices them with the
+    analytic ledger; ``engine="exec"`` executes them on a compiled
+    :class:`GossipSchedule` (or tree schedule) -- same local stages, same
+    keys, so the result is bit-identical, but the scalars and portions move
+    edge by edge, the ledger is measured from the schedule, and
+    ``exec_detail`` holds every node's state.
+
     Runs on ``device`` (CUDA unless the caller asks for the CPU).
     ``phase_times``, when a dict, receives the wall seconds of
     ``"round1"``, ``"round2"`` and ``"solve"``."""
@@ -137,6 +184,10 @@ def graph_distributed_kmeans(
     if routing != "flood":
         raise ValueError(f"unknown routing {routing!r}: expected "
                          f"'flood'|'bfs'|'min_cost'")
+    if engine == "exec":
+        return _graph_exec(key, site_points, site_mask, k, t, graph,
+                           objective, lloyd_iters, backend, strategy, device,
+                           phase_times)
     dc, cs, centers = _coreset_and_solve(
         key, site_points, site_mask, k, t, objective, lloyd_iters, backend,
         strategy, device, phase_times)
@@ -151,6 +202,123 @@ def graph_distributed_kmeans(
 
 # the original name stays as an alias (the sim path was the only mode once)
 distributed_kmeans = graph_distributed_kmeans
+
+
+def _exec_inputs(key, site_points, site_mask, n_nodes, backend, device):
+    """Place an exec run's inputs: (device, key, site points, site weights
+    from the mask, backend name)."""
+    dev = backend_mod.resolve_device(device)
+    site_points = as_tensor(site_points, dev)
+    if n_nodes != site_points.shape[0]:
+        raise ValueError(f"the topology has {n_nodes} nodes for "
+                         f"{site_points.shape[0]} sites")
+    w_site = as_tensor(site_mask, dev).to(site_points.dtype)
+    return (dev, as_tensor(key, dev), site_points, w_site,
+            backend_mod.resolve_name(backend, dev))
+
+
+def exec_algorithm1_rounds(
+    sched: GossipSchedule,
+    key: torch.Tensor,
+    site_points: torch.Tensor,
+    w_site: torch.Tensor,
+    k: int,
+    t: int,
+    t_buffer: int,
+    objective: str,
+    lloyd_iters: int,
+    clip_negative: bool,
+    backend: str,
+    strategy: StrategyLike = None,
+    phase_times: Optional[dict] = None,
+) -> Tuple[ExecDetail, torch.Tensor]:
+    """A strategy's two rounds with the communication *executed* on a
+    gossip schedule. Same descriptor hooks and key derivation as
+    ``distributed_coreset``, so every node's assembled coreset is
+    bit-identical to the host path's; the ``ExecDetail`` ledgers are
+    measured per transmission. Exchange strategies only: a single-shuffle
+    strategy has no scalar round to flood, so it routes to the tree
+    protocol instead (:func:`graph_distributed_kmeans` reroutes).
+    ``phase_times``, when a dict, receives the wall seconds of
+    ``"round1"`` (local solves, the scalar flood, every node's allocation)
+    and ``"round2"`` (samples, the portions flood). Returns (detail,
+    local_costs)."""
+    strat = strategy_mod.get_strategy(strategy)
+    if not strat.needs_exchange:
+        raise ValueError(
+            f"strategy {strat.name!r} has no exchange round; the gossip "
+            f"flood engine only runs exchange strategies (single-shuffle "
+            f"strategies run the tree protocol)")
+    n_sites, _, d = site_points.shape
+    dev = site_points.device
+    keys = strat.keys(key, n_sites)
+
+    with _phase(phase_times, "round1", dev):
+        r1 = strat.summary(keys[:, 0], site_points, w_site, k=k,
+                           objective=objective, lloyd_iters=lloyd_iters,
+                           backend=backend)
+        local_costs = r1.local_costs
+        # -- Round 1 executed: flood the n exchange scalars -----------------
+        spec = strat.exchange_spec()
+        cost_tables, r1x = flood_exec(sched, local_costs[:, None],
+                                      unit_scalars=spec.unit_scalars)
+        costs_at = cost_tables[:, :, 0]                    # (node, origin)
+        # every node replays the allocation on its own received copy
+        node_alloc = torch.stack([strat.allocate(costs_at[v], t)
+                                  for v in range(n_sites)])
+        t_i = node_alloc.diagonal().clone()    # node v uses its own share
+        node_totals = _windowed_sum(costs_at)
+
+    with _phase(phase_times, "round2", dev):
+        portions = strat.contribute(
+            keys[:, 1], site_points, r1, t_i, node_totals, k=k, t=t,
+            t_buffer=t_buffer, clip_negative=clip_negative)
+        # -- Round 2 executed: flood the fixed-size local portions ----------
+        payload = pack_payload(portions.points, portions.weights)
+        unit_pts = (t_i.cpu().numpy() + k).astype(np.float64)
+        port_tables, r2 = flood_exec(sched, payload, unit_points=unit_pts,
+                                     dim=d)
+    slots = payload.shape[1]
+    node_pts, node_w = unpack_payload(port_tables)
+    detail = ExecDetail(
+        node_points=node_pts.view(n_sites, n_sites * slots, d),
+        node_weights=node_w.view(n_sites, n_sites * slots),
+        node_alloc=node_alloc, node_totals=node_totals,
+        rounds={"round1": r1x, "round2": r2})
+    return detail, local_costs
+
+
+def _graph_exec(key, site_points, site_mask, k, t, graph, objective,
+                lloyd_iters, backend, strategy, device,
+                phase_times) -> ClusteringResult:
+    """Execute Algorithm 2's communication on a compiled gossip schedule.
+
+    Identical math to the sim path stage for stage (same key derivation,
+    same stage functions), but the n Round-1 scalars and the n Round-2
+    portions move through executed flood rounds: every node ends holding
+    bit-identical copies of all n cost scalars (from which it replays the
+    exact largest-remainder allocation locally) and of the global coreset.
+    The returned ledger is measured per transmission."""
+    dev, key, site_points, w_site, backend = _exec_inputs(
+        key, site_points, site_mask, graph.n, backend, device)
+    sched = gossip_schedule(graph)
+    k1, k2 = prng.split(key)
+    detail, local_costs = exec_algorithm1_rounds(
+        sched, k1, site_points, w_site, k, t, t_buffer=t,
+        objective=objective, lloyd_iters=lloyd_iters, clip_negative=False,
+        backend=backend, strategy=strategy, phase_times=phase_times)
+
+    # every node holds the identical instance; solve it once (node 0's
+    # copy, laid out as the sim path's coreset)
+    cs = Coreset(detail.node_points[0].contiguous(),
+                 detail.node_weights[0].contiguous())
+    with _phase(phase_times, "solve", dev):
+        centers = _solve_on_coreset(k2, cs, k, objective, lloyd_iters,
+                                    backend)
+    ledger = detail.rounds["round1"].ledger.tag("round1").add(
+        detail.rounds["round2"].ledger.tag("round2"))
+    return ClusteringResult(centers, cs, ledger, local_costs,
+                            exec_detail=detail)
 
 
 def distributed_kmeans_tree(
@@ -178,6 +346,10 @@ def distributed_kmeans_tree(
     strategy = strategy_mod.resolve_name(strategy)
     strat = strategy_mod.get_strategy(strategy)
     _check_engine(engine)
+    if engine == "exec":
+        return _tree_exec(key, site_points, site_mask, k, t, tree, objective,
+                          lloyd_iters, backend, strategy, device,
+                          phase_times)
     dc, cs, centers = _coreset_and_solve(
         key, site_points, site_mask, k, t, objective, lloyd_iters, backend,
         strategy, device, phase_times)
@@ -193,3 +365,123 @@ def distributed_kmeans_tree(
     ledger = ledger.add(tree_broadcast_cost(tree, unit_points=float(k),
                                             dim=d).tag("round2_broadcast"))
     return ClusteringResult(centers, cs, ledger, dc.local_costs)
+
+
+def exec_algorithm1_tree_rounds(
+    sched: TreeSchedule,
+    key: torch.Tensor,
+    site_points: torch.Tensor,
+    w_site: torch.Tensor,
+    k: int,
+    t: int,
+    t_buffer: int,
+    objective: str,
+    lloyd_iters: int,
+    clip_negative: bool,
+    backend: str,
+    strategy: StrategyLike = None,
+    phase_times: Optional[dict] = None,
+):
+    """A strategy's two rounds with the communication *executed* on a tree
+    schedule. For exchange strategies: gather the raw Round-1 scalars to
+    the root, replay the strategy's exact allocation there, scatter each
+    site's share down its subtree path, broadcast the total; gather the
+    fixed-size Round-2 portions to the root. Single-shuffle strategies
+    skip the Round-1 gather/scatter/broadcast entirely -- every site
+    derives the identical uniform split locally and normalizes by its own
+    scalar -- so the only traffic is the portions gather. Same descriptor
+    hooks and key derivation as ``distributed_coreset``, so the root's
+    assembled table is bit-identical to the host path's coreset.
+    ``phase_times`` as in :func:`exec_algorithm1_rounds`. Returns
+    ``(root_points, root_weights, t_i, node_totals, rounds, local_costs)``
+    where ``rounds`` maps phase label to the measured
+    :class:`ExecResult`."""
+    strat = strategy_mod.get_strategy(strategy)
+    n_sites, _, d = site_points.shape
+    dev = site_points.device
+    keys = strat.keys(key, n_sites)
+
+    with _phase(phase_times, "round1", dev):
+        r1 = strat.summary(keys[:, 0], site_points, w_site, k=k,
+                           objective=objective, lloyd_iters=lloyd_iters,
+                           backend=backend)
+        local_costs = r1.local_costs
+        if strat.needs_exchange:
+            # -- Round 1 executed: scalars up, allocations + total down ------
+            spec = strat.exchange_spec()
+            root_costs, r1a = tree_gather_exec(
+                sched, local_costs[:, None], unit_scalars=spec.unit_scalars)
+            t_root = strat.allocate(root_costs[:, 0], t)
+            total = _windowed_sum(root_costs[:, 0])
+            own_t, r1b = tree_scatter_exec(sched, t_root[:, None],
+                                           unit_scalars=1.0)
+            node_totals, r1c = tree_broadcast_exec(sched, total[None],
+                                                   unit_scalars=1.0)
+            t_i = own_t[:, 0]
+            totals = node_totals[:, 0]
+            rounds = {"round1_gather": r1a, "round1_scatter": r1b,
+                      "round1_broadcast": r1c}
+        else:
+            # no Round-1 traffic at all: the split is locally derivable and
+            # each site's weight formula uses its own scalar
+            t_i = strat.allocate(local_costs, t)
+            totals = strat.local_totals(local_costs)
+            rounds = {}
+
+    with _phase(phase_times, "round2", dev):
+        portions = strat.contribute(
+            keys[:, 1], site_points, r1, t_i, totals, k=k, t=t,
+            t_buffer=t_buffer, clip_negative=clip_negative)
+        # -- Round 2 executed: portions up -----------------------------------
+        payload = pack_payload(portions.points, portions.weights)
+        unit_pts = (t_i.cpu().numpy() + k).astype(np.float64)
+        root_table, r2a = tree_gather_exec(sched, payload,
+                                           unit_points=unit_pts, dim=d)
+    root_pts, root_w = unpack_payload(root_table)
+    rounds["round2_gather"] = r2a
+    return (root_pts, root_w, t_i, totals, rounds, local_costs)
+
+
+def _tree_exec(key, site_points, site_mask, k, t, tree, objective,
+               lloyd_iters, backend, strategy, device,
+               phase_times) -> ClusteringResult:
+    """Execute Algorithm 2's communication on a compiled tree schedule:
+    the Round-1/Round-2 tree protocol of
+    :func:`exec_algorithm1_tree_rounds`, then solve at the root and
+    broadcast the k centers. Bit-identical to the sim path; measured
+    ledger."""
+    dev, key, site_points, w_site, backend = _exec_inputs(
+        key, site_points, site_mask, tree.n, backend, device)
+    d = site_points.shape[-1]
+    sched = TreeSchedule.from_tree(tree)
+    k1, k2 = prng.split(key)
+    root_pts, root_w, t_i, node_totals, rounds, local_costs = \
+        exec_algorithm1_tree_rounds(
+            sched, k1, site_points, w_site, k, t, t_buffer=t,
+            objective=objective, lloyd_iters=lloyd_iters,
+            clip_negative=False, backend=backend, strategy=strategy,
+            phase_times=phase_times)
+
+    # the root's table, laid out as the sim path's coreset
+    cs = Coreset(root_pts.reshape(-1, d).contiguous(),
+                 root_w.reshape(-1).contiguous())
+    with _phase(phase_times, "solve", dev):
+        centers = _solve_on_coreset(k2, cs, k, objective, lloyd_iters,
+                                    backend)
+    with _phase(phase_times, "round2", dev):
+        node_centers, r2b = tree_broadcast_exec(sched, centers,
+                                                unit_points=float(k), dim=d)
+    rounds = dict(rounds, round2_broadcast=r2b)
+
+    if "round1_gather" in rounds:
+        ledger = (rounds["round1_gather"].ledger
+                  .add(rounds["round1_scatter"].ledger)
+                  .add(rounds["round1_broadcast"].ledger).tag("round1")
+                  .add(rounds["round2_gather"].ledger.tag("round2_gather")))
+    else:   # single-shuffle strategies have no Round-1 phases
+        ledger = rounds["round2_gather"].ledger.tag("round2_gather")
+    ledger = ledger.add(r2b.ledger.tag("round2_broadcast"))
+    detail = ExecDetail(node_centers=node_centers, node_alloc=t_i,
+                        node_totals=node_totals, rounds=rounds)
+    return ClusteringResult(centers, cs, ledger, local_costs,
+                            exec_detail=detail)

@@ -165,9 +165,14 @@ def _own_t_total(strat, t: Optional[int], t_i: torch.Tensor
     return t_i.to(torch.float32)
 
 
+def _no_validate(strat) -> None:
+    pass
+
+
 @dataclasses.dataclass(frozen=True)
 class CoresetStrategy:
-    """A registered distributed-coreset round protocol."""
+    """A registered distributed-coreset round protocol. ``validate`` runs
+    on the new descriptor at construction and raises to reject it."""
 
     name: str
     derive_keys_fn: Callable = _split_keys
@@ -178,6 +183,10 @@ class CoresetStrategy:
     assemble_fn: Callable = _flatten_assemble
     site_sensitivities_fn: Callable = _plain_site_sensitivities
     sample_t_total_fn: Callable = _global_t_total
+    validate: Callable = _no_validate
+
+    def __post_init__(self):
+        self.validate(self)
 
     def keys(self, key: torch.Tensor, n_sites: int) -> torch.Tensor:
         """The all-site ``(n_sites, 2, 2)`` Round-1/Round-2 key table."""

@@ -137,13 +137,12 @@ def test_solve_with_restarts_matches_reference(instance, runs):
 
 
 def test_engines_and_routings_not_ported_raise(instance):
-    """engine="exec" / "async" are not ported and raise, as unknown names
-    do; min-cost routing, the cohen_addad / mapreduce strategies and the
-    power / trimmed objectives are ported and run."""
+    """engine="async" is not ported and raises, as unknown names do;
+    engine="exec", min-cost routing, the cohen_addad / mapreduce strategies
+    and the power / trimmed objectives are ported and run."""
     _, sp, sm = instance
     g = topology.grid(3, 3)
-    for kw, match in (({"engine": "exec"}, "not yet ported"),
-                      ({"engine": "async"}, "not yet ported"),
+    for kw, match in (({"engine": "async"}, "not yet ported"),
                       ({"engine": "nope"}, "unknown engine"),
                       ({"routing": "nope"}, "unknown routing"),
                       ({"strategy": "algorithm2"}, "unknown strategy"),
@@ -151,7 +150,8 @@ def test_engines_and_routings_not_ported_raise(instance):
         with pytest.raises(ValueError, match=match):
             distributed.graph_distributed_kmeans(prng.PRNGKey(0), sp, sm, K,
                                                  T, g, device="cpu", **kw)
-    for kw in ({"routing": "min_cost"}, {"strategy": "cohen_addad"},
+    for kw in ({"engine": "exec"}, {"routing": "min_cost"},
+               {"strategy": "cohen_addad"},
                {"strategy": "mapreduce"}, {"objective": "power(3)"},
                {"objective": "kmeans_trimmed(0.05)"}):
         res = distributed.graph_distributed_kmeans(
