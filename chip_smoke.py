@@ -94,12 +94,33 @@ Phases (any failed check raises, and the script exits non-zero):
    7's sim). Each run prints its wall beside sim's, its phases, each
    executed primitive's rounds and wall, and its peak device memory.
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``.
+9. The staged Round-1/Round-2 engine (``staged_distributed_coreset``) on
+   phase 8's 25 sites: strict mode (k-means under algorithm1, cohen_addad
+   and mapreduce, k-median under algorithm1) bit-equal to
+   ``distributed_coreset`` field by field, with each kernel launched 25
+   times as often as lockstep (one launch per site); overlap mode (tol =
+   1e-3, site buckets) for both objectives: a bit-identical rerun, sum t_i
+   = t, the bucket lengths, the cost ratio of a solve on the coreset; the
+   kernels held to their plain versions at one site's and one bucket's
+   shape; walls of both rounds and peak memory beside lockstep's.
+10. The streaming subsystem at full width (k = 50, t = 1,000, d = 90): a
+   ``StreamState`` fed the full data in arrivals of 10,000 rows (mass,
+   occupancy = the bits of 31, a rerun of the first 14 arrivals
+   bit-identical, within 2x the offline pipeline); a ``ClusterQueryService`` on it answering 20 batches
+   of 8..4,096 rows and a 10,000-row burst (answers bit-equal to
+   ``query_assignments``, ``query_load`` equal to their counts); a
+   ``DistributedStream`` on ``grid(5, 5)`` with two resample rounds on
+   sim / exec x flood / BFS tree (exec bit-equal to sim, ledgers by phase)
+   and a forced union round (the analytic ledger, the data's mass).
+
+It prints a ``{"kernels": [...]}`` line (each entry also with its launches
+on phases 9 and 10), the card's name and power limit, and last ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
@@ -635,7 +656,8 @@ def phase8(seed, dev, data, k, sp, sm, g, t, sim_bfs, sim_wan, counts,
     ``t`` against phase 3's BFS result ``sim_bfs``; the min-cost tree on
     ``wan_clusters(10, 10)`` against phase 7's ``sim_wan``. ``counts`` as
     in :func:`phase7`; adds digests to ``digests``; any failed check
-    raises."""
+    raises. Returns the flood's 25 sites: (row indices per site, padded
+    points, mask)."""
     reset_counts, entry_counts, route_counts = counts
     from repro_torch.core import prng
     from repro_torch.core.coreset import Coreset
@@ -802,6 +824,406 @@ def phase8(seed, dev, data, k, sp, sm, g, t, sim_bfs, sim_wan, counts,
           f"sim wall: "
           + ", ".join(f"{o} flood {w[1] / w[0]:.3f}"
                       for o, w in walls.items()))
+    return idx, sp25, sm25
+
+
+def _launched(counts, total, fn):
+    """Run ``fn`` with every launch count from zero, add its launches (per
+    kernel entry, and distance_argmin's by the kernel that served them) to
+    ``total``; returns (fn's result, entry launches, launches by kernel)."""
+    reset_counts, entry_counts, route_counts = counts
+    torch.cuda.synchronize()
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got, by = entry_counts(), route_counts()
+    for name, v in (*got.items(), *by.items()):
+        total[name] = total.get(name, 0) + v
+    return out, got, by
+
+
+def phase9(seed, dev, pts, k, sites25, base_km, base_md, counts, digests,
+           checks):
+    """The staged Round-1/Round-2 engine (``staged_distributed_coreset``,
+    backend='cuda') on phase 8's instance: ``sites25`` = (row indices,
+    padded points, mask) of the full data ``pts`` in 25 weighted sites of
+    ``grid(5, 5)``, t = 3 k n, 8 refinement passes. Strict mode (tol = 0, no
+    buckets) for k-means under algorithm1, cohen_addad and mapreduce and
+    k-median under algorithm1: every field bit-equal to
+    ``distributed_coreset``, each kernel launched 25 times as often as in
+    the lockstep run (once per site where lockstep launches once for all).
+    Overlap mode (tol = 1e-3, site buckets) for both objectives: a
+    bit-identical rerun, sum t_i = t, the bucket lengths, and the cost of
+    a solve on the coreset within MAX_COST_RATIO of the centralized
+    baselines ``base_km`` / ``base_md`` (phases 3 and 5). ``checks`` holds
+    phase 2's kernel checks. Adds digests; any failed check raises.
+    Returns the staged runs' launches (per entry and by kernel)."""
+    from repro_torch.core import clustering, prng
+    from repro_torch.core.coreset import (_site_valid_lengths,
+                                          distributed_coreset,
+                                          staged_distributed_coreset)
+    from repro_torch.kernels.ops import site_bucket_lengths
+
+    _, sp25, sm25 = sites25
+    n_sites, M = sp25.shape[0], sp25.shape[1]
+    t25 = 3 * k * n_sites
+    iters = 8
+    key = prng.PRNGKey(seed, device=dev)
+    fields = ("points", "weights", "t_i", "local_costs")
+    print(f"phase 9: the staged engine on grid(5, 5)'s {n_sites} sites "
+          f"(M={M}, t={t25}), backend='cuda'")
+    lengths = site_bucket_lengths(_site_valid_lengths(sm25), M)
+    # the kernels at the staged solves' shapes: one site at the lockstep
+    # pad, and the smallest site at its own bucket
+    small = int(np.argmin(lengths))
+    site_w = sm25.float()
+    for label, sl in (("staged site", (slice(0, 1), slice(0, M))),
+                      (f"staged bucket {lengths[small]}",
+                       (slice(small, small + 1), slice(0, lengths[small])))):
+        p1, w1 = sp25[sl], site_w[sl]
+        c1 = checks["rows"](p1, k)
+        checks["one_center"](f"{label} seeding", p1, checks["rows"](p1, 1))
+        checks["distance"](label, p1, c1)
+        checks["lloyd"](label, p1, c1, w1)
+        checks["weiszfeld"](label, p1, c1, w1)
+
+    def run(fn, **kw):
+        """One run: (result, wall s, peak GiB above the run's start)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn(key, sp25, sm25, k, t25, lloyd_iters=iters, backend="cuda",
+                 device=dev, **kw)
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - start) / 2**30)
+
+    total = {}
+    for objective, strategy in (("kmeans", "algorithm1"),
+                                ("kmeans", "cohen_addad"),
+                                ("kmeans", "mapreduce"),
+                                ("kmedian", "algorithm1")):
+        label = f"{objective}/{strategy}"
+        times = {}
+        lock, lock_n, lock_by = _launched(counts, {}, lambda: run(
+            distributed_coreset, objective=objective, strategy=strategy,
+            phase_times=times))
+        staged, st_n, st_by = _launched(counts, total, lambda: run(
+            staged_distributed_coreset, objective=objective,
+            strategy=strategy))
+        base, (cs, det) = lock[0], staged[0]
+        off = {}
+        for f in fields:
+            a, b = getattr(base, f), getattr(cs, f)
+            if not torch.equal(a, b):
+                bad = (a != b).reshape(n_sites, -1).any(1).nonzero()
+                off[f] = (int((a != b).sum()), bad.flatten().tolist())
+        check(not off, f"phase 9 strict {label}: fields differ from "
+              f"lockstep (entries, sites): {off}")
+        check(det.site_lengths == (M,) * n_sites,
+              f"phase 9 strict {label}: lengths {det.site_lengths}")
+        check(bool((det.iters_run == iters).all()) and det.host_reads == 0,
+              f"phase 9 strict {label}: passes {det.iters_run.tolist()}")
+        want = {name: n_sites * v for name, v in lock_n.items()}
+        want_by = {name: n_sites * v for name, v in lock_by.items()}
+        check(st_n == want and st_by == want_by,
+              f"phase 9 strict {label}: launches {st_n} {st_by}, expected "
+              f"25 x lockstep's {lock_n} {lock_by}")
+        digests[f"staged {label} coreset[grid(5, 5)]"] = digest(cs.points,
+                                                                 cs.weights)
+        print(f"  strict {label}: points, weights, t_i, local_costs equal "
+              f"lockstep bit for bit; staged wall {staged[1]:.3f} s (round 1 "
+              f"{det.wall_round1_s:.3f}, round 2 {det.wall_round2_s:.3f}), "
+              f"peak {staged[2]:.2f} GiB above its start; lockstep wall "
+              f"{lock[1]:.3f} s "
+              f"{json.dumps({p: round(x, 4) for p, x in times.items()})}, "
+              f"peak {lock[2]:.2f} GiB; launches {json.dumps(st_n)} = "
+              f"{n_sites} x lockstep's {json.dumps(lock_n)}; by kernel "
+              f"{json.dumps(st_by)}")
+        del lock, staged, base, cs
+    for objective, base_cost in (("kmeans", base_km), ("kmedian", base_md)):
+        label = f"overlap {objective}"
+        first, n1, by1 = _launched(counts, total, lambda: run(
+            staged_distributed_coreset, objective=objective, tol=1e-3,
+            site_buckets=True))
+        again = run(staged_distributed_coreset, objective=objective,
+                    tol=1e-3, site_buckets=True)
+        (cs, det), (cs2, det2) = first[0], again[0]
+        for f in fields:
+            check(torch.equal(getattr(cs, f), getattr(cs2, f)),
+                  f"phase 9 {label}: {f} differs between two runs")
+        check(torch.equal(det.iters_run, det2.iters_run),
+              f"phase 9 {label}: passes differ between two runs")
+        check(int(cs.t_i.sum()) == t25, f"phase 9 {label}: sum t_i "
+              f"{int(cs.t_i.sum())}")
+        check(det.site_lengths == lengths,
+              f"phase 9 {label}: lengths {det.site_lengths}, buckets "
+              f"{lengths}")
+        flat = cs.flatten()
+        c, _ = clustering.solve(key, flat.points, k,
+                                weights=torch.clamp_min(flat.weights, 0.0),
+                                lloyd_iters=iters, objective=objective,
+                                restarts=3, device=dev)
+        ratio = float(clustering.cost(pts, c, objective=objective,
+                                      device=dev)) / base_cost
+        check(ratio < MAX_COST_RATIO, f"phase 9 {label}: cost ratio {ratio}")
+        digests[f"staged {label} coreset[grid(5, 5)]"] = digest(cs.points,
+                                                                 cs.weights)
+        print(f"  {label}: cost ratio {ratio:.6f} (bound {MAX_COST_RATIO}); "
+              f"rerun bit-identical; sum t_i {t25}; lengths "
+              f"{sorted(set(det.site_lengths))} (lockstep {M}); passes "
+              f"{det.iters_run.tolist()}, {det.host_reads} convergence "
+              f"reads; wall {first[1]:.3f} s (round 1 "
+              f"{det.wall_round1_s:.3f}, round 2 {det.wall_round2_s:.3f}), "
+              f"peak {first[2]:.2f} GiB above its start; launches "
+              f"{json.dumps(n1)}, by kernel {json.dumps(by1)}")
+    return total
+
+
+def phase10(seed, dev, data, held_out, pts, k, sites25, base_cost, counts,
+            digests, checks):
+    """The streaming subsystem at full width (k = 50, t = 1,000, d = 90),
+    backend='cuda'. (a) A ``StreamState`` fed the full ``data`` in arrivals
+    of 10,000 rows (31 batches of 16,384 and a 7,441-row tail): mass,
+    occupancy = the bits of 31, a rerun of the first 14 arrivals
+    bit-identical, and a solve on the summary within 2x the offline
+    ``build_coreset`` pipeline at equal size.
+    (b) A ``ClusterQueryService`` on it: 20 batches of 8..4,096 rows of
+    ``held_out`` and one 10,000-row burst, every answer bit-equal to
+    ``query_assignments`` with the cached centres, ``query_load`` equal to
+    the counts of those answers and, but for near ties, to the plain
+    ``lloyd_stats``. (c) A ``DistributedStream`` on ``grid(5, 5)`` with
+    ``sites25``'s rows pushed in arrivals of 4,096, two resample rounds
+    (after half the data and at the end), each on sim/flood, exec/flood,
+    sim/BFS tree and exec/BFS tree from the same state (exec bit-equal to
+    sim per transport, ledger by phase included), then a forced union
+    round on the flood (ledger the analytic one, mass the data's).
+    ``base_cost`` is phase 3's centralized k-means cost. Adds digests;
+    any failed check raises. Returns the phase's launches."""
+    import copy
+    from repro_torch.core import clustering, prng
+    from repro_torch.core.backend import query_assignments
+    from repro_torch.core.coreset import build_coreset
+    from repro_torch.core.topology import grid
+    from repro_torch.kernels import ref
+    from repro_torch.stream import (ClusterQueryService, DistributedStream,
+                                    StreamState, TreeConfig)
+
+    n, d = data.shape
+    key = prng.PRNGKey(seed, device=dev)
+    total = {}
+    print("phase 10: the streaming subsystem at full width, backend='cuda'")
+
+    # -- (a) one site, the whole stream ---------------------------------------
+    cfg = TreeConfig(k=k, t=1000, d=d, batch_size=16384, levels=12,
+                     backend="cuda")
+    arrival = 10_000
+    # the rerun replays the first 14 arrivals (8 batches, 131,072 rows,
+    # and 8,928 pending) and is held to the first run's summary there
+    n_arrivals = -(-n // arrival)
+    replay = min(14, n_arrivals)
+
+    def feed(arrivals):
+        """A new stream fed ``arrivals`` arrivals of the data: (stream,
+        digest of its summary after ``replay`` arrivals)."""
+        state, mark = StreamState(cfg, key=key, device=dev), None
+        for j, off in enumerate(range(0, n, arrival)[:arrivals]):
+            state.push(data[off:off + arrival])
+            if j + 1 == replay:
+                mark = digest(*dataclasses.astuple(state.summary()))
+        return state, mark
+
+    t0 = time.perf_counter()
+    (state, mark), n_a, by_a = _launched(counts, total,
+                                         lambda: feed(n_arrivals))
+    wall_a = time.perf_counter() - t0
+    again, _ = feed(replay)
+    check(digest(*dataclasses.astuple(again.summary())) == mark,
+          f"phase 10a: the rerun's summary after {replay} arrivals differs")
+    s = state.summary()
+    n_batches = n // cfg.batch_size
+    check(state.tree.n_batches == n_batches
+          and state.pending() == n - n_batches * cfg.batch_size,
+          f"phase 10a: {state.tree.n_batches} batches, {state.pending()} "
+          f"pending")
+    occupied = [size > 0 for size in state.tree.bucket_sizes()]
+    check(occupied == [bool(n_batches >> i & 1) for i in range(cfg.levels)],
+          f"phase 10a: occupancy {occupied} is not the bits of {n_batches}")
+    mass = float(s.weights.double().sum())
+    check(abs(mass - n) <= 1e-4 * n, f"phase 10a: summary mass {mass}")
+    for label, p1 in (("stream leaf", pts[:cfg.batch_size]),
+                      ("stream merge", s.points[:2 * cfg.slot])):
+        c1 = checks["rows"](p1, k)
+        checks["one_center"](f"{label} seeding", p1, checks["rows"](p1, 1))
+        checks["lloyd"](label, p1, c1, torch.ones_like(p1[:, 0]))
+    c_stream, _ = clustering.solve(key, s.points, k, weights=s.weights,
+                                   lloyd_iters=10, device=dev)
+    stream_cost = float(clustering.cost(pts, c_stream, device=dev))
+    eff = int(s.effective_size())
+    off = build_coreset(key, pts, k, eff - k, device=dev)
+    c_off, _ = clustering.solve(key, off.points, k, weights=off.weights,
+                                lloyd_iters=10, device=dev)
+    offline_cost = float(clustering.cost(pts, c_off, device=dev))
+    check(stream_cost <= 2.0 * offline_cost,
+          f"phase 10a: stream cost {stream_cost} > 2 x offline "
+          f"{offline_cost}")
+    digests["stream summary[full data]"] = digest(s.points, s.weights)
+    print(f"  (a) {n} rows in arrivals of {arrival}: {n_batches} batches + "
+          f"{state.pending()} pending, {state.tree.occupied_levels()} levels "
+          f"occupied, {eff} weighted slots of {s.size}, mass {mass:.3f}; "
+          f"rerun of the first {replay} arrivals bit-identical; stream / "
+          f"offline cost "
+          f"{stream_cost / offline_cost:.6f} (bound 2), stream / "
+          f"centralized {stream_cost / base_cost:.6f}; ingest wall "
+          f"{wall_a:.3f} s; launches {json.dumps(n_a)}, by kernel "
+          f"{json.dumps(by_a)}")
+    del again, off
+
+    # -- (b) the query service on (a) -----------------------------------------
+    svc = ClusterQueryService(state, k=k, staleness_frac=0.1,
+                              max_bucket=4096, backend="cuda")
+    rng = np.random.default_rng(seed + 13)
+    sizes = [int(m) for m in rng.integers(8, 4097, 20)]
+    sizes.insert(10, 10_000)
+    batches = [held_out[rng.integers(0, held_out.shape[0], m)]
+               for m in sizes]
+    # the first solve (k-means++ and Lloyd, 2 restarts, on the summary);
+    # nothing is pushed while the queries run, so they reuse its centres
+    _, n_r, _ = _launched(counts, total, svc.refresh)
+    t0 = time.perf_counter()
+    answers, n_q, by_q = _launched(counts, total, lambda: [svc.query(q)
+                                                           for q in batches])
+    wall_q = time.perf_counter() - t0
+    centers = svc.cached_centers()
+    eng = svc._engine
+    check(n_q["distance_argmin_batched"] == eng.stats.n_dispatches
+          and n_q["lloyd_stats"] == 0 and n_q["weiszfeld_stats"] == 0,
+          f"phase 10b: launches {n_q}, {eng.stats.n_dispatches} dispatches")
+    loads, n_l, _ = _launched(counts, total, lambda: [svc.query_load(q)
+                                                      for q in batches])
+    n_chunks = sum(-(-m // svc.max_bucket) for m in sizes)
+    check(n_l["lloyd_stats"] == n_chunks and n_l["distance_argmin"] == 0,
+          f"phase 10b: query_load launches {n_l}, {n_chunks} chunks")
+    flips = 0
+    for q, (a, dist), load in zip(batches, answers, loads):
+        qd = torch.from_numpy(q).to(dev)
+        a2, d2 = query_assignments(qd, centers, device=dev)
+        check(torch.equal(a, a2) and torch.equal(dist, d2),
+              f"phase 10b: answers to {q.shape[0]} rows differ from "
+              f"query_assignments")
+        check(torch.equal(load, torch.bincount(a.long(), minlength=k).float()),
+              "phase 10b: query_load differs from the answers' counts")
+        mr, ar = ref.min_dist_argmin_ref(qd, centers)
+        _, f = checks["compare"](f"service[{q.shape[0]} rows]", qd, centers,
+                                 dist, a, mr, ar)
+        _, counts_plain, _ = ref.lloyd_stats_ref(qd, centers)
+        check(float((load - counts_plain).abs().sum()) <= 2 * f,
+              f"phase 10b: query_load off the plain counts beyond its {f} "
+              f"near-tie flips")
+        flips += f
+    for m in (8, 64, 512, 4096):
+        q = torch.from_numpy(held_out[:m]).to(dev)
+        checks["lloyd"](f"query_load bucket {m}", q, centers,
+                        torch.ones_like(q[:, 0]))
+    st = svc.stats
+    print(f"  (b) {len(batches)} query batches, {st.n_queries} rows "
+          f"({st.n_padded_queries} padding rows), {eng.stats.n_dispatches} "
+          f"dispatches, {st.n_refreshes} refresh ({st.refresh_s:.3f} s); "
+          f"{st.n_queries / st.assign_s:.0f} queries/s on assignment, "
+          f"{st.n_queries / wall_q:.0f} with the refresh; answers equal "
+          f"query_assignments bit for bit, query_load equal to their counts "
+          f"({flips} near-tie flips against the plain version); launches "
+          f"{json.dumps(n_q)}, by kernel {json.dumps(by_q)}; query_load "
+          f"{json.dumps(n_l)}; the refresh {json.dumps(n_r)}")
+    del state, svc, answers, s
+
+    # -- (c) the distributed stream on grid(5, 5) ---------------------------
+    idx, _, _ = sites25
+    g = grid(5, 5)
+    t_round = 3 * k * g.n
+    cfg_c = TreeConfig(k=k, t=1000, d=d, batch_size=8192, levels=12,
+                       backend="cuda")
+    ds = DistributedStream(g, cfg_c, key=key, device=dev)
+    site_rows = [data[ix] for ix in idx]
+    cursor = [0] * g.n
+    pushed = [0]
+    arrival_c = 4096
+
+    def push_until(limit):
+        """Round-robin arrivals of 4,096 rows until ``limit`` rows."""
+        while pushed[0] < limit:
+            for i in range(g.n):
+                b = site_rows[i][cursor[i]:cursor[i] + arrival_c]
+                if len(b):
+                    ds.push(i, b)
+                    cursor[i] += len(b)
+                    pushed[0] += len(b)
+
+    def rounds(label, mode, combos):
+        """One round on each (engine, transport) from copies of the same
+        state; the stream then carries on from the first combo's copy."""
+        nonlocal ds
+        out = {}
+        for engine, transport in combos:
+            run = copy.deepcopy(ds)
+            t0 = time.perf_counter()
+            res, n_r, _ = _launched(counts, total, lambda: run.aggregate(
+                k=k, t=t_round, mode=mode, engine=engine,
+                transport=transport, routing="bfs"))
+            out[engine, transport] = (run, res, time.perf_counter() - t0,
+                                      n_r)
+        for transport in dict.fromkeys(tr for _, tr in combos):
+            sim, ex = out["sim", transport][1], out["exec", transport][1]
+            check(torch.equal(sim.coreset.points, ex.coreset.points)
+                  and torch.equal(sim.coreset.weights, ex.coreset.weights)
+                  and torch.equal(sim.centers, ex.centers),
+                  f"phase 10c {label} {transport}: exec differs from sim")
+            check(sim.ledger.as_dict(by_phase=True)
+                  == ex.ledger.as_dict(by_phase=True),
+                  f"phase 10c {label} {transport}: measured ledger "
+                  f"{ex.ledger.as_dict()} differs from the analytic "
+                  f"{sim.ledger.as_dict()}")
+            ratio = float(clustering.cost(pts, sim.centers,
+                                          device=dev)) / base_cost
+            mass = float(sim.coreset.weights.double().sum())
+            check(abs(mass - pushed[0]) <= 1e-3 * pushed[0],
+                  f"phase 10c {label} {transport}: mass {mass} for "
+                  f"{pushed[0]} rows")
+            digests[f"stream {label} {transport} centres"] = digest(
+                sim.centers)
+            print(f"  (c) {label} {transport}: {pushed[0]} rows pushed, "
+                  f"full-data cost ratio {ratio:.6f}, mass {mass:.3f}; "
+                  f"wall sim {out['sim', transport][2]:.3f} s, exec "
+                  f"{out['exec', transport][2]:.3f} s; exec equal to sim "
+                  f"(coreset, centres, ledger by phase "
+                  f"{json.dumps(ex.ledger.as_dict())}); launches "
+                  f"{json.dumps(out['exec', transport][3])}")
+        ds = out[combos[0]][0]
+        return out
+
+    t0 = time.perf_counter()
+    _launched(counts, total, lambda: push_until(n // 2))
+    combos = [("sim", "flood"), ("exec", "flood"), ("sim", "tree"),
+              ("exec", "tree")]
+    rounds("round 0", "resample", combos)
+    _launched(counts, total, lambda: push_until(n))
+    check(pushed[0] == n and abs(ds.total_weight() - n) == 0,
+          f"phase 10c: {pushed[0]} rows pushed, total weight "
+          f"{ds.total_weight()}")
+    rounds("round 1", "resample", combos)
+    out = rounds("union", "union", combos[:2])
+    sim = out["sim", "flood"][1]
+    sum_eff = float(sum((st_.summary().weights != 0).sum().item()
+                        for st_ in ds.sites))
+    led = sim.ledger.as_dict()
+    check(led["points"] == 2.0 * g.m * sum_eff
+          and led["messages"] == 2.0 * g.m * g.n and led["scalars"] == 0.0,
+          f"phase 10c union: ledger {led}, {sum_eff} weighted slots")
+    print(f"  (c) stream wall {time.perf_counter() - t0:.3f} s; union "
+          f"round: {int(sum_eff)} weighted slots flooded, ledger equals the "
+          f"analytic 2 m x slots")
+    return total
 
 
 def phase7_spread(seed, dev, pts, sp, sm, g, k, t, ratio, solve, spread):
@@ -1715,10 +2137,14 @@ def main(argv=None) -> int:
         digests[f"kmedian centres[{routing}]"] = digest(
             md_results[routing].centers)
     b_ms, b_by = bound(*weiszfeld_work(1, cs_md.points.shape[0], k, d))
-    wz_cs = cuda_ms(lambda: ops.weiszfeld_stats(
-        cs_md.points, md_results["flood"].centers, cs_md.weights))
+    wz_args = (cs_md.points, md_results["flood"].centers, cs_md.weights)
+    wz_cs = cuda_ms(lambda: ops.weiszfeld_stats(*wz_args))
     print(f"  weiszfeld_stats coreset ({cs_md.points.shape[0]} rows): kernel "
-          f"{wz_cs:.4f} ms, bound {b_ms:.4f} ({b_by})")
+          f"{wz_cs:.4f} ms, plain "
+          f"{cuda_ms(lambda: ref.weiszfeld_stats_ref(*wz_args)):.4f}, "
+          f"library "
+          f"{cuda_ms(lambda: weiszfeld_library(*wz_args)):.4f}, bound "
+          f"{b_ms:.4f} ({b_by})")
     lap("phase 5")
 
     # -- phase 6: path B, multi-tenant serving --------------------------------
@@ -1848,9 +2274,30 @@ def main(argv=None) -> int:
     lap("phase 7")
 
     # -- phase 8: the topology execution engine -------------------------------
-    phase8(args.seed, dev, data, k, sp, sm, g, t, results["bfs"], wan,
-           (reset_counts, counts, route_counts), digests)
+    sites25 = phase8(args.seed, dev, data, k, sp, sm, g, t, results["bfs"],
+                     wan, (reset_counts, counts, route_counts), digests)
     lap("phase 8")
+
+    # -- phases 9 and 10: the staged engine and the streaming subsystem ------
+    checks = {"rows": rows, "distance": check_distance,
+              "one_center": check_one_center, "lloyd": check_lloyd,
+              "weiszfeld": check_weiszfeld, "compare": compare_argmin}
+    new_paths = {"phase 9": phase9(
+        args.seed, dev, pts, k, sites25, base_cost, base_md,
+        (reset_counts, counts, route_counts), digests, checks)}
+    lap("phase 9")
+    new_paths["phase 10"] = phase10(
+        args.seed, dev, data, data_s, pts, k, sites25, base_cost,
+        (reset_counts, counts, route_counts), digests, checks)
+    lap("phase 10")
+    for phase, got in new_paths.items():
+        for name in ("distance_argmin", "lloyd_stats", "weiszfeld_stats",
+                     da.ONE_CENTER.name):
+            if phase == "phase 10" and name == "weiszfeld_stats":
+                continue
+            check(got.get(name, 0) > 0, f"{phase}: {name} never launched")
+    check(new_paths["phase 10"].get("distance_argmin_batched", 0) > 0,
+          "phase 10: distance_argmin_batched never launched")
 
     print(f"phase walls (s): {json.dumps(walls)}")
     print(f"digests (sha256, first 16 hex digits): {json.dumps(digests)}")
@@ -1888,6 +2335,13 @@ def main(argv=None) -> int:
          "bound_ms": db[64][3], "bound_by": db[64][4],
          "library_ms": db[64][2]},
     ]
+    # each kernel's launches on the staged (phase 9) and streaming (phase
+    # 10) paths, counted from zero around every run of those phases
+    for entry, name in zip(kernels, (da.ONE_CENTER.name, "distance_argmin",
+                                     "lloyd_stats", "weiszfeld_stats",
+                                     "distance_argmin_batched")):
+        entry["launches_new_paths"] = {
+            phase: got.get(name, 0) for phase, got in new_paths.items()}
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

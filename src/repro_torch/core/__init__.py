@@ -9,10 +9,13 @@ from repro_torch.core.backend import (ClusteringBackend, available_backends,
                                       query_assignments_batched,
                                       register_backend, use_backend)
 from repro_torch.core.clustering import (cost, kmeans_pp_init, lloyd,
-                                         lloyd_stats, min_dist_argmin, solve)
+                                         lloyd_converged, lloyd_stats,
+                                         min_dist_argmin, solve)
 from repro_torch.core.comm import CommLedger
 from repro_torch.core.coreset import (Coreset, DistributedCoreset,
-                                      build_coreset, distributed_coreset)
+                                      build_coreset, distributed_coreset,
+                                      merge_coresets,
+                                      staged_distributed_coreset)
 from repro_torch.core.distributed import (ClusteringResult, ExecDetail,
                                           distributed_kmeans,
                                           distributed_kmeans_tree,
@@ -39,10 +42,10 @@ __all__ = [
     "ClusteringBackend", "available_backends", "get_backend",
     "query_assignments", "query_assignments_batched", "register_backend",
     "use_backend",
-    "cost", "kmeans_pp_init", "lloyd", "lloyd_stats", "min_dist_argmin",
-    "solve",
+    "cost", "kmeans_pp_init", "lloyd", "lloyd_converged", "lloyd_stats",
+    "min_dist_argmin", "solve",
     "CommLedger", "Coreset", "DistributedCoreset", "build_coreset",
-    "distributed_coreset",
+    "distributed_coreset", "merge_coresets", "staged_distributed_coreset",
     "ClusteringResult", "ExecDetail", "distributed_kmeans",
     "distributed_kmeans_tree", "graph_distributed_kmeans",
     "ExecResult", "GossipSchedule", "TreeSchedule", "flood_exec",

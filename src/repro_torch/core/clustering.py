@@ -51,6 +51,18 @@ def _costing_backend(chunk: Optional[int], backend: BackendLike,
     return b
 
 
+def pairwise_sq_dists(points, centers, device: DeviceLike = None
+                      ) -> torch.Tensor:
+    """Squared euclidean distances in the matmul form, clamped at 0:
+    ``(..., n, d), (..., k, d) -> (..., n, k)``. Materializes the whole
+    matrix (the kernels never do); for small instances and the data layer."""
+    _, (points, centers) = _inputs(device, points, centers)
+    p2 = (points * points).sum(-1, keepdim=True)
+    c2 = (centers * centers).sum(-1)
+    d2 = p2 + c2.unsqueeze(-2) - 2.0 * (points @ centers.transpose(-1, -2))
+    return torch.clamp_min(d2, 0.0)
+
+
 def min_dist_argmin(points, centers, chunk: Optional[int] = None,
                     backend: BackendLike = None, device: DeviceLike = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -70,6 +82,16 @@ def lloyd_stats(points, centers, weights=None, backend: BackendLike = None,
     dev, (points, centers, weights) = _inputs(device, points, centers,
                                               weights)
     return backend_mod.get_backend(backend, dev).lloyd_stats(
+        points, centers, weights)
+
+
+def weiszfeld_stats(points, centers, weights=None,
+                    backend: BackendLike = None, device: DeviceLike = None):
+    """Fused weighted Weiszfeld statistics (nums, denoms, cost) for one
+    k-median refinement pass via the dispatch layer."""
+    dev, (points, centers, weights) = _inputs(device, points, centers,
+                                              weights)
+    return backend_mod.get_backend(backend, dev).weiszfeld_stats(
         points, centers, weights)
 
 
@@ -189,6 +211,62 @@ def lloyd(points, centers, weights=None, iters: int = 10,
     return _lloyd(points, centers, w, iters,
                   objective_mod.get_objective(objective),
                   backend_mod.get_backend(backend, dev))
+
+
+def _lloyd_converged(points: torch.Tensor, centers: torch.Tensor,
+                     weights: torch.Tensor, iters: int, tol: float, obj, b
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_lloyd` with a per-site early exit (leading site axis
+    optional): a site stops once the relative cost improvement of a pass
+    drops to ``tol``, after at most ``iters`` passes. Returns (centers,
+    passes run per site, int32). ``tol == 0`` is :func:`_lloyd` itself.
+
+    With ``tol > 0`` every pass ends in ONE host read (whether every site
+    is done) -- the counterpart of the reference's ``while_loop`` -- so
+    the number of host reads is the largest per-site pass count. A site
+    that is done keeps its centers while the others run on."""
+    lead = points.shape[:-2]
+    dev = points.device
+    if tol == 0.0:
+        centers, _ = _lloyd(points, centers, weights, iters, obj, b)
+        return centers, torch.full(lead, iters, dtype=torch.int32,
+                                   device=dev)
+    run = torch.zeros(lead, dtype=torch.int32, device=dev)
+    done = torch.zeros(lead, dtype=torch.bool, device=dev)
+    # prev starts at +inf, so the first pass never exits
+    prev = torch.full(lead, float("inf"), dtype=torch.float32, device=dev)
+    for _ in range(iters):
+        new, c = obj.update(b, points, weights, centers)
+        active = ~done
+        centers = torch.where(active[..., None, None], new, centers)
+        run = run + active.to(torch.int32)
+        done = done | (active & ((prev - c)
+                                 <= tol * torch.clamp_min(c, _TINY)))
+        prev = torch.where(active, c, prev)
+        if bool(done.all()):        # the pass's one host read
+            break
+    return centers, run
+
+
+def lloyd_converged(points, centers, weights=None, iters: int = 10,
+                    tol: float = 0.0, objective: ObjectiveLike = "kmeans",
+                    k: Optional[int] = None, backend: BackendLike = None,
+                    device: DeviceLike = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`lloyd` with an early exit: stop refining once the relative
+    cost improvement of a pass, ``(prev - c) <= tol * max(c, tiny)`` in
+    float32, holds (or after ``iters`` passes). Returns (centers,
+    iters_run int32).
+
+    ``tol == 0.0`` is the strict mode: the fixed-length :func:`lloyd`, so
+    the centers are bit-identical to it (the staged coreset engine's
+    parity contract). ``tol > 0.0`` reads the device once per pass."""
+    dev, (points, centers, weights) = _inputs(device, points, centers,
+                                              weights)
+    w = _ones(points) if weights is None else weights
+    return _lloyd_converged(points, centers, w, iters, float(tol),
+                            objective_mod.get_objective(objective),
+                            backend_mod.get_backend(backend, dev))
 
 
 def solve(key, points, k: int, weights=None, lloyd_iters: int = 10,

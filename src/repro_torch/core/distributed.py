@@ -19,7 +19,7 @@ paths of ``repro.core.distributed``).
   ``engine="sim"|"exec"`` choice (gather / scatter / broadcast schedules).
 
 The JAX package's asynchronous (WAN) and SPMD engines are not ported yet:
-``engine="async"`` raises.
+``engine="async"`` and ``faults=`` raise.
 """
 from __future__ import annotations
 
@@ -99,10 +99,16 @@ def _solve_on_coreset(key: torch.Tensor, cs: Coreset, k: int,
     return centers
 
 
-def _check_engine(engine: str) -> None:
-    if engine == "async":
-        raise ValueError(f"engine {engine!r} is not yet ported to "
-                         f"repro_torch; use engine='sim' or 'exec'")
+def _check_engine(engine: str, faults=None) -> None:
+    """Reject unknown engines, and the asynchronous WAN runtime
+    (``engine="async"``, or ``faults`` with any engine), which is not yet
+    ported (ROADMAP A5)."""
+    if engine == "async" or faults is not None:
+        raise ValueError(
+            f"engine={engine!r} with faults={faults!r}: the asynchronous "
+            f"WAN runtime (engine='async', faults=) is not yet ported to "
+            f"repro_torch (ROADMAP A5); use engine='sim' or 'exec' without "
+            f"faults")
     if engine not in ("sim", "exec"):
         raise ValueError(f"unknown engine {engine!r}: expected "
                          f"'sim'|'exec'")
@@ -141,6 +147,10 @@ def graph_distributed_kmeans(
     engine: str = "sim",
     routing: str = "flood",
     root: int = 0,
+    faults=None,
+    wan_mode: Optional[str] = None,
+    wan_seed: int = 0,
+    wan_p: float = 0.5,
     strategy: StrategyLike = None,
     device: DeviceLike = None,
     phase_times: Optional[dict] = None,
@@ -162,13 +172,17 @@ def graph_distributed_kmeans(
     edge by edge, the ledger is measured from the schedule, and
     ``exec_detail`` holds every node's state.
 
+    ``faults``, ``wan_mode``, ``wan_seed`` and ``wan_p`` belong to the
+    asynchronous WAN runtime (``engine="async"``), which is not yet ported:
+    ``engine="async"`` or a ``faults`` plan raises ValueError.
+
     Runs on ``device`` (CUDA unless the caller asks for the CPU).
     ``phase_times``, when a dict, receives the wall seconds of
     ``"round1"``, ``"round2"`` and ``"solve"``."""
     objective = objective_mod.resolve_name(objective)
     strategy = strategy_mod.resolve_name(strategy)
     strat = strategy_mod.get_strategy(strategy)
-    _check_engine(engine)
+    _check_engine(engine, faults)
     if not strat.needs_exchange and routing == "flood":
         # single-shuffle strategies never flood: with no scalar round, the
         # portions move map -> shuffle -> reduce along a BFS tree

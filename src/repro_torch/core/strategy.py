@@ -90,12 +90,8 @@ def _cohen_addad_local_summary(strat, keys, site_points, w_site, *, k,
     centers, m, assign, _, w_eff = round1_local_solves(
         keys, site_points, w_site, k=k, objective=objective,
         lloyd_iters=lloyd_iters, backend=backend)
-    from repro_torch.core.coreset import _windowed_sum
     s = _refined_sensitivities(m, assign, w_eff, k)
-    # every site's total is 1 + its number of non-empty clusters up to
-    # rounding, so the allocation's ranking rests on the last bits: sum in
-    # the reference's order
-    return Round1State(centers, s, assign, _windowed_sum(s), w_eff)
+    return Round1State(centers, s, assign, strat.site_total(s), w_eff)
 
 
 def _scalar_exchange(strat) -> Optional[ExchangeSpec]:
@@ -152,6 +148,19 @@ def _refined_site_sensitivities(strat, pts, centers, w, *, objective,
             assign, w_eff)
 
 
+def _plain_site_total(strat, m: torch.Tensor) -> torch.Tensor:
+    """A site's Round-1 scalar: the sum of its sampling masses."""
+    return m.sum(-1)
+
+
+def _windowed_site_total(strat, m: torch.Tensor) -> torch.Tensor:
+    """The refined totals are 1 + each site's number of non-empty clusters
+    up to rounding, so the allocation's ranking rests on the last bits:
+    sum in the reference's order."""
+    from repro_torch.core.coreset import _windowed_sum
+    return _windowed_sum(m)
+
+
 def _global_t_total(strat, t: int, t_i: torch.Tensor) -> torch.Tensor:
     """Exchanging strategies normalize the sample weights by the global
     budget ``t``, per site."""
@@ -182,6 +191,7 @@ class CoresetStrategy:
     local_contribution_fn: Callable = _local_contribution
     assemble_fn: Callable = _flatten_assemble
     site_sensitivities_fn: Callable = _plain_site_sensitivities
+    site_total_fn: Callable = _plain_site_total
     sample_t_total_fn: Callable = _global_t_total
     validate: Callable = _no_validate
 
@@ -231,6 +241,11 @@ class CoresetStrategy:
                                           objective=objective,
                                           backend=backend)
 
+    def site_total(self, m: torch.Tensor) -> torch.Tensor:
+        """A site's (or a site batch's) Round-1 scalar from its sampling
+        masses ``m`` (..., M), summed as :meth:`summary` sums it."""
+        return self.site_total_fn(self, m)
+
     def local_totals(self, local_costs: torch.Tensor) -> torch.Tensor:
         """The per-site ``totals`` :meth:`contribute` takes when no exchange
         round runs: each site's own scalar."""
@@ -268,7 +283,8 @@ ALGORITHM1 = register_strategy(CoresetStrategy(name="algorithm1"))
 COHEN_ADDAD = register_strategy(CoresetStrategy(
     name="cohen_addad",
     local_summary_fn=_cohen_addad_local_summary,
-    site_sensitivities_fn=_refined_site_sensitivities))
+    site_sensitivities_fn=_refined_site_sensitivities,
+    site_total_fn=_windowed_site_total))
 
 MAPREDUCE = register_strategy(CoresetStrategy(
     name="mapreduce",

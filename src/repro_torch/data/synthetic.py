@@ -1,5 +1,6 @@
 """Deterministic synthetic data (numpy only; the port's copy of
-``repro.data.synthetic.paper_dataset``).
+``repro.data.synthetic``'s ``paper_dataset``, ``drifting_mixture_stream``
+and ``contaminated_stream``, bit-equal to it for the same seed).
 
 :func:`paper_dataset` makes Gaussian-mixture stand-ins shape-matched to the
 paper's evaluation datasets (the UCI files are unavailable offline; see
@@ -8,7 +9,7 @@ setup: k=5 centers ~ N(0, I_10), 20k points per center.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -54,3 +55,73 @@ def paper_dataset(name: str, seed: int = 0, scale: float = 1.0
 
 def paper_dataset_names():
     return list(_PAPER_SHAPES)
+
+
+def drifting_mixture_stream(
+    n_batches: int,
+    batch_size: int,
+    d: int = 10,
+    k: int = 5,
+    drift: float = 0.05,
+    sigma: float = 0.3,
+    seed: int = 0,
+) -> Iterator[np.ndarray]:
+    """Non-stationary Gaussian-mixture stream for the streaming subsystem:
+    the ``k`` mixture centers random-walk by ``drift * N(0, I)`` per batch
+    and the mixture weights are re-drawn every batch, so no fixed prefix is
+    representative of the whole stream -- exactly the regime merge-and-reduce
+    summaries must survive. Deterministic in ``seed``; yields ``n_batches``
+    arrays of shape (batch_size, d) float32."""
+    rng = np.random.default_rng(seed)
+    centers = 3.0 * rng.standard_normal((k, d))
+    for _ in range(n_batches):
+        probs = rng.dirichlet(np.ones(k) * 2.0)
+        comp = rng.choice(k, size=batch_size, p=probs)
+        pts = centers[comp] + sigma * rng.standard_normal((batch_size, d))
+        yield pts.astype(np.float32)
+        centers = centers + drift * rng.standard_normal((k, d))
+
+
+def contaminated_stream(
+    n_batches: int,
+    batch_size: int,
+    d: int = 10,
+    k: int = 5,
+    drift: float = 0.05,
+    sigma: float = 0.3,
+    outlier_frac: float = 0.02,
+    outlier_scale: float = 25.0,
+    burst_every: int = 0,
+    seed: int = 0,
+) -> Iterator[np.ndarray]:
+    """Adversarially contaminated drifting stream (outliers-workload
+    groundwork): each :func:`drifting_mixture_stream` batch has a seeded
+    ``outlier_frac`` fraction of its points replaced by far-field outliers
+    at radius ~``outlier_scale`` in uniformly random directions -- the
+    contamination model under which the paper's k-median objective is the
+    robust choice. With ``burst_every > 0``, every ``burst_every``-th
+    batch is *fully* adversarial (all points outliers), simulating a
+    compromised or faulty site feeding garbage between aggregation rounds
+    -- the stream-under-faults scenario the WAN runtime tests exercise.
+    Deterministic in ``seed`` (contamination draws are independent of the
+    base stream's, so the clean and contaminated streams share their
+    inlier points batch for batch)."""
+    if not 0.0 <= outlier_frac <= 1.0:
+        raise ValueError(f"outlier_frac must be in [0, 1], got "
+                         f"{outlier_frac}")
+    rng = np.random.default_rng((seed, 0xB4D))
+    base = drifting_mixture_stream(n_batches, batch_size, d=d, k=k,
+                                   drift=drift, sigma=sigma, seed=seed)
+    for b, pts in enumerate(base):
+        full_burst = burst_every > 0 and (b + 1) % burst_every == 0
+        n_out = batch_size if full_burst else int(
+            round(outlier_frac * batch_size))
+        if n_out:
+            idx = rng.choice(batch_size, size=n_out, replace=False)
+            dirs = rng.standard_normal((n_out, d))
+            dirs /= np.maximum(np.linalg.norm(dirs, axis=1, keepdims=True),
+                               1e-12)
+            radii = outlier_scale * (1.0 + rng.random((n_out, 1)))
+            pts = pts.copy()
+            pts[idx] = (dirs * radii).astype(np.float32)
+        yield pts

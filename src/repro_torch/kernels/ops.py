@@ -32,7 +32,8 @@ with ``(S, k, d)`` centres -- and then serves all sites in ONE launch, as
   the kernel that served them (one-centre, resident tile, general tile).
 * **Query buckets.** :func:`query_bucket`, :func:`pad_queries` and
   :func:`chunk_queries` bound the shapes serving dispatches to powers of
-  two (DESIGN.md Sec. 9).
+  two (DESIGN.md Sec. 9); :func:`site_bucket_lengths` does the same for
+  the staged engine's per-site solves.
 """
 from __future__ import annotations
 
@@ -78,6 +79,16 @@ def pad_queries(points: torch.Tensor, min_bucket: int = 8,
             f"query batch of {n} rows exceeds max_bucket={max_bucket}; "
             f"split it with chunk_queries() instead")
     return torch.nn.functional.pad(points, (0, 0, 0, cap - n)), n
+
+
+def site_bucket_lengths(site_counts, max_len: int,
+                        min_bucket: int = 64) -> Tuple[int, ...]:
+    """Per-site padded solve lengths for the staged coreset engine: each
+    site's valid-point count rounded up to its :func:`query_bucket` power
+    of two, clamped at the lockstep pad length ``max_len``, so the set of
+    solve shapes stays O(log max_len)."""
+    return tuple(min(query_bucket(int(c), min_bucket=min_bucket),
+                     int(max_len)) for c in site_counts)
 
 
 def chunk_queries(points: torch.Tensor, min_bucket: int = 8,
@@ -191,3 +202,16 @@ def weiszfeld_stats(points: torch.Tensor, centers: torch.Tensor,
         _wz.weiszfeld_stats, ref.weiszfeld_stats_ref,
         lambda p, c, w, md, am: ref.weiszfeld_reduce(p, c, w, am),
         _wz.fits, points, centers, weights)
+
+
+def lloyd_step(points: torch.Tensor, centers: torch.Tensor,
+               weights: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One full weighted Lloyd iteration through :func:`lloyd_stats`:
+    ``(new centres (..., k, d), cost (...))``. Clusters with total weight
+    <= 1e-12 keep their previous centre."""
+    sums, counts, cost = lloyd_stats(points, centers, weights)
+    eps = 1e-12
+    new = sums / torch.where(counts > eps, counts, 1.0).unsqueeze(-1)
+    new = torch.where((counts > eps).unsqueeze(-1), new, centers.float())
+    return new.to(centers.dtype), cost

@@ -207,6 +207,9 @@ class ClusterServeEngine:
                                            source)
         return tenant_id
 
+    def tenant_ids(self) -> Tuple[int, ...]:
+        return tuple(self._tenants)
+
     # -- admission queue -----------------------------------------------------
 
     def enqueue(self, tenant_id: int, points) -> QueryTicket:

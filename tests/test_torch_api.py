@@ -19,11 +19,6 @@ from repro_torch.core import backend, clustering, strategy
 MODULES = ("backend", "baselines", "clustering", "comm", "coreset",
            "distributed", "message_passing", "objective", "partition",
            "strategy", "topology")
-# graph_distributed_kmeans (and its alias) take the reference's faults,
-# wan_mode, wan_seed and wan_p with engine="async", which is not ported yet
-# (ROADMAP A6); the port's strategy sits where the reference has faults
-NOT_YET = {("distributed", "graph_distributed_kmeans"),
-           ("distributed", "distributed_kmeans")}
 
 
 def _shared_functions():
@@ -34,8 +29,7 @@ def _shared_functions():
             f, g = getattr(port, name), getattr(ref, name, None)
             if (name.startswith("_") or not inspect.isfunction(f)
                     or not inspect.isfunction(g)
-                    or f.__module__ != port.__name__
-                    or (mod, name) in NOT_YET):
+                    or f.__module__ != port.__name__):
                 continue
             yield mod, name
 
@@ -45,9 +39,14 @@ SHARED = list(_shared_functions())
 
 def test_the_clustering_names_are_all_held():
     names = {n for m, n in SHARED if m == "clustering"}
-    assert names >= {"cost", "kmeans_pp_init", "lloyd", "lloyd_stats",
-                     "min_dist_argmin", "point_costs", "solve"}
-    assert ("message_passing", "flood_exec") in SHARED
+    assert names >= {"cost", "kmeans_pp_init", "lloyd", "lloyd_converged",
+                     "lloyd_stats", "min_dist_argmin", "pairwise_sq_dists",
+                     "point_costs", "solve", "weiszfeld_stats"}
+    assert {("message_passing", "flood_exec"),
+            ("distributed", "graph_distributed_kmeans"),
+            ("distributed", "distributed_kmeans"),
+            ("coreset", "staged_distributed_coreset"),
+            ("coreset", "merge_coresets")} <= set(SHARED)
 
 
 @pytest.mark.parametrize("mod,name", SHARED,
@@ -60,6 +59,80 @@ def test_parameters_are_the_references_in_order(mod, name):
     theirs = list(inspect.signature(ref).parameters)
     ours = list(inspect.signature(port).parameters)
     assert ours[:len(theirs)] == theirs, (ours, theirs)
+
+
+def test_graph_distributed_kmeans_takes_the_references_full_prefix():
+    """faults, wan_mode, wan_seed and wan_p sit where the reference has
+    them, strategy after them, the port's device and phase_times last."""
+    from repro.core import distributed as jdistributed
+    from repro_torch.core import distributed
+    for name in ("graph_distributed_kmeans", "distributed_kmeans"):
+        ours = list(inspect.signature(getattr(distributed, name)).parameters)
+        theirs = list(inspect.signature(
+            getattr(jdistributed, name)).parameters)
+        assert ours == theirs + ["device", "phase_times"]
+        assert ours[12:17] == ["faults", "wan_mode", "wan_seed", "wan_p",
+                               "strategy"]
+
+
+@pytest.mark.parametrize("kw", [{"faults": object()},
+                                {"faults": object(), "engine": "exec"},
+                                {"engine": "async"}],
+                         ids=["faults-sim", "faults-exec", "async"])
+def test_faults_and_async_raise_not_yet_ported(kw):
+    """The asynchronous WAN runtime is not ported: a faults plan (with any
+    engine) and engine="async" raise, naming ROADMAP A5, before any work."""
+    from repro_torch.core import distributed, prng, topology
+    g = topology.grid(2, 2)
+    sp = np.zeros((4, 8, 3), np.float32)
+    sm = np.ones((4, 8), bool)
+    with pytest.raises(ValueError, match="not yet ported.*ROADMAP A5"):
+        distributed.graph_distributed_kmeans(prng.PRNGKey(0), sp, sm, 2, 8,
+                                             g, device="cpu", **kw)
+
+
+# the stream package's public classes and their methods, against the
+# reference's (repro.stream)
+STREAM_CLASSES = ("TreeConfig", "CoresetTree", "StreamState",
+                  "AggregateResult", "DistributedStream",
+                  "ClusterQueryService", "ServiceStats")
+
+
+def _stream_methods():
+    import repro.stream as jstream
+    import repro_torch.stream as pstream
+    for cls in STREAM_CLASSES:
+        port, ref = getattr(pstream, cls), getattr(jstream, cls)
+        yield cls, "__init__"
+        for name, f in sorted(vars(port).items()):
+            if (not name.startswith("_") and inspect.isfunction(f)
+                    and inspect.isfunction(getattr(ref, name, None))):
+                yield cls, name
+
+
+STREAM_METHODS = list(_stream_methods())
+
+
+def test_every_stream_class_and_method_is_held():
+    assert {c for c, _ in STREAM_METHODS} == set(STREAM_CLASSES)
+    assert {("DistributedStream", "aggregate"), ("CoresetTree", "push"),
+            ("StreamState", "summary"), ("ClusterQueryService", "query"),
+            ("ClusterQueryService", "query_load")} <= set(STREAM_METHODS)
+
+
+@pytest.mark.parametrize("cls,name", STREAM_METHODS,
+                         ids=[f"{c}.{n}" for c, n in STREAM_METHODS])
+def test_stream_parameters_are_the_references_in_order(cls, name):
+    """Constructors and public methods of the stream classes take the
+    reference's parameters as a prefix (the port's device after them)."""
+    import repro.stream as jstream
+    import repro_torch.stream as pstream
+    ours = list(inspect.signature(
+        getattr(getattr(pstream, cls), name)).parameters)
+    theirs = list(inspect.signature(
+        getattr(getattr(jstream, cls), name)).parameters)
+    assert ours[:len(theirs)] == theirs, (ours, theirs)
+    assert set(ours[len(theirs):]) <= {"device"}, ours
 
 
 # -- chunk= and the torch_chunked backend ------------------------------------

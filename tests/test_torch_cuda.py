@@ -606,3 +606,100 @@ def test_cuda_resident_tile_at_the_sites_shape(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     assert all(torch.equal(a, b) for a, b in zip(first, general))
     assert float(first[0][:, 200:250].abs().max()) <= 1e-2
+
+
+# -- the staged engine and the stream service on the card -------------------
+
+def _staged_sites(n_sites=6, per=150, k=4, d=8, seed=0):
+    """The staged tests' instance: 4 tight clusters over 6 weighted sites."""
+    from repro_torch.core.partition import pad_partition, partition_indices
+    rng = np.random.default_rng(seed)
+    centers = 3.0 * rng.standard_normal((k, d))
+    pts = np.concatenate(
+        [centers[i] + 0.15 * rng.standard_normal((per, d)) for i in range(k)]
+    ).astype(np.float32)
+    idx = partition_indices(pts, n_sites, "weighted", seed=seed + 1)
+    return pad_partition(pts, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strat,obj", [("algorithm1", "kmeans"),
+                                       ("cohen_addad", "kmedian"),
+                                       ("mapreduce", "kmeans"),
+                                       ("algorithm1", "kmedian")])
+def test_cuda_staged_strict_equals_lockstep(cuda, strat, obj):
+    """Strict mode on the card: every field bit-equal to the lockstep
+    path, with each kernel launched once per site where lockstep launches
+    it once for all sites."""
+    from repro_torch.core import prng
+    from repro_torch.core.coreset import (distributed_coreset,
+                                          staged_distributed_coreset)
+    sp, sm = (torch.from_numpy(a).to(cuda) for a in _staged_sites())
+    key = prng.PRNGKey(0, device=cuda)
+
+    def launched(fn):
+        before = [kern.launches for kern in ops.KERNELS]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [kern.launches - b for kern, b in zip(ops.KERNELS,
+                                                          before)]
+
+    base, n_base = launched(lambda: distributed_coreset(
+        key, sp, sm, 4, 200, objective=obj, strategy=strat,
+        backend="cuda", device=cuda))
+    (staged, detail), n_staged = launched(
+        lambda: staged_distributed_coreset(
+            key, sp, sm, 4, 200, objective=obj, strategy=strat,
+            backend="cuda", device=cuda))
+    for f in ("points", "weights", "t_i", "local_costs"):
+        assert torch.equal(getattr(base, f), getattr(staged, f)), f
+    assert n_staged == [sp.shape[0] * n for n in n_base]
+    assert (detail.iters_run == 5).all() and detail.host_reads == 0
+
+
+@pytest.mark.cuda
+def test_cuda_lloyd_converged_strict_equals_lloyd(cuda):
+    from repro_torch.core import clustering
+    g = torch.Generator(device="cpu").manual_seed(3)
+    pts = torch.randn(2000, 90, generator=g).to(cuda)
+    init = pts[:50].clone()
+    ref_c, _ = clustering.lloyd(pts, init, iters=6, backend="cuda",
+                                device=cuda)
+    out, runs = clustering.lloyd_converged(pts, init, iters=6, tol=0.0,
+                                           backend="cuda", device=cuda)
+    assert torch.equal(out, ref_c) and int(runs) == 6
+    out, runs = clustering.lloyd_converged(pts, init, iters=50, tol=1e-3,
+                                           backend="cuda", device=cuda)
+    assert 1 <= int(runs) <= 50 and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_cuda_service_answers_equal_query_assignments(cuda):
+    """ClusterQueryService on the card: every answer bit-equal to
+    query_assignments with the service's cached centres, through the
+    batched kernel; query_load's counts equal the plain lloyd_stats
+    counts."""
+    from repro_torch.core.backend import query_assignments
+    from repro_torch.data.synthetic import drifting_mixture_stream
+    from repro_torch.stream import (ClusterQueryService, StreamState,
+                                    TreeConfig)
+    cfg = TreeConfig(k=8, t=200, d=16, batch_size=1024, levels=8)
+    state = StreamState(cfg, device=cuda)
+    for b in drifting_mixture_stream(5, 1000, d=16, k=8, seed=1):
+        state.push(b)
+    svc = ClusterQueryService(state, k=8, staleness_frac=0.1,
+                              max_bucket=256, backend="cuda")
+    rng = np.random.default_rng(2)
+    before = da_mod.KERNEL_BATCHED.launches
+    for m in (8, 100, 256, 700):
+        q = rng.standard_normal((m, 16)).astype(np.float32)
+        assign, dist = svc.query(q)
+        a, d = query_assignments(torch.from_numpy(q).to(cuda),
+                                 svc.cached_centers(), backend="cuda",
+                                 device=cuda)
+        assert torch.equal(assign, a) and torch.equal(dist, d)
+        load = svc.query_load(q)
+        _, counts, _ = ref.lloyd_stats_ref(torch.from_numpy(q).to(cuda),
+                                           svc.cached_centers())
+        assert torch.equal(load, counts)
+    assert da_mod.KERNEL_BATCHED.launches > before
