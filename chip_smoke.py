@@ -112,10 +112,22 @@ Phases (any failed check raises, and the script exits non-zero):
    ``DistributedStream`` on ``grid(5, 5)`` with two resample rounds on
    sim / exec x flood / BFS tree (exec bit-equal to sim, ledgers by phase)
    and a forced union round (the analytic ledger, the data's mass).
+11. The SPMD mesh path (``spmd_distributed_kmeans`` on ranks spawned by
+   ``repro_torch.core.mesh.launch``) on phase 3's sites and budget, the
+   ranks sharing the card over gloo with host staging: W = 4 (25 sites
+   merged per rank; k-means under the three collectives and a rerun,
+   k-median under two, mapreduce) and W = 10 (k-means under the three and
+   a rerun), then W = 1 on nccl against gloo, and an NCCL group of 2 ranks
+   on the one card (its refusal printed). Modes, reruns and ranks
+   bit-identical; t_i the host allocation of the gathered costs; cost
+   ratios; launches and staged bytes per rank as predicted; the kernels
+   held to their plain versions at one rank's merged-site shape. Per rank:
+   the walls of each round and gather, bytes received, hops, staged bytes,
+   peak memory.
 
 It prints a ``{"kernels": [...]}`` line (each entry also with its launches
-on phases 9 and 10), the card's name and power limit, and last ``{"ok":
-true, "device": {...}}``.
+on phases 9, 10 and 11), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1274,6 +1286,305 @@ def phase7_spread(seed, dev, pts, sp, sm, g, k, t, ratio, solve, spread):
           f"of {len(rows)} keys; {time.perf_counter() - t0:.1f} s")
 
 
+# the SPMD runs of phase 11, per world size W: (label, keyword arguments
+# of spmd_distributed_kmeans); the runs of one objective must agree bit for
+# bit, and each W's all-gather reruns after the ring and the torus, warm
+SPMD_RUNS = {
+    4: [("kmeans all_gather", {}),
+        ("kmeans neighbor_rounds", {"collectives": "neighbor_rounds"}),
+        ("kmeans torus_2d", {"collectives": "torus_2d"}),
+        ("kmeans all_gather rerun", {}),
+        ("kmedian all_gather", {"objective": "kmedian"}),
+        ("kmedian torus_2d", {"objective": "kmedian",
+                              "collectives": "torus_2d"}),
+        ("mapreduce all_gather", {"strategy": "mapreduce"})],
+    10: [("kmeans all_gather", {}),
+         ("kmeans neighbor_rounds", {"collectives": "neighbor_rounds"}),
+         ("kmeans torus_2d", {"collectives": "torus_2d"}),
+         ("kmeans all_gather rerun", {})],
+    1: [("kmeans all_gather", {})],
+}
+# the mesh's phases, in order, as spmd_distributed_kmeans records them
+SPMD_PHASES = ("round1", "round1_gather", "sample", "round2_gather",
+               "solve", "output_gather")
+
+
+def phase11_rank(mesh, spec):
+    """One rank of phase 11 (run by ``repro_torch.core.mesh.launch`` in a
+    spawned process): every run of ``SPMD_RUNS[spec["world"]]`` on the
+    global sites memory-mapped from ``spec["points"]`` / ``spec["mask"]``,
+    each with every launch count from zero just before it and read just
+    after. The kernels were built by the parent: a rank loads the
+    libraries ``spec["libraries"]`` and never builds. Returns host values."""
+    # a spawned process starts with PyTorch's defaults: TF32 off here too
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import prng
+    from repro_torch.core.distributed import spmd_distributed_kmeans
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import distance_argmin as da
+    missing = [p for p in spec["libraries"] if not os.path.exists(p)]
+    if missing:
+        raise FileNotFoundError(f"rank {mesh.rank}: kernels not built: "
+                                f"{missing}")
+    cuda = mesh.device.type == "cuda"
+    sp = np.load(spec["points"], mmap_mode="r")
+    sm = np.load(spec["mask"], mmap_mode="r")
+    out = []
+    for label, kw in SPMD_RUNS[spec["world"]]:
+        for kern in (*ops.KERNELS, *da.ROUTES):
+            kern.launches = 0
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        staged = mesh.staged_bytes
+        times = {}
+        t0 = time.perf_counter()
+        c, lc, t_i = spmd_distributed_kmeans(
+            mesh, "sites", prng.PRNGKey(spec["seed"], device=mesh.device),
+            sp, sm, spec["k"], spec["t"], lloyd_iters=spec["lloyd_iters"],
+            phase_times=times, **kw)
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+        wall = time.perf_counter() - t0
+        out.append({
+            "label": label, "centers": c.cpu().numpy(),
+            "local_costs": lc.cpu().numpy(), "t_i": t_i.cpu().numpy(),
+            "times": times, "wall": wall,
+            "launches": {kern.name: kern.launches for kern in ops.KERNELS},
+            "by_kernel": {kern.name: kern.launches for kern in da.ROUTES},
+            "staged": mesh.staged_bytes - staged,
+            "peak_gib": (torch.cuda.max_memory_allocated(mesh.device) / 2**30
+                         if cuda else 0.0)})
+    return out
+
+
+def staged_bytes(kw, world, t_buffer, k, d, backend, dev):
+    """The bytes one rank stages through pinned host memory in one run
+    (both ways): a gloo all-gather copies its payload out and the W
+    gathered ones back; a ring or torus hop copies its buffer out and the
+    received one back. The payloads: the Round-1 scalar (unless the
+    strategy exchanges none), the Round-2 portion's points and weights, and
+    the output gather's two scalars. nccl, and gloo on the CPU, stage
+    nothing."""
+    if backend != "gloo" or dev.type != "cuda":
+        return 0
+    rows = t_buffer + k
+    payloads = [4 * rows * d, 4 * rows]
+    if kw.get("strategy") != "mapreduce":
+        payloads.append(4)
+    mode = kw.get("collectives", "all_gather")
+    if mode == "all_gather":
+        per = lambda x: x * (1 + world)
+    elif mode == "neighbor_rounds":
+        per = lambda x: 2 * (world - 1) * x
+    else:
+        from repro_torch.core.message_passing import torus_mesh_shape
+        R, C = kw.get("mesh_shape") or torus_mesh_shape(world)
+        per = lambda x: 2 * (C - 1) * x + 2 * (R - 1) * C * x
+    return sum(per(x) for x in payloads) + 2 * 4 * (1 + world)
+
+
+def nccl_probe_rank(mesh):
+    """One rank of a gloo mesh that opens an NCCL group over the same ranks
+    (all on one GPU) and all-reduces one float through it; returns the
+    error NCCL gives, or None if it ran."""
+    import torch.distributed as dist
+    try:
+        group = dist.new_group(backend="nccl")
+        x = torch.ones(1, device=mesh.device)
+        dist.all_reduce(x, group=group)
+        torch.cuda.synchronize(mesh.device)
+    except Exception as e:   # the error is what this probe reads
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def phase11(seed, dev, pts, sp, sm, k, t, base_km, base_md, libraries,
+            digests, checks):
+    """The SPMD mesh path (``spmd_distributed_kmeans`` through
+    ``repro_torch.core.mesh.launch``) at full width: phase 3's sites ``sp``
+    / ``sm`` (host arrays, 100 sites of the full data ``pts``), budget
+    ``t``, 8 Lloyd steps, W ranks sharing the card ``dev`` over gloo with
+    host staging: W = 4 (25 sites merged per rank) and W = 10 (10 per
+    rank) under the runs of ``SPMD_RUNS``, then W = 1 on gloo and on nccl
+    (bit-equal) and a probe of an NCCL group of 2 ranks on the one card
+    (its error printed). Checks, any failure
+    fatal: within each W the k-means runs (modes, rerun) and the k-median
+    runs bit-identical; every rank's outputs bit-equal to rank 0's; t_i the
+    host allocation of the gathered costs, sum t, within the default
+    buffer, uniform under mapreduce; the cost ratio of the centres against
+    ``base_km`` / ``base_md`` (phases 3 and 5) below MAX_COST_RATIO;
+    launches per kernel per rank as the path predicts. ``checks`` holds
+    phase 2's kernel checks, run here at one rank's merged-site shape.
+    ``libraries`` are the built kernels' paths. Adds digests; returns the
+    launches of rank 0 over the W = 4 k-means and k-median all_gather
+    runs (per entry and by kernel)."""
+    import tempfile
+    from repro_torch.core import clustering
+    from repro_torch.core.coreset import proportional_allocation
+    from repro_torch.core.mesh import launch
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    n_sites, M, d = sp.shape
+    print(f"phase 11: the SPMD mesh path, {n_sites} sites (M={M}) merged "
+          f"per rank, t={t}, ranks sharing {dev} over gloo (host staging)")
+    # the kernels at one rank's merged-site shape (W = 4: 25 sites)
+    p = torch.from_numpy(sp[:n_sites // 4]).to(dev).reshape(1, -1, d)
+    w = torch.from_numpy(sm[:n_sites // 4]).to(dev).reshape(1, -1).float()
+    c = checks["rows"](p, k)
+    checks["one_center"]("merged site seeding", p, checks["rows"](p, 1))
+    checks["distance"]("merged site", p, c)
+    checks["lloyd"]("merged site", p, c, w)
+    checks["weiszfeld"]("merged site", p, c, w)
+    digests["distance_argmin[merged site]"] = digest(
+        *ops.min_dist_argmin(p, c))
+    digests["lloyd_stats[merged site]"] = digest(*ops.lloyd_stats(p, c, w))
+    digests["weiszfeld_stats[merged site]"] = digest(
+        *ops.weiszfeld_stats(p, c, w))
+    del p, w, c
+
+    def predicted(kw):
+        """Launches per rank of one run: D^z seeding (k one-centre launches)
+        in Round 1 and in the final solve, one sensitivity pass on the
+        resident tile, and 8 + 10 update steps (WEISZFELD_ITERS passes each
+        for k-median)."""
+        from repro_torch.core.objective import WEISZFELD_ITERS
+        steps = 8 + 10
+        kmedian = kw.get("objective") == "kmedian"
+        return ({"distance_argmin": 2 * k + 1,
+                 "lloyd_stats": 0 if kmedian else steps,
+                 "weiszfeld_stats": WEISZFELD_ITERS * steps if kmedian
+                 else 0, "distance_argmin_batched": 0},
+                {"distance_one_center": 2 * k,
+                 "distance_argmin_resident": 1, "distance_argmin_tile": 0})
+
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="phase11-") as tmp:
+        spec = {"seed": seed, "k": k, "t": t, "lloyd_iters": 8,
+                "libraries": libraries,
+                "points": os.path.join(tmp, "sites.npy"),
+                "mask": os.path.join(tmp, "mask.npy")}
+        np.save(spec["points"], sp)
+        np.save(spec["mask"], sm)
+        results = {}
+        for world, backend in ((4, "gloo"), (10, "gloo"), (1, "gloo"),
+                               (1, "nccl")):
+            t0 = time.perf_counter()
+            ranks = launch("chip_smoke:phase11_rank", world,
+                           (dict(spec, world=world),), backend=backend,
+                           device=dev, timeout=300)
+            launch_wall = time.perf_counter() - t0
+            results[(world, backend)] = ranks
+            runs = SPMD_RUNS[world]
+            buffer = max(4 * t // world, 64)
+            print(f"  W={world} {backend}: {len(runs)} runs in "
+                  f"{launch_wall:.1f} s of launch wall (spawn, data, runs); "
+                  f"{n_sites // world} sites = {n_sites // world * M} rows "
+                  f"per rank, t_buffer {buffer}, union "
+                  f"{world * (buffer + k)} rows")
+            for j, (label, kw) in enumerate(runs):
+                what = f"phase 11 W={world} {backend} {label}"
+                r0 = ranks[0][j]
+                for r, rank in enumerate(ranks):
+                    got = rank[j]
+                    for f in ("centers", "local_costs", "t_i"):
+                        check(got[f].tobytes() == r0[f].tobytes(),
+                              f"{what}: rank {r}'s {f} differ from rank 0's")
+                    want, want_by = predicted(kw)
+                    want_staged = staged_bytes(kw, world, buffer, k, d,
+                                               backend, dev)
+                    check(got["staged"] == want_staged,
+                          f"{what}: rank {r} staged {got['staged']} bytes, "
+                          f"expected {want_staged}")
+                    check(got["launches"] == want
+                          and got["by_kernel"] == want_by,
+                          f"{what}: rank {r} launched {got['launches']} "
+                          f"{got['by_kernel']}, expected {want} {want_by}")
+                t_i, lc = r0["t_i"], r0["local_costs"]
+                if kw.get("strategy") == "mapreduce":
+                    host = proportional_allocation(torch.ones(world), t)
+                else:
+                    host = proportional_allocation(torch.from_numpy(lc), t)
+                check(np.array_equal(t_i, host.numpy())
+                      and int(t_i.sum()) == t and (t_i <= buffer).all(),
+                      f"{what}: t_i {t_i.tolist()}, host allocation "
+                      f"{host.tolist()}, buffer {buffer}")
+                objective = kw.get("objective", "kmeans")
+                base = base_md if objective == "kmedian" else base_km
+                ratio = float(clustering.cost(
+                    pts, torch.from_numpy(r0["centers"]).to(dev),
+                    objective=objective, device=dev)) / base
+                check(np.isfinite(r0["centers"]).all()
+                      and r0["centers"].shape == (k, d)
+                      and ratio < MAX_COST_RATIO,
+                      f"{what}: cost ratio {ratio}")
+                digests[f"spmd W={world} {backend} {label}"] = digest(
+                    torch.from_numpy(r0["centers"]))
+                per_rank = {name: [round(rank[j]["times"][name], 4)
+                                   for rank in ranks]
+                            for name in SPMD_PHASES}
+                per_rank["wall"] = [round(rank[j]["wall"], 4)
+                                    for rank in ranks]
+                per_rank["peak_gib"] = [round(rank[j]["peak_gib"], 3)
+                                        for rank in ranks]
+                tm = r0["times"]
+                print(f"  {label}: cost ratio {ratio:.6f}, t_i "
+                      f"{t_i.tolist()}; ranks "
+                      f"bit-equal; launches per rank {json.dumps(r0['launches'])}"
+                      f"; bytes received: round 1 "
+                      f"{tm.get('round1_gather_bytes', 0)}, round 2 "
+                      f"{tm['round2_gather_bytes']}, output "
+                      f"{tm['output_gather_bytes']}; {tm['gathers']} gathers "
+                      f"of {tm['hops']} hops; staged host bytes per rank "
+                      f"{[rank[j]['staged'] for rank in ranks]}; per rank (s) "
+                      f"{json.dumps(per_rank)}")
+                if world == 4 and label in ("kmeans all_gather",
+                                            "kmedian all_gather"):
+                    for name, v in (*r0["launches"].items(),
+                                    *r0["by_kernel"].items()):
+                        total[name] = total.get(name, 0) + v
+            # within W, each objective's runs agree bit for bit
+            for objective in ("kmeans", "kmedian"):
+                same = [j for j, (label, _) in enumerate(runs)
+                        if label.startswith(objective + " ")]
+                for j in same[1:]:
+                    for f in ("centers", "local_costs", "t_i"):
+                        check(ranks[0][j][f].tobytes()
+                              == ranks[0][same[0]][f].tobytes(),
+                              f"phase 11 W={world}: {runs[j][0]} {f} differ "
+                              f"from {runs[same[0]][0]}")
+                if len(same) > 1:
+                    print(f"  W={world} {objective}: "
+                          f"{', '.join(runs[j][0] for j in same)} bit-equal")
+        a, b = results[(1, "gloo")][0][0], results[(1, "nccl")][0][0]
+        check(all(a[f].tobytes() == b[f].tobytes()
+                  for f in ("centers", "local_costs", "t_i")),
+              "phase 11 W=1: nccl and gloo results differ")
+        print("  W=1: nccl and gloo results bit-equal")
+        refused = None
+        try:
+            launch("chip_smoke:nccl_probe_rank", 2, backend="nccl",
+                   device="cuda:0")
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None,
+              "phase 11: the launcher ran a nccl mesh of 2 ranks on cuda:0")
+        print(f"  a nccl mesh of 2 ranks on cuda:0: the launcher refuses: "
+              f"{refused}")
+        try:
+            errs = launch("chip_smoke:nccl_probe_rank", 2,
+                          device="cuda:0", timeout=120)
+            print(f"  an NCCL group of 2 ranks on cuda:0: "
+                  f"{json.dumps(errs)}")
+        except RuntimeError as e:     # the probe's ranks may not return
+            print(f"  an NCCL group of 2 ranks on cuda:0: the probe's "
+                  f"launch failed: {str(e)[-600:]}")
+    print(f"  phase 11 wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2290,6 +2601,10 @@ def main(argv=None) -> int:
         args.seed, dev, data, data_s, pts, k, sites25, base_cost,
         (reset_counts, counts, route_counts), digests, checks)
     lap("phase 10")
+    new_paths["phase 11"] = phase11(
+        args.seed, dev, pts, sp_np, sm_np, k, t, base_cost, base_md,
+        [str(r.path) for r in built.values()], digests, checks)
+    lap("phase 11")
     for phase, got in new_paths.items():
         for name in ("distance_argmin", "lloyd_stats", "weiszfeld_stats",
                      da.ONE_CENTER.name):
@@ -2335,8 +2650,9 @@ def main(argv=None) -> int:
          "bound_ms": db[64][3], "bound_by": db[64][4],
          "library_ms": db[64][2]},
     ]
-    # each kernel's launches on the staged (phase 9) and streaming (phase
-    # 10) paths, counted from zero around every run of those phases
+    # each kernel's launches on the staged (phase 9), streaming (phase 10)
+    # and SPMD (phase 11: rank 0 of W = 4, k-means and k-median) paths,
+    # counted from zero around every run of those phases
     for entry, name in zip(kernels, (da.ONE_CENTER.name, "distance_argmin",
                                      "lloyd_stats", "weiszfeld_stats",
                                      "distance_argmin_batched")):

@@ -18,7 +18,13 @@ paths of ``repro.core.distributed``).
   (Theorem 3 accounting: everything moves O(h) edges), with the same
   ``engine="sim"|"exec"`` choice (gather / scatter / broadcast schedules).
 
-The JAX package's asynchronous (WAN) and SPMD engines are not ported yet:
+* :func:`spmd_distributed_kmeans` -- the SPMD mesh path: one rank per
+  device of a mesh axis (:mod:`repro_torch.core.mesh`), each holding one
+  merged site; exactly two gathers (the Round-1 cost scalars, the Round-2
+  portions) under ``collectives="all_gather"``, ``"neighbor_rounds"`` or
+  ``"torus_2d"``, bit-identical across the three.
+
+The JAX package's asynchronous (WAN) engine is not ported yet:
 ``engine="async"`` and ``faults=`` raise.
 """
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 
 from repro_torch.core import backend as backend_mod
 from repro_torch.core import clustering
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core import objective as objective_mod
 from repro_torch.core import prng
 from repro_torch.core import strategy as strategy_mod
@@ -39,11 +46,16 @@ from repro_torch.core.comm import (CommLedger, flood_cost,
                                    flood_portions_cost,
                                    tree_allocation_cost,
                                    tree_broadcast_cost, tree_up_cost)
-from repro_torch.core.coreset import (Coreset, _phase, _windowed_sum,
-                                      distributed_coreset)
+from repro_torch.core.coreset import (Coreset, _phase, _sample_and_weight,
+                                      _windowed_sum, distributed_coreset)
+from repro_torch.core.mesh import Mesh
 from repro_torch.core.message_passing import (ExecResult, GossipSchedule,
-                                              TreeSchedule, flood_exec,
-                                              gossip_schedule, pack_payload,
+                                              TreeSchedule, collective_hops,
+                                              flood_exec, gossip_schedule,
+                                              neighbor_rounds_gather,
+                                              pack_payload,
+                                              torus_mesh_shape,
+                                              torus_rounds_gather,
                                               tree_broadcast_exec,
                                               tree_gather_exec,
                                               tree_scatter_exec,
@@ -499,3 +511,228 @@ def _tree_exec(key, site_points, site_mask, k, t, tree, objective,
                         node_totals=node_totals, rounds=rounds)
     return ClusteringResult(centers, cs, ledger, local_costs,
                             exec_detail=detail)
+
+
+# ---------------------------------------------------------------------------
+# SPMD / mesh path (production): one rank per device of a mesh axis
+# ---------------------------------------------------------------------------
+
+COLLECTIVES = ("all_gather", "neighbor_rounds", "torus_2d")
+
+
+def spmd_distributed_kmeans_fn(
+    axis_name: str,
+    axis_size: int,
+    k: int,
+    t: int,
+    t_buffer: int,
+    objective: ObjectiveLike = "kmeans",
+    lloyd_iters: int = 8,
+    final_lloyd_iters: int = 10,
+    backend: BackendLike = None,
+    collectives: str = "all_gather",
+    strategy: StrategyLike = None,
+    mesh_shape: Optional[Tuple[int, int]] = None,
+):
+    """Build the per-rank function of Algorithm 1 + 2 on a mesh axis:
+    ``per_device(key, pts, mask, phase_times=None) -> (centers (k, d),
+    local_cost (1,), t_local (1,))``, run inside ``with mesh:`` on every
+    rank of ``axis_name``.
+
+    Each rank holds one site's (M, d) shard and mask (the mesh wrapper
+    merges several site blocks per rank into one). Cross-rank traffic is
+    exactly one gather of the ``axis_size`` Round-1 cost scalars and one
+    gather of the fixed-size local portions (Round 2): the paper's
+    protocol on collectives. ``collectives`` picks the schedule:
+    ``"all_gather"`` (one collective of the group), ``"neighbor_rounds"``
+    (the ring of Algorithm 3,
+    :func:`~repro_torch.core.message_passing.neighbor_rounds_gather`) or
+    ``"torus_2d"`` (a row phase then a column phase on an (R, C) folding,
+    :func:`~repro_torch.core.message_passing.torus_rounds_gather`;
+    ``mesh_shape`` defaults to the most-square folding). Every schedule
+    relays each buffer's bytes unchanged and the consumer code is the
+    same, so the three give bit-identical results. The cost total is
+    reduced from the gathered vector, never by a ring sum, whose order
+    would differ from rank to rank.
+
+    Gathering the scalars lets every rank run the exact largest-remainder
+    allocation of the host path, so ``sum_i t_i == t`` here too; ``t_local``
+    is not clamped to ``t_buffer`` (the draws are truncated at the buffer
+    while the weight formula keeps the full allocation), as on the host.
+
+    ``phase_times``, when a dict, receives the walls (s) of ``"round1"``
+    (the local solve and sensitivities), ``"round1_gather"`` (the scalar
+    gather and the allocation), ``"sample"``, ``"round2_gather"`` and
+    ``"solve"``, and ``"round1_gather_bytes"`` / ``"round2_gather_bytes"``:
+    the bytes this rank received in each round's gathers."""
+    objective = objective_mod.resolve_name(objective)
+    strat = strategy_mod.get_strategy(strategy_mod.resolve_name(strategy))
+    if collectives not in COLLECTIVES:
+        raise ValueError(f"unknown collectives {collectives!r}: expected "
+                         f"'all_gather'|'neighbor_rounds'|'torus_2d'")
+    if collectives == "torus_2d":
+        mesh_shape = (torus_mesh_shape(axis_size) if mesh_shape is None
+                      else tuple(mesh_shape))
+        if mesh_shape[0] * mesh_shape[1] != axis_size:
+            raise ValueError(f"mesh_shape {mesh_shape} does not tile "
+                             f"axis_size {axis_size}")
+    elif mesh_shape is not None:
+        raise ValueError("mesh_shape is only meaningful with "
+                         "collectives='torus_2d'")
+    obj = objective_mod.get_objective(objective)
+
+    def gather(x: torch.Tensor, times: Optional[dict], phase: str
+               ) -> torch.Tensor:
+        if collectives == "all_gather":
+            out = mesh_mod.axis(axis_name).all_gather(x)
+        elif collectives == "torus_2d":
+            out = torus_rounds_gather(x, axis_name, mesh_shape)
+        else:
+            out = neighbor_rounds_gather(x, axis_name, axis_size)
+        if times is not None:
+            name = f"{phase}_bytes"
+            times[name] = times.get(name, 0) + out.nbytes - x.nbytes
+        return out
+
+    def per_device(key: torch.Tensor, pts: torch.Tensor, mask: torch.Tensor,
+                   phase_times: Optional[dict] = None):
+        dev = pts.device
+        bname = backend_mod.resolve_name(backend, dev)
+        b = backend_mod.get_backend(bname, dev)
+        w = mask.to(pts.dtype)
+        site = mesh_mod.axis_index(axis_name)
+        ki = prng.fold_in(key, site)
+        k_solve, k_sample = prng.split(ki)
+
+        # Round 1: local solve + single-scalar communication
+        with _phase(phase_times, "round1", dev):
+            centers = clustering._kmeans_pp_init(k_solve[None], pts[None],
+                                                 w[None], k, obj, b)[0]
+            centers, _ = clustering._lloyd(pts, centers, w, lloyd_iters,
+                                           obj, b)
+            m, assign, w_eff = strat.site_sensitivities(
+                pts, centers, w, objective=objective, backend=bname)
+            local_cost = _windowed_sum(m)
+        with _phase(phase_times, "round1_gather", dev):
+            if strat.needs_exchange:
+                all_costs = gather(local_cost, phase_times, "round1_gather")
+                total_cost = _windowed_sum(all_costs)
+                # the host path's exact largest-remainder allocation,
+                # replicated on every rank
+                t_all = strat.allocate(all_costs, t)
+                t_local = t_all[site]
+                t_total = t_all.sum().to(pts.dtype)       # == t exactly
+            else:
+                # single shuffle: the uniform split is derivable on every
+                # rank, and the standalone weight formula uses the local
+                # scalar and share
+                t_all = strat.allocate(pts.new_ones((axis_size,)), t)
+                t_local = t_all[site]
+                total_cost = local_cost
+                t_total = t_local.to(pts.dtype)
+
+        with _phase(phase_times, "sample", dev):
+            sampled, w_s, w_b = _sample_and_weight(
+                k_sample[None], pts[None], m[None], w_eff[None],
+                assign[None], k, t_local[None], t_buffer,
+                total_cost[None], t_total[None])
+            portion_pts = torch.cat([sampled[0], centers], dim=0)
+            portion_w = torch.cat([w_s[0], w_b[0]], dim=0)
+
+        # Round 2: share the fixed-size portions
+        with _phase(phase_times, "round2_gather", dev):
+            cs_pts = gather(portion_pts, phase_times, "round2_gather")
+            cs_w = gather(portion_w, phase_times, "round2_gather")
+        cs_pts = cs_pts.reshape(-1, pts.shape[-1])
+        cs_w = cs_w.reshape(-1)
+
+        # every rank solves the identical weighted instance (replicated)
+        with _phase(phase_times, "solve", dev):
+            k_final = prng.fold_in(key, 0)
+            fc = clustering._kmeans_pp_init(
+                k_final[None], cs_pts[None],
+                torch.clamp_min(cs_w, 0.0)[None], k, obj, b)[0]
+            fc, _ = clustering._lloyd(cs_pts, fc, cs_w, final_lloyd_iters,
+                                      obj, b)
+        return fc, local_cost[None], t_local[None]
+
+    return per_device
+
+
+def spmd_distributed_kmeans(
+    mesh: Mesh,
+    axis_name: str,
+    key,
+    site_points,   # (n_sites, M, d): every rank passes the global arrays
+    site_mask,
+    k: int,
+    t: int,
+    t_buffer: Optional[int] = None,
+    objective: ObjectiveLike = "kmeans",
+    lloyd_iters: int = 8,
+    backend: BackendLike = None,
+    collectives: str = "all_gather",
+    strategy: StrategyLike = None,
+    mesh_shape: Optional[Tuple[int, int]] = None,
+    device: DeviceLike = None,
+    phase_times: Optional[dict] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run the SPMD path on this rank of ``mesh`` (call it on every rank,
+    e.g. through :func:`repro_torch.core.mesh.launch`). Returns (centers
+    (k, d), local_costs (axis_size,), t_i (axis_size,)) on every rank;
+    ``t_i`` are the per-site sample allocations, ``sum(t_i) == t`` exactly.
+
+    Each rank moves only its block of ``n_sites / axis_size`` sites to its
+    device and merges them into one site, so ``axis_size`` sites take part
+    in the allocation; the default ``t_buffer`` is therefore sized off
+    ``axis_size`` (``max(4 t // axis_size, 64)``). The outputs are
+    gathered after the protocol's two rounds (the reference's
+    ``out_specs``), which is one more collective outside the protocol.
+
+    ``device`` is the rank's device and must be the mesh's (the default).
+    ``phase_times``, when a dict, receives what
+    :func:`spmd_distributed_kmeans_fn` records, plus the wall and bytes of
+    ``"output_gather"``, ``"hops"`` (sequential hops of one gather,
+    :func:`~repro_torch.core.message_passing.collective_hops`),
+    ``"gathers"`` (gathers in the protocol) and ``"staged_bytes"`` (bytes
+    the call staged through host memory, both ways)."""
+    if axis_name != mesh.axis_name:
+        raise ValueError(f"axis {axis_name!r} is not the mesh's axis "
+                         f"{mesh.axis_name!r}")
+    dev = mesh.device if device is None else torch.device(device)
+    if dev != mesh.device:
+        raise ValueError(f"device {dev} is not the mesh's device "
+                         f"{mesh.device}")
+    n_sites = site_points.shape[0]
+    axis_size = mesh.shape[axis_name]
+    if n_sites % axis_size:
+        raise ValueError(f"n_sites={n_sites} must divide over {axis_name}="
+                         f"{axis_size}")
+    t_buffer = t_buffer if t_buffer is not None else max(
+        4 * t // max(axis_size, 1), 64)
+    fn = spmd_distributed_kmeans_fn(axis_name, axis_size, k, t, t_buffer,
+                                    objective, lloyd_iters, backend=backend,
+                                    collectives=collectives,
+                                    strategy=strategy, mesh_shape=mesh_shape)
+    block = n_sites // axis_size
+    lo = mesh.rank * block
+    d = site_points.shape[-1]
+    pts = as_tensor(site_points[lo:lo + block], dev).reshape(-1, d)
+    mask = as_tensor(site_mask[lo:lo + block], dev).reshape(-1)
+    staged0 = mesh.staged_bytes
+    with mesh:
+        centers, local_cost, t_local = fn(as_tensor(key, dev), pts, mask,
+                                          phase_times=phase_times)
+        with _phase(phase_times, "output_gather", dev):
+            local_costs = mesh.all_gather(local_cost).reshape(-1)
+            t_i = mesh.all_gather(t_local).reshape(-1)
+    if phase_times is not None:
+        phase_times["output_gather_bytes"] = (
+            local_costs.nbytes + t_i.nbytes
+            - local_cost.nbytes - t_local.nbytes)
+        phase_times["hops"] = collective_hops(collectives, axis_size,
+                                              mesh_shape)
+        exchange = strategy_mod.get_strategy(strategy).needs_exchange
+        phase_times["gathers"] = 3 if exchange else 2
+        phase_times["staged_bytes"] = mesh.staged_bytes - staged0
+    return centers, local_costs, t_i

@@ -1,0 +1,266 @@
+"""SPMD meshes over ``torch.distributed``: the port's counterpart of
+``jax.make_mesh`` plus ``shard_map`` for one named axis.
+
+The JAX package runs its SPMD path (``spmd_distributed_kmeans`` and the
+ring / 2-D torus collectives of ``message_passing``) as one program over
+the devices of a mesh axis. Here N processes play the N devices: each is
+one rank of a process group, and a :class:`Mesh` names that group's axis.
+
+* :class:`Mesh` -- the axis name, the group's backend, its size
+  (``shape[axis_name]``), this process's rank (``axis_index``) and the
+  device the rank computes on. ``with mesh:`` binds the axis name, so the
+  collectives find their group by name as ``shard_map`` code does;
+  :func:`axis` resolves a bound name.
+* **Transport.** ``nccl`` is for ranks that each own a distinct GPU.
+  ``gloo`` moves host buffers only: with CUDA tensors every collective and
+  every ring hop stages its buffer through pinned host memory explicitly,
+  one device-to-host and one host-to-device copy, and the mesh counts the
+  staged bytes (:attr:`Mesh.staged_bytes`). Ranks that share one GPU run
+  gloo; a ``nccl`` mesh whose ranks share a device raises, it never
+  switches transport on its own.
+* :func:`launch` -- start ``world_size`` ranks with the ``spawn`` start
+  method (a parent that has initialised CUDA cannot fork) and a
+  ``file://`` store in a temporary directory (no TCP port to collide), run
+  a function given by its importable name ``"module:function"`` on each as
+  ``fn(mesh, *args)``, and return every rank's result. It joins with a
+  timeout, kills the stragglers, and raises if any rank failed or timed
+  out.
+
+Every gathered or relayed buffer is copied byte for byte (memcpy, never
+arithmetic), so -0.0, inf and NaN arrive as they left.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import importlib
+import multiprocessing
+import os
+import queue as queue_mod
+import tempfile
+import threading
+import time
+import traceback
+from typing import Any, List, Sequence
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.backend import DeviceLike, resolve_device
+
+_BOUND = threading.local()
+
+
+@dataclasses.dataclass
+class Mesh:
+    """One named axis over the default process group, as seen from one
+    rank. ``staged_bytes`` counts the bytes a gloo mesh on a CUDA device
+    copied between the device and pinned host memory, both ways."""
+
+    axis_name: str
+    backend: str
+    size: int
+    rank: int
+    device: torch.device
+    staged_bytes: int = 0
+
+    @property
+    def shape(self) -> dict:
+        """``{axis_name: size}``, as ``jax.sharding.Mesh.shape``."""
+        return {self.axis_name: self.size}
+
+    @property
+    def staging(self) -> bool:
+        """Whether buffers cross pinned host memory (gloo on a GPU)."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def __enter__(self) -> "Mesh":
+        stack = getattr(_BOUND, "stack", None)
+        if stack is None:
+            stack = _BOUND.stack = []
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _BOUND.stack.pop()
+        return False
+
+    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as the transport takes it: a pinned host copy when
+        staging (counted), else ``x`` contiguous."""
+        if not self.staging:
+            return x.contiguous()
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        self.staged_bytes += host.nbytes
+        return host
+
+    def _wire_empty(self, shape, dtype) -> torch.Tensor:
+        if self.staging:
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        return torch.empty(shape, dtype=dtype, device=self.device)
+
+    def _unwire(self, host: torch.Tensor) -> torch.Tensor:
+        if not self.staging:
+            return host
+        self.staged_bytes += host.nbytes
+        return host.to(self.device)
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``(size, *x.shape)``: every rank's ``x`` in rank order (one
+        collective)."""
+        send = self._wire(x)
+        out = self._wire_empty((self.size,) + tuple(x.shape), x.dtype)
+        dist.all_gather(list(out.unbind(0)), send)
+        return self._unwire(out)
+
+    def hop(self, buf: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+        """One hop of a ring: send ``buf`` to axis index ``dst`` and return
+        what axis index ``src`` sent, as one non-blocking send / receive
+        pair with both ends waited on (a ring of blocking sends can
+        deadlock)."""
+        send = self._wire(buf)
+        recv = self._wire_empty(tuple(buf.shape), buf.dtype)
+        ops = [dist.P2POp(dist.isend, send, dst),
+               dist.P2POp(dist.irecv, recv, src)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return self._unwire(recv)
+
+
+def axis(axis_name: str) -> Mesh:
+    """The innermost bound mesh (``with mesh:``) whose axis is
+    ``axis_name``; raises if none is."""
+    for mesh in reversed(getattr(_BOUND, "stack", [])):
+        if mesh.axis_name == axis_name:
+            return mesh
+    raise ValueError(f"mesh axis {axis_name!r} is not bound in this process: "
+                     f"run inside `with mesh:` (launch() binds it)")
+
+
+def axis_index(axis_name: str) -> int:
+    """This rank's index along ``axis_name`` (``jax.lax.axis_index``)."""
+    return axis(axis_name).rank
+
+
+def _rank_devices(world_size: int, backend: str,
+                  device: DeviceLike) -> List[torch.device]:
+    """Each rank's device: ``device`` for all, or with no index (or
+    ``None``: CUDA) ``cuda:{rank % device_count}``. A nccl mesh needs one
+    distinct GPU per rank."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        count = torch.cuda.device_count()
+        devices = [torch.device("cuda", r % count) for r in range(world_size)]
+    else:
+        devices = [dev] * world_size
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError(f"a nccl mesh runs on CUDA devices, not {dev}")
+        if len(set(devices)) < world_size:
+            raise ValueError(
+                f"a nccl mesh needs one GPU per rank: {world_size} ranks "
+                f"on {sorted(set(map(str, devices)))} share a device; use "
+                f"backend='gloo' (staged through host memory) for ranks "
+                f"that share a GPU")
+    elif backend != "gloo":
+        raise ValueError(f"unknown mesh backend {backend!r}: expected "
+                         f"'gloo'|'nccl'")
+    return devices
+
+
+def _resolve(target: str):
+    module, _, name = target.partition(":")
+    if not module or not name:
+        raise ValueError(f"target {target!r} is not 'module:function'")
+    return getattr(importlib.import_module(module), name)
+
+
+def _rank_main(rank: int, spec: dict, results) -> None:
+    """One rank: join the group through the file store, bind the mesh, run
+    the target and report ``(rank, ok, result or traceback)``."""
+    try:
+        device = spec["devices"][rank]
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            spec["backend"], init_method=spec["init_method"],
+            world_size=spec["world_size"], rank=rank,
+            timeout=datetime.timedelta(seconds=spec["timeout"]))
+        try:
+            mesh = Mesh(spec["axis_name"], spec["backend"],
+                        spec["world_size"], rank, device)
+            fn = _resolve(spec["target"])
+            with mesh:
+                out = fn(mesh, *spec["args"])
+        finally:
+            dist.destroy_process_group()
+    except Exception:   # the rank's boundary: report, the parent raises
+        results.put((rank, False, traceback.format_exc()))
+        return
+    results.put((rank, True, out))
+
+
+def launch(target: str, world_size: int, args: Sequence = (), *,
+           axis_name: str = "sites", backend: str = "gloo",
+           device: DeviceLike = None, timeout: float = 600.0) -> List[Any]:
+    """Run ``target`` (``"module:function"``, importable in a fresh
+    interpreter: a ``python -c`` body is not) on ``world_size`` spawned
+    ranks as ``fn(mesh, *args)`` and return the results in rank order.
+
+    ``device``: every rank's device (default CUDA; ``"cpu"`` explicit), or
+    one without an index for ``cuda:{rank % device_count}``. ``timeout``
+    (seconds) bounds the whole run and each collective: a rank that fails
+    raises here with its traceback, ranks still running after a failure or
+    the deadline are killed, and nothing is carried on. Results travel by
+    pickle, so return host values (numpy arrays, CPU tensors)."""
+    devices = _rank_devices(world_size, backend, device)
+    ctx = multiprocessing.get_context("spawn")
+    deadline = time.monotonic() + timeout
+    with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:
+        spec = {"target": target, "args": tuple(args),
+                "world_size": world_size, "axis_name": axis_name,
+                "backend": backend, "devices": devices, "timeout": timeout,
+                "init_method": "file://" + os.path.join(tmp, "store")}
+        results = ctx.Queue()
+        procs = [ctx.Process(target=_rank_main, args=(r, spec, results),
+                             name=f"mesh-rank-{r}")
+                 for r in range(world_size)]
+        for p in procs:
+            p.start()
+        got, failed = {}, {}
+        try:
+            while len(got) + len(failed) < world_size and not failed:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                try:
+                    rank, ok, out = results.get(timeout=min(left, 1.0))
+                except queue_mod.Empty:
+                    for r, p in enumerate(procs):
+                        if (p.exitcode not in (None, 0) and r not in got
+                                and r not in failed):
+                            failed[r] = f"exited with code {p.exitcode}"
+                    continue
+                (got if ok else failed)[rank] = out
+        finally:
+            # after a failure the others may wait in a collective: a short
+            # grace, then kill
+            until = time.monotonic() + 5.0 if failed else deadline
+            for p in procs:
+                p.join(timeout=max(until - time.monotonic(), 0.0))
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            results.close()
+    missing = [r for r in range(world_size) if r not in got and r not in failed]
+    if failed or missing:
+        lines = [f"rank {r} failed:\n{failed[r]}" for r in sorted(failed)]
+        if missing:
+            why = ("were still running after a rank failed" if failed
+                   else f"did not finish within {timeout} s")
+            lines.append(f"ranks {missing} {why} and were stopped")
+        raise RuntimeError(f"launch({target!r}, {world_size}) failed:\n"
+                           + "\n".join(lines))
+    return [got[r] for r in range(world_size)]

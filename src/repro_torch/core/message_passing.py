@@ -21,6 +21,16 @@ of the host simulation and the topology execution engine of
    link each one crossed; it equals the analytic ``flood_cost`` /
    ``tree_*_cost`` ledger exactly (DESIGN.md Sec. 12).
 
+3. **The SPMD collectives** of the mesh path (the JAX package's
+   ``shard_map`` primitives): :func:`neighbor_rounds_gather` /
+   :func:`neighbor_rounds_sum` on a ring of ``axis_size - 1`` hops and
+   :func:`torus_rounds_gather` / :func:`torus_rounds_sum` on a 2-D
+   (R, C) folding of the axis (:func:`torus_mesh_shape`,
+   :func:`collective_hops`), run on every rank of a
+   :class:`~repro_torch.core.mesh.Mesh` bound to the axis name. Gathers
+   relay bytes; sums add ``acc + buf`` in the reference's hop order, so
+   both equal the reference's bit for bit.
+
 The round state stays on the device and is updated in place, on the rows
 that change. A flood keeps the reference's dense (node, origin) table; a
 tree gather keeps each origin's payload at the node that holds it, and a
@@ -33,12 +43,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_mod
+from repro_torch.core import mesh as mesh_mod
 from repro_torch.core.backend import as_tensor
 from repro_torch.core.comm import CommLedger, link_cost_of
 from repro_torch.core.topology import (Graph, SpanningTree, diameter,
@@ -644,3 +655,165 @@ def tree_broadcast_exec(schedule: TreeSchedule, value,
                      per_round_transmissions=sends,
                      wall_s=time.perf_counter() - t0)
     return vals.reshape((schedule.n,) + tuple(value.shape)), res
+
+
+# ---------------------------------------------------------------------------
+# SPMD ring + 2-D torus collectives (over a bound mesh axis)
+# ---------------------------------------------------------------------------
+
+def _check_axis_size(axis_name: str, axis_size: int, fn: str) -> None:
+    """Fail loudly when the caller's ``axis_size`` disagrees with the size
+    of the group bound to ``axis_name``: the ring / torus schedules are
+    built from the *claimed* size, so a mismatch would address phantom
+    ranks."""
+    if axis_size < 1:
+        raise ValueError(f"{fn}: axis_size must be >= 1, got {axis_size}")
+    actual = mesh_mod.axis(axis_name).size
+    if actual != axis_size:
+        raise ValueError(
+            f"{fn}: axis_size={axis_size} disagrees with the actual size "
+            f"{actual} of mesh axis {axis_name!r}; the ring schedule would "
+            "be silently wrong")
+
+
+def _ring(x: torch.Tensor, mesh, perm, hops: int):
+    """``hops`` hops of the single-hop permutation ``perm`` (``(src, dst)``
+    pairs of axis indices, ``jax.lax.ppermute``'s): at each hop every rank
+    sends its current buffer to its ``dst`` and receives its ``src``'s.
+    Yields ``(j, buf)``: the buffer received at hop ``j`` (1-based), which
+    came from ``j`` places back along the ring."""
+    dst = dict(perm)[mesh.rank]
+    src = {d: s for s, d in perm}[mesh.rank]
+    buf = x
+    for j in range(1, hops + 1):
+        buf = mesh.hop(buf, dst, src)
+        yield j, buf
+
+
+def _ring_sum(x: torch.Tensor, mesh, perm, hops: int) -> torch.Tensor:
+    """``acc + buf`` after each hop (the reference's order: this rank's
+    value, then the previous one's, and so on)."""
+    acc = x
+    for _, buf in _ring(x, mesh, perm, hops):
+        acc = acc + buf
+    return acc
+
+
+def _ring_gather(x: torch.Tensor, mesh, perm, width: int, pos: int
+                 ) -> torch.Tensor:
+    """``(width, *x.shape)``: the ``width`` buffers of the ring through
+    this rank (at position ``pos``) in ring order, each a relay of its
+    origin's bytes."""
+    out = x.new_empty((width,) + tuple(x.shape))
+    out[pos] = x
+    for j, buf in _ring(x, mesh, perm, width - 1):
+        out[(pos - j) % width] = buf
+    return out
+
+
+def _ring_perm(axis_size: int):
+    return [(i, (i + 1) % axis_size) for i in range(axis_size)]
+
+
+def neighbor_rounds_sum(x: torch.Tensor, axis_name: str,
+                        axis_size: int) -> torch.Tensor:
+    """Global sum via ring neighbour exchanges only (Algorithm 3 on a
+    physical ring): after ``axis_size - 1`` hops each rank has accumulated
+    every rank's value, adding in the hop order -- so the float total is
+    the JAX package's bit for bit and the same on every repeat, but it may
+    differ from an all-reduce in the last ulps. Run inside ``with mesh:``
+    over ``axis_name``."""
+    _check_axis_size(axis_name, axis_size, "neighbor_rounds_sum")
+    return _ring_sum(x, mesh_mod.axis(axis_name), _ring_perm(axis_size),
+                     axis_size - 1)
+
+
+def neighbor_rounds_gather(x: torch.Tensor, axis_name: str,
+                           axis_size: int) -> torch.Tensor:
+    """All-gather via ring neighbour exchanges (Algorithm 3 Round 2 on a
+    physical ring): ``(axis_size, *x.shape)`` on every rank, every slot a
+    pure relay of its origin's bytes, so the result equals an all-gather
+    bit for bit."""
+    _check_axis_size(axis_name, axis_size, "neighbor_rounds_gather")
+    mesh = mesh_mod.axis(axis_name)
+    return _ring_gather(x, mesh, _ring_perm(axis_size), axis_size,
+                        mesh.rank)
+
+
+def torus_mesh_shape(axis_size: int) -> Tuple[int, int]:
+    """Most-square (R, C) factorization of ``axis_size`` (R <= C): the
+    default ``mesh_shape`` of ``collectives="torus_2d"``, which minimizes
+    (R - 1) + (C - 1) hops over the 2-D foldings of a flat axis. Prime
+    sizes degenerate to (1, axis_size), the ring."""
+    if axis_size < 1:
+        raise ValueError(f"axis_size must be >= 1, got {axis_size}")
+    r = int(np.sqrt(axis_size))
+    while axis_size % r:
+        r -= 1
+    return r, axis_size // r
+
+
+def _torus_perms(axis_name: str, mesh_shape: Tuple[int, int], fn: str):
+    """Validate (R, C) against the mesh axis and return the two single-hop
+    permutations in row-major flat indexing i = r * C + c: the row phase
+    (r, c) -> (r, (c+1) % C) and the column phase (r, c) -> ((r+1) % R,
+    c), each as ``(src, dst)`` pairs."""
+    R, C = mesh_shape
+    if R < 1 or C < 1:
+        raise ValueError(f"{fn}: mesh_shape must be positive, got "
+                         f"{mesh_shape}")
+    _check_axis_size(axis_name, R * C, fn)
+    row_perm = [(r * C + c, r * C + (c + 1) % C)
+                for r in range(R) for c in range(C)]
+    col_perm = [(r * C + c, ((r + 1) % R) * C + c)
+                for r in range(R) for c in range(C)]
+    return row_perm, col_perm
+
+
+def torus_rounds_gather(x: torch.Tensor, axis_name: str,
+                        mesh_shape: Tuple[int, int]) -> torch.Tensor:
+    """All-gather on a 2-D torus folding of the flat axis: (C - 1) row-ring
+    hops gather each rank's row of C buffers, then (R - 1) column-ring hops
+    gather the rows -- (R - 1) + (C - 1) sequential hops instead of the
+    ring's R C - 1. Returns ``(R * C, *x.shape)`` in flat row-major order,
+    bit-equal to an all-gather (every slot a pure relay)."""
+    R, C = mesh_shape
+    row_perm, col_perm = _torus_perms(axis_name, mesh_shape,
+                                      "torus_rounds_gather")
+    mesh = mesh_mod.axis(axis_name)
+    r, c = divmod(mesh.rank, C)
+    row = _ring_gather(x, mesh, row_perm, C, c)
+    # (R, C, ...) row-major == flat order i = r * C + c
+    return _ring_gather(row, mesh, col_perm, R, r).reshape(
+        (R * C,) + tuple(x.shape))
+
+
+def torus_rounds_sum(x: torch.Tensor, axis_name: str,
+                     mesh_shape: Tuple[int, int]) -> torch.Tensor:
+    """Global sum on a 2-D torus folding: row-ring partial sums in C - 1
+    hops, then the column ring over the row totals in R - 1 hops, each
+    ``acc + buf`` in hop order (the JAX package's float total bit for bit;
+    it may differ from the 1-D ring's in the last ulps)."""
+    R, C = mesh_shape
+    row_perm, col_perm = _torus_perms(axis_name, mesh_shape,
+                                      "torus_rounds_sum")
+    mesh = mesh_mod.axis(axis_name)
+    return _ring_sum(_ring_sum(x, mesh, row_perm, C - 1), mesh, col_perm,
+                     R - 1)
+
+
+def collective_hops(collectives: str, axis_size: int,
+                    mesh_shape: Optional[Tuple[int, int]] = None) -> int:
+    """Sequential hop depth of one gather under each schedule:
+    ``all_gather`` counts at the ring depth axis_size - 1, as
+    ``neighbor_rounds``; ``torus_2d`` is (R - 1) + (C - 1)."""
+    if collectives in ("all_gather", "neighbor_rounds"):
+        return axis_size - 1
+    if collectives == "torus_2d":
+        R, C = (torus_mesh_shape(axis_size) if mesh_shape is None
+                else mesh_shape)
+        if R * C != axis_size:
+            raise ValueError(f"mesh_shape {mesh_shape} does not tile "
+                             f"axis_size {axis_size}")
+        return (R - 1) + (C - 1)
+    raise ValueError(f"unknown collectives mode: {collectives!r}")

@@ -46,7 +46,15 @@ def test_the_clustering_names_are_all_held():
             ("distributed", "graph_distributed_kmeans"),
             ("distributed", "distributed_kmeans"),
             ("coreset", "staged_distributed_coreset"),
-            ("coreset", "merge_coresets")} <= set(SHARED)
+            ("coreset", "merge_coresets"),
+            ("distributed", "spmd_distributed_kmeans"),
+            ("distributed", "spmd_distributed_kmeans_fn"),
+            ("message_passing", "neighbor_rounds_gather"),
+            ("message_passing", "neighbor_rounds_sum"),
+            ("message_passing", "torus_rounds_gather"),
+            ("message_passing", "torus_rounds_sum"),
+            ("message_passing", "torus_mesh_shape"),
+            ("message_passing", "collective_hops")} <= set(SHARED)
 
 
 @pytest.mark.parametrize("mod,name", SHARED,
