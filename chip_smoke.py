@@ -19,8 +19,10 @@ Phases (any failed check raises, and the script exits non-zero):
    phases 3 and 5, 256 stacked serving tenants) plus ragged, d=256,
    forced-tie and coincident-centre cases, and for both resident
    statistics kernels a view from row 1 (odd offset), k = 1, the largest k
-   whose block fits shared memory and one more (the two-pass form), and a
-   NaN row. Value error,
+   whose block fits shared memory and one more (the two-pass form, for
+   lloyd_stats the distance_argmin kernel and then lloyd_reduce), and a
+   NaN row; wherever lloyd_stats runs fused, lloyd_reduce on
+   distance_argmin's outputs must equal it bit for bit. Value error,
    argmin flips (each must be a near tie) and, for the fused statistics,
    arithmetic error against the reduction recomputed from the kernel's own
    assignment are reported apart; reruns must be bit-identical, and the
@@ -124,9 +126,32 @@ Phases (any failed check raises, and the script exits non-zero):
    held to their plain versions at one rank's merged-site shape. Per rank:
    the walls of each round and gather, bytes received, hops, staged bytes,
    peak memory.
+12. The asynchronous WAN runtime (``engine="async"``, ``faults=``) and
+   data selection. (a) Phase 8's 25 sites on ``wan_clusters(5, 5)`` (max
+   degree 7, diameter 3, clock periods up to 16; Round 2's relay table
+   0.86 GB): async full mode against exec for k-means and k-median
+   (coreset, centres, ledger axes, staleness 0, launches); the clock
+   default and random gossip against exec's centres (staleness under
+   clock, completion within P x D, a bit-identical random rerun); a fault
+   plan F (7 links dropped, node 23 dead, 13 and 18 churning, duplicates)
+   under exec and async, each equal to the restricted oracle and its solve
+   with no row of site 23; F's quiescence certificates in full (with the
+   clustering check), clock and random mode; on phase 10's
+   ``DistributedStream`` a union and a resample round in async full mode
+   equal to exec and a faulty union round carrying the survivors' mass.
+   Each flood prints its rounds, completion, quiescence, staleness and
+   wall, each run its wall and peak memory. (b) ``embed_examples`` and
+   ``select_coreset`` at llama3-8b's embedding widths (a random-init
+   128,256 x 4,096 table, 8 sites x 2,048 examples x 512 tokens, k = 8, t
+   = a quarter of the pool): sum t_i = t, the pool's mass, indices in
+   range, a bit-identical rerun, ``gather_selected``'s shapes, and the d =
+   4,096 routes (one-centre kernel, general tile, lloyd_stats' two-pass
+   form through the lloyd_reduce kernel) held to their plain versions, and
+   lloyd_reduce timed there beside its plain version, the library's
+   index_add_ and its bound.
 
 It prints a ``{"kernels": [...]}`` line (each entry also with its launches
-on phases 9, 10 and 11), the card's name and power limit, and last
+on phases 9, 10, 11 and 12), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -296,10 +321,10 @@ def expect_launches(label, got, by_kernel, *, argmin_one_center=0,
                     argmin_resident=0, lloyd=0):
     """Hold a run's launches to the counts its path implies: one-centre
     (D^z seeding) and resident-tile distance_argmin launches, lloyd_stats
-    launches, and no weiszfeld_stats or batched launch."""
+    launches, and no weiszfeld_stats, batched or lloyd_reduce launch."""
     want = {"distance_argmin": argmin_one_center + argmin_resident,
             "lloyd_stats": lloyd, "weiszfeld_stats": 0,
-            "distance_argmin_batched": 0}
+            "distance_argmin_batched": 0, "lloyd_reduce": 0}
     check(got == want, f"{label}: launches {got}, expected {want}")
     want_by = {"distance_one_center": argmin_one_center,
                "distance_argmin_resident": argmin_resident,
@@ -758,7 +783,8 @@ def phase8(seed, dev, data, k, sp, sm, g, t, sim_bfs, sim_wan, counts,
                 if objective == "kmeans" else
                 {"lloyd_stats": 0,
                  "weiszfeld_stats": 2 * 8 * WEISZFELD_ITERS})
-        want.update(distance_argmin=2 * k + 1, distance_argmin_batched=0)
+        want.update(distance_argmin=2 * k + 1, distance_argmin_batched=0,
+                    lloyd_reduce=0)
         check(out["exec"][3] == want
               and out["exec"][4]["distance_one_center"] == 2 * k
               and out["exec"][4]["distance_argmin_resident"] == 1,
@@ -1012,7 +1038,8 @@ def phase10(seed, dev, data, held_out, pts, k, sites25, base_cost, counts,
     sim per transport, ledger by phase included), then a forced union
     round on the flood (ledger the analytic one, mass the data's).
     ``base_cost`` is phase 3's centralized k-means cost. Adds digests;
-    any failed check raises. Returns the phase's launches."""
+    any failed check raises. Returns the phase's launches and the
+    distributed stream after its rounds."""
     import copy
     from repro_torch.core import clustering, prng
     from repro_torch.core.backend import query_assignments
@@ -1235,7 +1262,7 @@ def phase10(seed, dev, data, held_out, pts, k, sites25, base_cost, counts,
     print(f"  (c) stream wall {time.perf_counter() - t0:.3f} s; union "
           f"round: {int(sum_eff)} weighted slots flooded, ledger equals the "
           f"analytic 2 m x slots")
-    return total
+    return total, ds
 
 
 def phase7_spread(seed, dev, pts, sp, sm, g, k, t, ratio, solve, spread):
@@ -1456,7 +1483,7 @@ def phase11(seed, dev, pts, sp, sm, k, t, base_km, base_md, libraries,
         return ({"distance_argmin": 2 * k + 1,
                  "lloyd_stats": 0 if kmedian else steps,
                  "weiszfeld_stats": WEISZFELD_ITERS * steps if kmedian
-                 else 0, "distance_argmin_batched": 0},
+                 else 0, "distance_argmin_batched": 0, "lloyd_reduce": 0},
                 {"distance_one_center": 2 * k,
                  "distance_argmin_resident": 1, "distance_argmin_tile": 0})
 
@@ -1585,6 +1612,395 @@ def phase11(seed, dev, pts, sp, sm, k, t, base_km, base_md, libraries,
     return total
 
 
+# llama3-8b's embedding widths (src/repro/configs/llama3_8b.py) and the
+# launcher's selection settings (src/repro/launch/train.py:169-170) for
+# phase 12's data selection: a pool of 8 sites x 2,048 examples x 512 tokens
+LLAMA3_8B_VOCAB = 128_256
+LLAMA3_8B_D_MODEL = 4096
+SELECT_SITES, SELECT_EXAMPLES, SELECT_TOKENS = 8, 2048, 512
+SELECT_K, SELECT_FRACTION = 8, 0.25
+LEDGER_UNITS = ("scalars", "points", "messages", "bytes", "link_cost")
+
+
+def phase12(seed, dev, k, sites25, stream25, counts, digests, checks):
+    """The asynchronous WAN runtime and data selection (backend='cuda').
+
+    (a) ``sites25`` (phase 8's 25 weighted sites of the full data) on
+    ``wan_clusters(5, 5)``, t = 3 k n: ``engine="async"`` in full mode
+    against ``engine="exec"`` for k-means and k-median (coreset and centres
+    bit for bit, every ledger axis, staleness 0, the same launches as phase
+    8's exec runs); the clock default and random gossip (p = 0.5) for
+    k-means (centres equal exec's, staleness under clock, completion within
+    horizon + P x D, a bit-identical rerun); plan F (``random_fault_plan``
+    seed 0 with its churn set to node 23 dead and nodes 13 and 18
+    rejoining) under exec and async, each equal to the restricted oracle
+    and its solve bit for bit with no row of the dead site; the quiescence
+    certificates of F in all three modes (with the clustering check in
+    full mode); and on phase 10's ``DistributedStream`` ``stream25`` a
+    union and a resample round in async full mode equal to exec, then a
+    faulty union round whose mass is the survivors'. (b) Data selection at
+    llama3-8b's embedding widths: a random-init float32 table of
+    128,256 x 4,096 made from ``seed``, 8 x 2,048 examples of 512 tokens,
+    ``embed_examples`` in 2 GB chunks, ``select_coreset`` with k = 8 and t
+    = 0.25 of the pool, ``gather_selected``; the d = 4,096 routes (the
+    one-centre kernel, the general tile, lloyd_stats' two-pass form through
+    lloyd_reduce) held to their plain versions, and lloyd_reduce timed
+    (:func:`time_lloyd_reduce`). ``counts`` as in :func:`phase7`; adds
+    digests; any failed check raises. Returns the phase's launches (the
+    async, faulty, certificate, stream and selection runs; not the exec
+    runs they are held to) and lloyd_reduce's kernels-line fields."""
+    import copy
+    from repro_torch.core import prng, topology
+    from repro_torch.core.coreset import Coreset
+    from repro_torch.core.distributed import (_solve_on_coreset,
+                                              graph_distributed_kmeans)
+    from repro_torch.core.objective import WEISZFELD_ITERS
+    from repro_torch.data import (embed_examples, gather_selected,
+                                  select_coreset)
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.wan import (certify_quiescence, random_fault_plan,
+                                 restricted_sim_coreset)
+    from repro_torch.wan.schedules import wan_schedule
+
+    t_phase = time.perf_counter()
+    idx, sp25, sm25 = sites25
+    g = topology.wan_clusters(5, 5)
+    t25 = 3 * k * g.n
+    key = prng.PRNGKey(seed, device=dev)
+    k1, k2 = prng.split(key)
+    diam, period = topology.diameter(g), wan_schedule(g).max_period
+    total = {}
+    print("phase 12: the asynchronous WAN runtime and data selection, "
+          "backend='cuda'")
+    print(f"  (a) {g.n} sites of the full data (M={sp25.shape[1]}) on "
+          f"wan_clusters(5, 5): {g.m} links, max degree "
+          f"{int(max(g.degrees()))}, diameter {diam}, clock periods up to "
+          f"{period}; t={t25}")
+
+    def floods(res):
+        for name, r in res.exec_detail.rounds.items():
+            if hasattr(r, "rounds_to_quiesce"):
+                print(f"      {name}: {r.rounds} rounds, complete after "
+                      f"{r.rounds_to_complete}, quiescent after "
+                      f"{r.rounds_to_quiesce}, staleness "
+                      f"{r.ledger.staleness:.4f}, "
+                      f"{sum(r.per_round_transmissions)} transmissions, "
+                      f"wall_s {r.wall_s:.4f}")
+            else:
+                print(f"      {name}: {r.rounds} rounds, complete after "
+                      f"{r.rounds_to_complete}, wall_s {r.wall_s:.4f}")
+
+    def run(label, new=True, **kw):
+        """One graph_distributed_kmeans run on the 25 sites with its launches
+        counted (added to the phase's when ``new``): (result, wall s,
+        launches, by kernel)."""
+        times = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res, n, by = _launched(counts, total if new else {}, lambda: (
+            graph_distributed_kmeans(key, sp25, sm25, k, t25, g,
+                                     backend="cuda", device=dev,
+                                     phase_times=times, **kw)))
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+        print(f"    {label}: wall {wall:.3f} s "
+              f"{json.dumps({p: round(x, 4) for p, x in times.items()})}, "
+              f"peak device memory {peak:.2f} GiB above its start; launches "
+              f"{json.dumps(n)}, by kernel {json.dumps(by)}")
+        floods(res)
+        return res, wall, n, by
+
+    def same(label, a, b):
+        check(torch.equal(a.centers, b.centers)
+              and torch.equal(a.coreset.points, b.coreset.points)
+              and torch.equal(a.coreset.weights, b.coreset.weights),
+              f"phase 12 {label}: coreset or centres differ")
+
+    # -- 1. full mode against exec, both objectives ---------------------------
+    exec_km = None
+    for objective in ("kmeans", "kmedian"):
+        ex = run(f"{objective} exec", new=False, objective=objective,
+                 engine="exec")
+        asy = run(f"{objective} async full", objective=objective,
+                  engine="async", wan_mode="full")
+        same(f"{objective} async full", asy[0], ex[0])
+        ea, eb = ex[0].ledger.as_dict(), asy[0].ledger.as_dict()
+        check(all(ea[u] == eb[u] for u in LEDGER_UNITS)
+              and eb["staleness"] == 0.0,
+              f"phase 12 {objective} async full: ledger {eb}, exec {ea}")
+        want = ({"lloyd_stats": 2 * 8, "weiszfeld_stats": 0}
+                if objective == "kmeans" else
+                {"lloyd_stats": 0,
+                 "weiszfeld_stats": 2 * 8 * WEISZFELD_ITERS})
+        want.update(distance_argmin=2 * k + 1, distance_argmin_batched=0,
+                    lloyd_reduce=0)
+        want_by = {da.ONE_CENTER.name: 2 * k, da.RESIDENT.name: 1,
+                   da.TILE.name: 0}
+        check(asy[2] == ex[2] == want and asy[3] == ex[3] == want_by,
+              f"phase 12 {objective} async full: launches {asy[2]} "
+              f"{asy[3]}, exec {ex[2]} {ex[3]}, expected {want} {want_by}")
+        digests[f"wan async {objective} centres[wan_clusters(5, 5)]"] = \
+            digest(asy[0].centers)
+        print(f"    {objective}: async full equals exec (coreset, centres, "
+              f"ledger, staleness 0, launches); wall async / exec "
+              f"{asy[1] / ex[1]:.3f}")
+        if objective == "kmeans":
+            exec_km = ex
+        del ex, asy
+
+    # -- 2. the clock default and random gossip -------------------------------
+    clock = run("kmeans async clock", engine="async")
+    rand = run("kmeans async random", engine="async", wan_mode="random",
+               wan_p=0.5)
+    again = run("kmeans async random, rerun", engine="async",
+                wan_mode="random", wan_p=0.5)
+    for label, r in (("clock", clock), ("random", rand)):
+        check(torch.equal(r[0].centers, exec_km[0].centers),
+              f"phase 12 async {label}: centres differ from exec's")
+    check(clock[0].ledger.staleness > 0.0,
+          f"phase 12 async clock: staleness {clock[0].ledger.staleness}")
+    for name, r in clock[0].exec_detail.rounds.items():
+        check(r.rounds_to_complete <= period * diam,
+              f"phase 12 async clock {name}: complete after "
+              f"{r.rounds_to_complete} > P x D = {period * diam}")
+    same("async random rerun", again[0], rand[0])
+    check(rand[0].ledger.as_dict(by_phase=True)
+          == again[0].ledger.as_dict(by_phase=True)
+          and all(a.per_round_transmissions == b.per_round_transmissions
+                  for a, b in zip(rand[0].exec_detail.rounds.values(),
+                                  again[0].exec_detail.rounds.values())),
+          "phase 12 async random rerun: ledger or rounds differ")
+    print(f"    clock and random: centres equal exec's; clock staleness "
+          f"{clock[0].ledger.staleness:.4f}, complete within P x D = "
+          f"{period * diam}; random rerun bit-identical; wall / exec clock "
+          f"{clock[1] / exec_km[1]:.3f}, random {rand[1] / exec_km[1]:.3f}")
+    del clock, rand, again
+
+    # -- 3. plan F: exec and async against the restricted oracle --------------
+    base = random_fault_plan(g, seed=0, drop_frac=0.1, n_churn=3,
+                             dead_frac=0.34, dup_rate=0.2)
+    plan = dataclasses.replace(base, churn=((13, 3, 6), (18, 3, 4),
+                                            (23, 3, -1)))
+    surv = plan.surviving_nodes(g.n)
+    sub, _ = plan.surviving_graph(g)
+    check(plan.dead_nodes() == (23,) and surv.size == 24,
+          f"phase 12: plan F kills {plan.dead_nodes()}")
+    print(f"  plan F: {len(plan.drop)} links dropped {list(plan.drop)}, "
+          f"churn {list(plan.churn)}, dup_rate {plan.dup_rate}; "
+          f"{surv.size} survivors, survivor diameter {topology.diameter(sub)},"
+          f" horizon {plan.horizon()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (pts_o, w_o, _, _), _, _ = _launched(counts, total, lambda: (
+        restricted_sim_coreset(k1, sp25, sm25, k, t25, t25, "kmeans", 8,
+                               False, "cuda", surv, device=dev)))
+    c_o = _solve_on_coreset(k2, Coreset(pts_o, w_o), k, "kmeans", 8, "cuda")
+    torch.cuda.synchronize()
+    print(f"    restricted oracle + solve: wall "
+          f"{time.perf_counter() - t0:.3f} s")
+    dead_rows = {r.tobytes() for r in sp25[23][sm25[23]].cpu().numpy()}
+    for engine in ("exec", "async"):
+        res = run(f"kmeans {engine} under F", faults=plan, engine=engine)[0]
+        check(torch.equal(res.coreset.points, pts_o)
+              and torch.equal(res.coreset.weights, w_o)
+              and torch.equal(res.centers, c_o),
+              f"phase 12 {engine} under F: differs from the restricted "
+              f"oracle")
+        live = res.coreset.points[res.coreset.weights != 0].cpu().numpy()
+        from_dead = sum(r.tobytes() in dead_rows for r in live)
+        check(23 not in res.exec_detail.surviving and from_dead == 0,
+              f"phase 12 {engine} under F: {from_dead} rows of site 23")
+        digests[f"wan {engine} F centres[wan_clusters(5, 5)]"] = digest(
+            res.centers)
+        print(f"    {engine} under F: coreset ({res.coreset.points.shape[0]}"
+              f" rows) and centres equal the restricted oracle's; no row "
+              f"of site 23")
+        del res
+
+    # -- 4. certificates of F ------------------------------------------------
+    for mode in ("full", "clock", "random"):
+        extra = (dict(check_clustering=True, key=key, site_points=sp25,
+                      site_mask=sm25, k=k, t=t25, backend="cuda")
+                 if mode == "full" else {})
+        t0 = time.perf_counter()
+        cert, _, _ = _launched(counts, total, lambda: certify_quiescence(
+            g, plan, mode=mode, seed=seed, device=dev, **extra))
+        check(cert.ok, f"phase 12 certificate {mode}: {cert}")
+        print(f"    certificate {mode}: ok; "
+              f"{json.dumps(dataclasses.asdict(cert))}; wall "
+              f"{time.perf_counter() - t0:.3f} s")
+
+    # -- 5. the distributed stream of phase 10 -------------------------------
+    gs = stream25.graph
+    t_round = 3 * k * gs.n
+    print(f"  stream: phase 10's DistributedStream on grid(5, 5) "
+          f"({stream25.total_weight():.0f} rows pushed, {stream25.rounds} "
+          f"rounds run)")
+
+    def aggregate(label, new=True, **kw):
+        ds = copy.deepcopy(stream25)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res, n, _ = _launched(counts, total if new else {},
+                              lambda: ds.aggregate(k=k, t=t_round, **kw))
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+        print(f"    {label}: wall {wall:.3f} s, peak device memory "
+              f"{peak:.2f} GiB above its start; launches {json.dumps(n)}")
+        return ds, res, wall
+
+    for mode in ("union", "resample"):
+        _, ex, w_ex = aggregate(f"{mode} exec", new=False, mode=mode,
+                                engine="exec")
+        _, asy, w_as = aggregate(f"{mode} async full", mode=mode,
+                                 engine="async", wan_mode="full")
+        same(f"stream {mode} async full", asy, ex)
+        ea, eb = ex.ledger.as_dict(), asy.ledger.as_dict()
+        check(all(ea[u] == eb[u] for u in LEDGER_UNITS)
+              and eb["staleness"] == 0.0,
+              f"phase 12 stream {mode}: ledger {eb}, exec {ea}")
+        digests[f"wan stream {mode} centres"] = digest(asy.centers)
+        print(f"    stream {mode}: async full equals exec (coreset, "
+              f"centres, ledger); wall async / exec {w_as / w_ex:.3f}")
+        del ex, asy
+    splan = random_fault_plan(gs, seed=2, drop_frac=0.1, n_churn=2,
+                              dead_frac=0.5)
+    ssurv = splan.surviving_nodes(gs.n)
+    ds, res, _ = aggregate("union async under a fault plan", mode="union",
+                           engine="async", faults=splan)
+    mass = float(res.coreset.weights.double().sum())
+    want = sum(float(ds.sites[int(v)].summary().weights.double().sum())
+               for v in ssurv)
+    check(abs(mass - want) <= 1e-5 * want,
+          f"phase 12 stream under faults: mass {mass}, survivors' {want}")
+    print(f"    stream union under {splan}: {ssurv.size} survivors, mass "
+          f"{mass:.3f} = the survivors' {want:.3f}; staleness "
+          f"{res.ledger.staleness:.4f}")
+    del ds, res
+
+    # -- (b) data selection at llama3-8b's embedding widths -------------------
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    table = torch.randn((LLAMA3_8B_VOCAB, LLAMA3_8B_D_MODEL), generator=gen,
+                        device=dev)
+    tokens = torch.randint(0, LLAMA3_8B_VOCAB,
+                           (SELECT_SITES, SELECT_EXAMPLES, SELECT_TOKENS),
+                           generator=gen, device=dev)
+    pool = SELECT_SITES * SELECT_EXAMPLES
+    t_sel = int(SELECT_FRACTION * pool)
+    print(f"  (b) selection: table {tuple(table.shape)} float32 "
+          f"({table.numel() * 4 / 1e9:.2f} GB, random init), pool "
+          f"{tuple(tokens.shape)} tokens, k={SELECT_K}, t={t_sel}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    emb = embed_examples(table, tokens, device=dev)
+    torch.cuda.synchronize()
+    embed_s = time.perf_counter() - t0
+    embed_peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+    first = table[tokens[0, :4]].mean(-2)
+    check(torch.allclose(emb[0, :4], first, rtol=1e-6, atol=1e-6),
+          "phase 12 embed_examples: the first chunk differs")
+    mask = torch.ones(emb.shape[:2], dtype=torch.bool, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sel, n_sel, by_sel = _launched(counts, total, lambda: select_coreset(
+        key, emb, mask, SELECT_K, t_sel, backend="cuda", device=dev))
+    select_s = time.perf_counter() - t0
+    select_peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+    again = select_coreset(key, emb, mask, SELECT_K, t_sel, backend="cuda",
+                           device=dev)
+    check(all(torch.equal(getattr(sel, f), getattr(again, f)) for f in
+              ("indices", "weights", "t_i", "local_costs")),
+          "phase 12 select_coreset: a rerun differs")
+    mass = float(sel.weights.double().sum())
+    check(int(sel.t_i.sum()) == t_sel and abs(mass - pool) <= 1e-3 * pool
+          and int(sel.indices.min()) >= 0
+          and int(sel.indices.max()) < SELECT_EXAMPLES,
+          f"phase 12 select_coreset: sum t_i {int(sel.t_i.sum())}, mass "
+          f"{mass}, indices in [{int(sel.indices.min())}, "
+          f"{int(sel.indices.max())}]")
+    # k seeding launches, one assignment per Lloyd step (5) and one for the
+    # nearest-example search; each step's sums through lloyd_reduce
+    want = {"distance_argmin": SELECT_K + 5 + 1, "lloyd_stats": 0,
+            "weiszfeld_stats": 0, "distance_argmin_batched": 0,
+            "lloyd_reduce": 5}
+    want_by = {da.ONE_CENTER.name: SELECT_K, da.RESIDENT.name: 0,
+               da.TILE.name: 5 + 1}
+    check(n_sel == want and by_sel == want_by,
+          f"phase 12 select_coreset: launches {n_sel} {by_sel}, expected "
+          f"{want} {want_by}")
+    out = gather_selected(tokens, sel)
+    slots = SELECT_SITES * (t_sel + SELECT_K)
+    check(tuple(out["tokens"].shape) == (slots, SELECT_TOKENS)
+          and tuple(out["weights"].shape) == (slots,),
+          f"phase 12 gather_selected: {tuple(out['tokens'].shape)} "
+          f"{tuple(out['weights'].shape)}")
+    digests["selection[llama3-8b widths]"] = digest(sel.indices,
+                                                    sel.weights)
+    print(f"    embed wall {embed_s:.3f} s (peak {embed_peak:.2f} GiB above "
+          f"its start), select wall {select_s:.3f} s (peak "
+          f"{select_peak:.2f} GiB); sum t_i {t_sel}, mass {mass:.3f} for "
+          f"{pool} examples; rerun bit-identical; gather_selected "
+          f"{tuple(out['tokens'].shape)}; launches {json.dumps(n_sel)}, by "
+          f"kernel {json.dumps(by_sel)}")
+    c8 = checks["rows"](emb, SELECT_K)
+    checks["distance"]("selection seeding (one centre)", emb,
+                       checks["rows"](emb, 1))
+    checks["distance"]("selection", emb, c8)
+    checks["lloyd"]("selection", emb, c8, mask.float())
+    reduce_row = time_lloyd_reduce(dev, emb, c8, mask.float())
+    del table, tokens, emb, sel, again, out
+    print(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s")
+    return total, reduce_row
+
+
+def time_lloyd_reduce(dev, p, c, w):
+    """lloyd_reduce at data selection's shape, given distance_argmin's
+    assignment: its largest deviation from the plain reduction (sums and
+    counts), and the kernel, the plain version (a one-hot product) and the
+    library's index_add_ timed beside the bound. Returns the kernels-line
+    fields."""
+    from repro_torch.kernels import ops, ref
+    S, M, d = p.shape
+    kk = c.shape[-2]
+    md, am = ops.min_dist_argmin(p, c)
+    out = ops.lloyd_reduce(p, kk, w, md, am)
+    plain = ref.lloyd_reduce(p, kk, w, md, am)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out[:2], plain[:2]))
+    flat = (am.long() + torch.arange(S, device=dev)[:, None] * kk).view(-1)
+
+    def library():
+        """The same statistics by PyTorch's own calls: two index_add_ and
+        a sum."""
+        torch.zeros(S * kk, d, device=dev).index_add_(
+            0, flat, (w[..., None] * p).view(-1, d))
+        torch.zeros(S * kk, device=dev).index_add_(0, flat, w.view(-1))
+        return (w * md).sum(-1)
+
+    ms = cuda_ms(lambda: ops.lloyd_reduce(p, kk, w, md, am))
+    plain_ms = cuda_ms(lambda: ref.lloyd_reduce(p, kk, w, md, am), reps=5)
+    library_ms = cuda_ms(library)
+    # one fmaf per point feature, an add per count and an fmaf per cost
+    # term; each point, weight, min d2 and assignment read once, the
+    # statistics written once
+    b_ms, b_by = bound(2 * S * M * (d + 2),
+                       4 * S * M * (d + 3) + 4 * S * (kk * d + kk + 1))
+    print(f"    lloyd_reduce {tuple(p.shape)} k={kk} (ms, mean of 20): "
+          f"kernel {ms:.4f}, plain (one-hot product) {plain_ms:.4f}, "
+          f"library (index_add_) {library_ms:.4f}, bound {b_ms:.4f} "
+          f"({b_by}); kernel at {b_ms / ms:.3f} of the bound; max |err| "
+          f"against the plain reduction {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1651,9 +2067,9 @@ def main(argv=None) -> int:
             entry = "one_center" in line
         if entry:
             print(f"  one-centre kernel: {line}")
-    # four kernel entries with their own counters over three libraries
+    # five kernel entries with their own counters over four libraries
     check(set(built) == {k.library for k in ops.KERNELS}
-          and len({k.name for k in ops.KERNELS}) == 4,
+          and len({k.name for k in ops.KERNELS}) == 5,
           f"built {sorted(built)}, kernels "
           f"{[(k.name, k.library) for k in ops.KERNELS]}")
 
@@ -1788,21 +2204,37 @@ def main(argv=None) -> int:
     def check_lloyd(label, p, c, w):
         """lloyd_stats against the plain reduction of the kernel's own
         assignment and min d2 (arithmetic error, relative to the sums of
-        |terms|); a rerun must be bit-identical."""
+        |terms|) and, where no argmin flips, the plain version's sums and
+        counts to the same bound; a rerun must be bit-identical. The
+        two-pass form launches lloyd_reduce twice (a call and its rerun);
+        where the fused kernel runs, lloyd_reduce on distance_argmin's
+        outputs must equal it bit for bit."""
         before = lu.KERNEL.launches
+        reduce_before = lu.REDUCE.launches
         sums, counts, cost = ops.lloyd_stats(p, c, w)
         again = ops.lloyd_stats(p, c, w)
         check(all(torch.equal(a, b) for a, b in
                   zip((sums, counts, cost), again)),
               f"lloyd_stats[{label}] differs between two runs")
         route = check_launches(label, lu.KERNEL, lu.fits, before, c)
+        two_pass = route == "two-pass form"
+        check(lu.REDUCE.launches == reduce_before + 2 * two_pass,
+              f"lloyd_reduce[{label}] launched "
+              f"{lu.REDUCE.launches - reduce_before} times, expected "
+              f"{2 * two_pass}")
         # the kernel's own assignment: lloyd_stats assigns every point, and
         # takes its min d2, bit for bit as distance_argmin
         md, am = ops.min_dist_argmin(p, c)
         _, ar = ref.min_dist_argmin_ref(p, c)
         kk = c.shape[-2]
+        if not two_pass:
+            route += ", equal bit for bit to distance_argmin + lloyd_reduce"
+            check(all(torch.equal(a, b) for a, b in zip(
+                (sums, counts, cost), ops.lloyd_reduce(p, kk, w, md, am))),
+                  f"lloyd_reduce[{label}] differs from the fused kernel")
         sr, cr, costr = ref.lloyd_reduce(p, kk, w, md, am)
         sa, ca, costa = ref.lloyd_reduce(p.abs(), kk, w.abs(), md, am)
+        sp_, cp_, _ = ref.lloyd_stats_ref(p, c, w)
         torch.cuda.synchronize()
         es = (sums - sr).abs()
         ec = (counts - cr).abs()
@@ -1815,12 +2247,20 @@ def main(argv=None) -> int:
               f"lloyd_stats[{label}] cost error {float(eo.max())}")
         flips = int((am != ar).sum())
         err = max(float(es.max()), float(ec.max()))
+        ps, pc = (sums - sp_).abs(), (counts - cp_).abs()
+        if flips == 0:
+            check((ps <= SUM_RTOL * sa + 1e-6).all()
+                  and (pc <= SUM_RTOL * ca + 1e-6).all(),
+                  f"lloyd_stats[{label}] against the plain version: sums "
+                  f"{float(ps.max())}, counts {float(pc.max())}")
         print(f"  lloyd_stats[{label}] {tuple(p.shape)} k={kk}: max |sums "
               f"err| {float(es.max()):.3g}, max |counts err| "
               f"{float(ec.max()):.3g}, cost rel err "
               f"{float((eo / costa.clamp_min(1e-30)).max()):.2g} (from the "
-              f"kernel's assignment); {flips} near-tie flips vs the plain "
-              f"assignment; bit-identical rerun; {route}")
+              f"kernel's assignment); against the plain version max |sums "
+              f"err| {float(ps.max()):.3g}, |counts err| "
+              f"{float(pc.max()):.3g} with {flips} near-tie flips; "
+              f"bit-identical rerun; {route}")
         return err
 
     def check_nan_row(label, p, c, w):
@@ -2422,7 +2862,7 @@ def main(argv=None) -> int:
         # WEISZFELD_ITERS passes in Round 1 and in the solve
         expect = {"distance_argmin": 2 * k + 1, "lloyd_stats": 0,
                   "weiszfeld_stats": 2 * 8 * WEISZFELD_ITERS,
-                  "distance_argmin_batched": 0}
+                  "distance_argmin_batched": 0, "lloyd_reduce": 0}
         check(md_launches[routing] == expect,
               f"k-median {routing}: launches {md_launches[routing]}, "
               f"expected {expect}")
@@ -2509,7 +2949,8 @@ def main(argv=None) -> int:
           "serving: rows served != rows enqueued")
     check(srv_launches == {"distance_argmin": 0, "lloyd_stats": 0,
                            "weiszfeld_stats": 0,
-                           "distance_argmin_batched": st.n_dispatches},
+                           "distance_argmin_batched": st.n_dispatches,
+                           "lloyd_reduce": 0},
           f"serving: launches {srv_launches}, {st.n_dispatches} dispatches")
     # every dispatch pads its centres to 64 rows at d = 90: the general
     # tile's 8-point shape for the 8-row bucket, else the resident tile, by
@@ -2597,7 +3038,7 @@ def main(argv=None) -> int:
         args.seed, dev, pts, k, sites25, base_cost, base_md,
         (reset_counts, counts, route_counts), digests, checks)}
     lap("phase 9")
-    new_paths["phase 10"] = phase10(
+    new_paths["phase 10"], stream25 = phase10(
         args.seed, dev, data, data_s, pts, k, sites25, base_cost,
         (reset_counts, counts, route_counts), digests, checks)
     lap("phase 10")
@@ -2605,6 +3046,11 @@ def main(argv=None) -> int:
         args.seed, dev, pts, sp_np, sm_np, k, t, base_cost, base_md,
         [str(r.path) for r in built.values()], digests, checks)
     lap("phase 11")
+    new_paths["phase 12"], reduce_row = phase12(
+        args.seed, dev, k, sites25, stream25,
+        (reset_counts, counts, route_counts), digests, checks)
+    del stream25
+    lap("phase 12")
     for phase, got in new_paths.items():
         for name in ("distance_argmin", "lloyd_stats", "weiszfeld_stats",
                      da.ONE_CENTER.name):
@@ -2613,6 +3059,8 @@ def main(argv=None) -> int:
             check(got.get(name, 0) > 0, f"{phase}: {name} never launched")
     check(new_paths["phase 10"].get("distance_argmin_batched", 0) > 0,
           "phase 10: distance_argmin_batched never launched")
+    check(new_paths["phase 12"].get("lloyd_reduce", 0) > 0,
+          "phase 12: lloyd_reduce never launched")
 
     print(f"phase walls (s): {json.dumps(walls)}")
     print(f"digests (sha256, first 16 hex digits): {json.dumps(digests)}")
@@ -2649,13 +3097,21 @@ def main(argv=None) -> int:
          "max_abs_err": db_err, "ms": db[64][0], "plain_ms": db[64][1],
          "bound_ms": db[64][3], "bound_by": db[64][4],
          "library_ms": db[64][2]},
+        # its main path is data selection (phase 12): launches there
+        {"name": "lloyd_reduce", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lloyd_reduce.cu",
+         "replaces": "src/repro/kernels/lloyd_update.py:67",
+         "launches": new_paths["phase 12"].get("lloyd_reduce", 0),
+         **reduce_row},
     ]
-    # each kernel's launches on the staged (phase 9), streaming (phase 10)
-    # and SPMD (phase 11: rank 0 of W = 4, k-means and k-median) paths,
-    # counted from zero around every run of those phases
+    # each kernel's launches on the staged (phase 9), streaming (phase 10),
+    # SPMD (phase 11: rank 0 of W = 4, k-means and k-median) and WAN and
+    # selection (phase 12) paths, counted from zero around every run of
+    # those phases
     for entry, name in zip(kernels, (da.ONE_CENTER.name, "distance_argmin",
                                      "lloyd_stats", "weiszfeld_stats",
-                                     "distance_argmin_batched")):
+                                     "distance_argmin_batched",
+                                     "lloyd_reduce")):
         entry["launches_new_paths"] = {
             phase: got.get(name, 0) for phase, got in new_paths.items()}
     print(json.dumps({"kernels": kernels}))

@@ -24,8 +24,10 @@ paths of ``repro.core.distributed``).
   portions) under ``collectives="all_gather"``, ``"neighbor_rounds"`` or
   ``"torus_2d"``, bit-identical across the three.
 
-The JAX package's asynchronous (WAN) engine is not ported yet:
-``engine="async"`` and ``faults=`` raise.
+``engine="async"`` (or a ``faults=`` plan under ``engine="exec"``) runs
+the flood's two rounds on the asynchronous WAN runtime
+(:mod:`repro_torch.wan`): the coreset is restricted to the surviving sites
+and equals the restricted oracle's bit for bit.
 """
 from __future__ import annotations
 
@@ -111,16 +113,8 @@ def _solve_on_coreset(key: torch.Tensor, cs: Coreset, k: int,
     return centers
 
 
-def _check_engine(engine: str, faults=None) -> None:
-    """Reject unknown engines, and the asynchronous WAN runtime
-    (``engine="async"``, or ``faults`` with any engine), which is not yet
-    ported (ROADMAP A5)."""
-    if engine == "async" or faults is not None:
-        raise ValueError(
-            f"engine={engine!r} with faults={faults!r}: the asynchronous "
-            f"WAN runtime (engine='async', faults=) is not yet ported to "
-            f"repro_torch (ROADMAP A5); use engine='sim' or 'exec' without "
-            f"faults")
+def _check_engine(engine: str) -> None:
+    """Reject engines other than the synchronous two."""
     if engine not in ("sim", "exec"):
         raise ValueError(f"unknown engine {engine!r}: expected "
                          f"'sim'|'exec'")
@@ -184,9 +178,17 @@ def graph_distributed_kmeans(
     edge by edge, the ledger is measured from the schedule, and
     ``exec_detail`` holds every node's state.
 
-    ``faults``, ``wan_mode``, ``wan_seed`` and ``wan_p`` belong to the
-    asynchronous WAN runtime (``engine="async"``), which is not yet ported:
-    ``engine="async"`` or a ``faults`` plan raises ValueError.
+    ``engine="async"`` routes both rounds through the WAN runtime
+    (:mod:`repro_torch.wan.runtime`): asynchronous activation
+    (``wan_mode``: ``"clock"`` default, or ``"random"``/``"full"``;
+    ``wan_seed`` / ``wan_p`` parameterize it) and an optional ``faults=``
+    :class:`~repro_torch.wan.faults.FaultPlan`. Passing ``faults`` with
+    ``engine="exec"`` runs the synchronous schedule under the fault plan
+    (WAN mode ``"full"``). Either way the allocation and coreset are
+    restricted to surviving sites and the returned centers are
+    bit-identical to the sim oracle restricted to the survivors
+    (:func:`repro_torch.wan.runtime.restricted_sim_coreset`); the measured
+    ledger carries the ``staleness`` axis. Flood routing only.
 
     Runs on ``device`` (CUDA unless the caller asks for the CPU).
     ``phase_times``, when a dict, receives the wall seconds of
@@ -194,7 +196,23 @@ def graph_distributed_kmeans(
     objective = objective_mod.resolve_name(objective)
     strategy = strategy_mod.resolve_name(strategy)
     strat = strategy_mod.get_strategy(strategy)
-    _check_engine(engine, faults)
+    if faults is not None or engine == "async":
+        if routing != "flood":
+            raise ValueError(f"faulty/async runs support routing='flood' "
+                             f"only, got {routing!r}")
+        if engine not in ("exec", "async"):
+            raise ValueError(f"faults require engine='exec'|'async', got "
+                             f"{engine!r} (the fault-free sim oracle is "
+                             f"repro_torch.wan.runtime."
+                             f"restricted_sim_coreset)")
+        mode = wan_mode if wan_mode is not None else (
+            "full" if engine == "exec" else "clock")
+        return _graph_async(key, site_points, site_mask, k, t, graph,
+                            objective, lloyd_iters, backend, mode=mode,
+                            faults=faults, seed=wan_seed, p=wan_p,
+                            strategy=strategy, device=device,
+                            phase_times=phase_times)
+    _check_engine(engine)
     if not strat.needs_exchange and routing == "flood":
         # single-shuffle strategies never flood: with no scalar round, the
         # portions move map -> shuffle -> reduce along a BFS tree
@@ -343,6 +361,42 @@ def _graph_exec(key, site_points, site_mask, k, t, graph, objective,
                                     backend)
     ledger = detail.rounds["round1"].ledger.tag("round1").add(
         detail.rounds["round2"].ledger.tag("round2"))
+    return ClusteringResult(centers, cs, ledger, local_costs,
+                            exec_detail=detail)
+
+
+def _graph_async(key, site_points, site_mask, k, t, graph, objective,
+                 lloyd_iters, backend, mode, faults, seed, p,
+                 strategy: StrategyLike = None, device: DeviceLike = None,
+                 phase_times: Optional[dict] = None) -> ClusteringResult:
+    """Execute Algorithm 2's communication on the asynchronous WAN runtime
+    (imported lazily -- :mod:`repro_torch.wan` layers on this module).
+
+    Every *surviving* node assembles the bit-identical survivor-restricted
+    coreset; the solve uses the first survivor's copy with the same final
+    key split as every other engine, so on a trivial fault plan the
+    centers equal the synchronous paths' bit-for-bit, and under faults
+    they equal the restricted sim oracle's. ``exec_detail`` holds the
+    :class:`repro_torch.wan.runtime.AsyncDetail` (survivor-indexed)."""
+    from repro_torch.wan.runtime import async_algorithm1_rounds
+
+    dev, key, site_points, w_site, backend = _exec_inputs(
+        key, site_points, site_mask, graph.n, backend, device)
+    k1, k2 = prng.split(key)
+    detail, local_costs = async_algorithm1_rounds(
+        graph, k1, site_points, w_site, k, t, t_buffer=t,
+        objective=objective, lloyd_iters=lloyd_iters, clip_negative=False,
+        backend=backend, mode=mode, faults=faults, seed=seed, p=p,
+        strategy=strategy, phase_times=phase_times)
+
+    cs = Coreset(detail.node_points[0].contiguous(),
+                 detail.node_weights[0].contiguous())
+    with _phase(phase_times, "solve", dev):
+        centers = _solve_on_coreset(k2, cs, k, objective, lloyd_iters,
+                                    backend)
+    ledger = detail.rounds["round2"].ledger.tag("round2")
+    if "round1" in detail.rounds:   # single-shuffle strategies skip it
+        ledger = detail.rounds["round1"].ledger.tag("round1").add(ledger)
     return ClusteringResult(centers, cs, ledger, local_costs,
                             exec_detail=detail)
 

@@ -255,6 +255,29 @@ def gossip_schedule(g: Graph) -> GossipSchedule:
     return GossipSchedule.from_graph(g)
 
 
+def _receive(table: torch.Tensor, known: torch.Tensor, deliv: torch.Tensor,
+             in_nb: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """The receive step of one relay round, shared by the synchronous flood
+    and the asynchronous one (``repro_torch.wan.runtime``).
+
+    ``deliv`` (n, max_in, n) flags, per node and in-slot, the origins that
+    slot delivers this round; ``in_nb`` (n, max_in) names the sending node
+    of each slot and ``rank`` (max_in,) decreases along the slots. Every
+    (node, origin) pair that is delivered and not yet ``known`` takes the
+    copy of its first delivering slot (the lowest, picked by the unique
+    rank, not by a tie-break), written into ``table`` in place: the rows
+    written did not know the origin and the rows read did, so no read sees
+    a write of its round. The indices of the new pairs are read back to
+    the host (one read per round). Returns the (n, n) flags of the new
+    pairs."""
+    first = (deliv.to(torch.int64) * rank[:, None]).argmax(1)
+    src = in_nb.gather(1, first)                           # (n, n) node ids
+    new = deliv.any(1) & ~known
+    v, o = new.nonzero(as_tuple=True)
+    table[v, o] = table[src[v, o], o]
+    return new
+
+
 def _flood_exec_rounds(sched: GossipSchedule, flat: torch.Tensor):
     """Execute ``sched.n_rounds`` synchronous flood rounds on ``flat``'s
     device.
@@ -264,9 +287,9 @@ def _flood_exec_rounds(sched: GossipSchedule, flat: torch.Tensor):
     payloads it learned last round to all its out-neighbours -- the receive
     side gathers over *in*-neighbours (the out side on undirected graphs),
     which keeps a directed flood moving along the links. A new copy is
-    taken from the first fresh-holding in-neighbour (the lowest slot,
-    picked by a unique rank, not by a tie-break) and written into the
-    receiving rows in place, so every copy is a bit-exact relay.
+    taken from the first fresh-holding in-neighbour and written into the
+    receiving rows in place (:func:`_receive`), so every copy is a
+    bit-exact relay.
     ``fwd[v, o]`` counts how often node v forwarded origin o's message
     (once each on a connected graph). Returns the table, ``known``, the
     per-round sends, ``fwd`` and the per-round completion flags."""
@@ -287,13 +310,8 @@ def _flood_exec_rounds(sched: GossipSchedule, flat: torch.Tensor):
         # transmissions this round: each fresh holder sends on every out-link
         sends.append((fresh.sum(1) * out_deg).sum())
         fwd += fresh.to(torch.int32)
-        f_nb = fresh[in_nb] & in_mask[:, :, None]          # (n, max_in, n)
-        incoming = f_nb.any(1)                             # (n, n)
-        first = (f_nb.to(torch.int64) * rank[:, None]).argmax(1)
-        src = in_nb.gather(1, first)                       # (n, n) node ids
-        new = incoming & ~known
-        v, o = new.nonzero(as_tuple=True)
-        table[v, o] = table[src[v, o], o]
+        new = _receive(table, known, fresh[in_nb] & in_mask[:, :, None],
+                       in_nb, rank)
         known = known | new
         fresh = new
         complete.append(known.all())

@@ -7,8 +7,11 @@ the port's next stage on it:
 
 * raw PRNG keys (``uint32[..., 2]``: one key, a split, or the all-site key
   table) become the port's int64 keys (:mod:`repro_torch.core.prng`);
-* ``Coreset`` / ``DistributedCoreset`` fields and centers become float32 /
-  integer tensors.
+* ``Coreset`` / ``DistributedCoreset`` / ``Selection`` fields and centers
+  become float32 / integer tensors;
+* a ``FaultPlan``'s fields become the port's
+  :class:`~repro_torch.wan.faults.FaultPlan` (the same plan: the same
+  masks from the same seeds).
 
 It imports no JAX: callers convert with ``np.asarray`` first.
 """
@@ -19,6 +22,8 @@ import torch
 
 from repro_torch.core.backend import DeviceLike, as_tensor, resolve_device
 from repro_torch.core.coreset import Coreset, DistributedCoreset
+from repro_torch.data.selection import Selection
+from repro_torch.wan.faults import FaultPlan
 
 
 def key(raw, device: DeviceLike = None) -> torch.Tensor:
@@ -49,3 +54,20 @@ def distributed_coreset(points, weights, t_i, local_costs,
                               weights=tensor(weights, dev),
                               t_i=tensor(t_i, dev),
                               local_costs=tensor(local_costs, dev))
+
+
+def selection(indices, weights, t_i, local_costs,
+              device: DeviceLike = None) -> Selection:
+    dev = resolve_device(device)
+    return Selection(indices=tensor(indices, dev),
+                     weights=tensor(weights, dev), t_i=tensor(t_i, dev),
+                     local_costs=tensor(local_costs, dev))
+
+
+def fault_plan(plan) -> FaultPlan:
+    """A fault plan with the reference plan's ``drop``, ``churn``,
+    ``dup_rate`` and ``seed`` (read as attributes; the reference's class is
+    not imported)."""
+    return FaultPlan(drop=tuple(tuple(e) for e in plan.drop),
+                     churn=tuple(tuple(c) for c in plan.churn),
+                     dup_rate=float(plan.dup_rate), seed=int(plan.seed))

@@ -1,5 +1,6 @@
-"""Wrapper of the CUDA kernel ``csrc/lloyd_stats.cu``, and the shared-memory
-count of the resident statistics kernels (``csrc/resident_tile.cuh``).
+"""Wrappers of the CUDA kernels ``csrc/lloyd_stats.cu`` and
+``csrc/lloyd_reduce.cu``, and the shared-memory count of the resident
+statistics kernels (``csrc/resident_tile.cuh``).
 
 It replaces the Pallas TPU kernel ``src/repro/kernels/lloyd_update.py:
 lloyd_stats``: one pass over the points producing the weighted sums,
@@ -9,9 +10,12 @@ slice of rows and a second kernel sums them in block order, so results are
 bit-identical run to run. Each block keeps the site's centres and one copy
 of the current point tile in shared memory, and assigns every point as
 ``distance_argmin`` does, bit for bit. What bounds it on the card is noted
-in the CUDA source. Use :func:`repro_torch.kernels.ops.lloyd_stats`, which
-pads the centres, routes shapes that do not :func:`fit <fits>` to the
-two-pass form and takes the plain version for CPU tensors.
+in the CUDA source. Shapes that do not :func:`fit <fits>` take the
+two-pass form: the ``distance_argmin`` kernel assigns the points, then
+:func:`lloyd_reduce` sums them, each block over the same rows and in the
+same order as the fused kernel. Use
+:func:`repro_torch.kernels.ops.lloyd_stats`, which pads the centres, routes
+by shape and takes the plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -30,6 +34,10 @@ _I = ctypes.c_int
 
 STATS_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 KERNEL = Kernel("lloyd_stats", "lloyd_stats_launch", STATS_ARGS)
+# points, weights, min d2, assignment, partials, out, S, M, k, d, rows per
+# block, stream
+REDUCE = Kernel("lloyd_reduce", "lloyd_reduce_launch",
+                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
 # rows each block owns: sets the number of partials of a site
 # (ceil(M / ROWS_PER_BLOCK)), and so the order of the final sum
@@ -48,6 +56,49 @@ def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
     ``ref.CENTER_SENTINEL``), weights ``(S, M)``, all f32 ->
     ``(sums (S, k, d), counts (S, k), cost (S,))``."""
     return launch_stats(KERNEL, points, centers, weights, k, fits)
+
+
+def lloyd_reduce(points: torch.Tensor, weights: torch.Tensor,
+                 min_d2: torch.Tensor, assign: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch over S sites of the Lloyd statistics given an assignment:
+    points ``(S, M, d)``, weights and min d2 ``(S, M)`` f32, assignment
+    ``(S, M)`` i32 -> ``(sums (S, k, d), counts (S, k), cost (S,))``. A row
+    assigned outside ``[0, k)`` adds to the cost only."""
+    check_cuda(points, "points", 3)
+    check_cuda(weights, "weights", 2)
+    check_cuda(min_d2, "min_d2", 2)
+    check_cuda(assign, "assign", 2, torch.int32)
+    S, M, d = points.shape
+    for name, t in (("weights", weights), ("min_d2", min_d2),
+                    ("assign", assign)):
+        if tuple(t.shape) != (S, M):
+            raise ValueError(f"{name} {tuple(t.shape)} do not match points "
+                             f"{tuple(points.shape)}")
+        if t.device != points.device:
+            raise ValueError(f"{name} and points are on different devices")
+    if min(S, M, d, k) == 0:
+        raise ValueError(f"bad sizes: points {tuple(points.shape)}, {k} "
+                         f"centres")
+    if S > 65535:
+        raise ValueError(f"{S} sites exceed the grid's 65535")
+    E = k * d + k + 1
+    G = -(-M // ROWS_PER_BLOCK)
+    partials = torch.empty((S, G, E), dtype=torch.float32,
+                           device=points.device)
+    out = torch.empty((S, E), dtype=torch.float32, device=points.device)
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = REDUCE.fn()(points.data_ptr(), weights.data_ptr(),
+                         min_d2.data_ptr(), assign.data_ptr(),
+                         partials.data_ptr(), out.data_ptr(), S, M, k, d,
+                         ROWS_PER_BLOCK, stream)
+    if rc != 0:
+        raise RuntimeError(f"lloyd_reduce launch failed with CUDA error "
+                           f"{rc}")
+    REDUCE.launches += 1
+    return (out[:, :k * d].view(S, k, d), out[:, k * d:k * d + k],
+            out[:, -1])
 
 
 def shared_floats(k: int, d: int, row_arrays: int = ROW_ARRAYS) -> int:

@@ -23,8 +23,10 @@ with ``(S, k, d)`` centres -- and then serves all sites in ONE launch, as
   Hopper). The TPU kernels' limit was ``k d <= 2**20`` floats of resident
   centres (4 MiB of VMEM). Above its limit each takes the two-pass form:
   the ``distance_argmin`` kernel, then the reduction given the assignment
-  (a plain one-hot product, as the JAX package left it to XLA). That is
-  routing by shape: a CUDA tensor still reaches a kernel.
+  -- for ``lloyd_stats`` the ``lloyd_reduce`` kernel
+  (:func:`lloyd_reduce`), for ``weiszfeld_stats`` a plain one-hot product
+  (ROADMAP C). That is routing by shape: a CUDA tensor still reaches a
+  kernel.
 * **Launch counts.** :data:`KERNELS` lists each kernel entry with its
   ``launches`` counter (the batched argmin is an entry of the
   ``distance_argmin`` library with a counter of its own);
@@ -46,7 +48,8 @@ from repro_torch.kernels import lloyd_update as _lu
 from repro_torch.kernels import ref
 from repro_torch.kernels import weiszfeld as _wz
 
-KERNELS = (_da.KERNEL, _lu.KERNEL, _wz.KERNEL, _da.KERNEL_BATCHED)
+KERNELS = (_da.KERNEL, _lu.KERNEL, _wz.KERNEL, _da.KERNEL_BATCHED,
+           _lu.REDUCE)
 
 
 def query_bucket(n: int, min_bucket: int = 8,
@@ -181,13 +184,29 @@ def lloyd_stats(points: torch.Tensor, centers: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused Lloyd statistics ``(sums (..., k, d), counts (..., k),
     cost (...))``; two passes -- the ``distance_argmin`` kernel, then
-    :func:`ref.lloyd_reduce` -- where
+    :func:`lloyd_reduce` -- where
     :func:`repro_torch.kernels.lloyd_update.fits` is false, the limit the
     kernel's wrapper itself checks."""
     return _fused_stats(
         _lu.lloyd_stats, ref.lloyd_stats_ref,
-        lambda p, c, w, md, am: ref.lloyd_reduce(p, c.shape[-2], w, md, am),
+        lambda p, c, w, md, am: lloyd_reduce(p, c.shape[-2], w, md, am),
         _lu.fits, points, centers, weights)
+
+
+def lloyd_reduce(points: torch.Tensor, k: int, weights: torch.Tensor,
+                 min_d2: torch.Tensor, assign: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Lloyd statistics given an assignment, ``(sums (..., k, d),
+    counts (..., k), cost (...))``: the ``lloyd_reduce`` kernel, one launch
+    over all sites, or :func:`ref.lloyd_reduce` for CPU tensors."""
+    if not points.is_cuda:
+        return ref.lloyd_reduce(points, k, weights, min_d2, assign)
+    squeeze = points.ndim == 2
+    args = (points, weights.float(), min_d2.float(), assign.to(torch.int32))
+    if squeeze:
+        args = tuple(a.unsqueeze(0) for a in args)
+    out = _lu.lloyd_reduce(*(a.contiguous() for a in args), k)
+    return tuple(x[0] for x in out) if squeeze else out
 
 
 def weiszfeld_stats(points: torch.Tensor, centers: torch.Tensor,

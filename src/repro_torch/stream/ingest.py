@@ -16,7 +16,9 @@ communication is one :class:`~repro_torch.core.comm.CommLedger` phase,
 ``stream_round_<r>``. ``transport="tree"`` (``routing="bfs"`` or
 ``"min_cost"``) swaps the floods for a spanning-tree gather and broadcast;
 ``engine="exec"`` moves the payloads through the topology execution
-engine, bit-identical to ``engine="sim"`` with a measured ledger.
+engine, bit-identical to ``engine="sim"`` with a measured ledger;
+``engine="async"`` (or a ``faults=`` plan) floods them on the asynchronous
+WAN runtime (:mod:`repro_torch.wan`), restricted to the surviving sites.
 """
 from __future__ import annotations
 
@@ -37,8 +39,7 @@ from repro_torch.core.comm import (CommLedger, flood_cost,
                                    tree_allocation_cost, tree_broadcast_cost,
                                    tree_gather_cost, tree_up_cost)
 from repro_torch.core.coreset import Coreset, distributed_coreset
-from repro_torch.core.distributed import (_check_engine,
-                                          exec_algorithm1_rounds,
+from repro_torch.core.distributed import (exec_algorithm1_rounds,
                                           exec_algorithm1_tree_rounds)
 from repro_torch.core.message_passing import (GossipSchedule, TreeSchedule,
                                               flood_exec, gossip_schedule,
@@ -208,9 +209,17 @@ class DistributedStream:
         (``routing="bfs"`` or ``"min_cost"``) and broadcasts the assembled
         coreset back: the same result, a ledger over tree edges only.
 
-        ``faults``, ``wan_mode``, ``wan_seed`` and ``wan_p`` belong to the
-        asynchronous WAN runtime (``engine="async"``), which is not yet
-        ported: ``engine="async"`` or a ``faults`` plan raises ValueError.
+        ``engine="async"`` (or a ``faults=``
+        :class:`~repro_torch.wan.faults.FaultPlan` with either engine) runs
+        the round's floods on the asynchronous WAN runtime (flood transport
+        only): ``wan_mode`` picks the activation schedule (``"clock"``
+        default for async, ``"full"`` when faults ride on
+        ``engine="exec"``), ``wan_seed`` defaults to the round counter so
+        successive rounds draw fresh schedules, and the round's ledger
+        carries the measured ``staleness`` axis. The round result is the
+        *survivor-restricted* aggregate: every surviving node ends holding
+        the bit-identical coreset over surviving sites.
+
         The round's ledger is tagged ``stream_round_<r>`` and added to
         ``self.ledger``."""
         cfg = self.config
@@ -221,13 +230,22 @@ class DistributedStream:
         if transport not in ("flood", "tree"):
             raise ValueError(f"unknown transport {transport!r}: expected "
                              f"'flood'|'tree'")
-        _check_engine(engine, faults)
         strategy = strategy_mod.resolve_name(strategy)
         strat = strategy_mod.get_strategy(strategy)
-        if not strat.needs_exchange and transport == "flood":
-            # single-shuffle strategies never flood: map -> shuffle ->
-            # reduce along the spanning tree instead
+        use_wan = engine == "async" or faults is not None
+        if not strat.needs_exchange and transport == "flood" and not use_wan:
+            # single-shuffle strategies never flood on synchronous rounds:
+            # map -> shuffle -> reduce along the spanning tree instead
             transport = "tree"
+        if use_wan:
+            if transport != "flood":
+                raise ValueError(f"faulty/async rounds support "
+                                 f"transport='flood' only, got {transport!r}")
+            if engine == "sim":
+                raise ValueError("faults require engine='exec'|'async'")
+            wan_mode = wan_mode if wan_mode is not None else (
+                "full" if engine == "exec" else "clock")
+            wan_seed = self.rounds if wan_seed is None else wan_seed
         tree: Optional[SpanningTree] = None
         tsched: Optional[TreeSchedule] = None
         if transport == "tree":
@@ -250,7 +268,22 @@ class DistributedStream:
         if mode == "union":
             local_costs = None
             eff = (sw != 0.0).sum(1).cpu().numpy().astype(np.float64)
-            if transport == "tree" and engine == "exec":
+            if use_wan:
+                from repro_torch.wan.faults import FaultPlan
+                from repro_torch.wan.runtime import wan_flood_exec
+                plan = faults if faults is not None else FaultPlan()
+                payload = pack_payload(sp, sw)
+                tables, rr = wan_flood_exec(g, payload, mode=wan_mode,
+                                            faults=plan, unit_points=eff,
+                                            dim=cfg.d, seed=wan_seed,
+                                            p=wan_p)
+                surv = plan.surviving_nodes(g.n)
+                pts0, w0 = unpack_payload(tables[int(surv[0])][
+                    torch.as_tensor(surv, device=tables.device)])
+                cs = Coreset(points=pts0.reshape(-1, cfg.d),
+                             weights=w0.reshape(-1))
+                round_ledger = rr.ledger
+            elif transport == "tree" and engine == "exec":
                 payload = pack_payload(sp, sw)
                 root_table, gr = tree_gather_exec(tsched, payload,
                                                   unit_points=eff, dim=cfg.d)
@@ -286,7 +319,21 @@ class DistributedStream:
                     link_cost=link_cost_of(np.full(g.n, w_pm),
                                            unit_points=eff, dim=cfg.d))
         elif mode == "resample":
-            if transport == "tree" and engine == "exec":
+            if use_wan:
+                from repro_torch.wan.runtime import async_algorithm1_rounds
+                detail, local_costs = async_algorithm1_rounds(
+                    g, k1, sp, sw, k, t, t_buffer=t,
+                    objective=cfg.objective, lloyd_iters=lloyd_iters,
+                    clip_negative=clip_negative, backend=cfg.backend,
+                    mode=wan_mode, faults=faults, seed=wan_seed, p=wan_p,
+                    strategy=strategy)
+                cs = Coreset(points=detail.node_points[0],
+                             weights=detail.node_weights[0])
+                round_ledger = detail.rounds["round2"].ledger
+                if "round1" in detail.rounds:
+                    round_ledger = detail.rounds["round1"].ledger.add(
+                        round_ledger)
+            elif transport == "tree" and engine == "exec":
                 root_pts, root_w, t_i, _, rounds, local_costs = \
                     exec_algorithm1_tree_rounds(
                         tsched, k1, sp, sw, k, t, t_buffer=t,

@@ -6,6 +6,7 @@ strategy descriptor's ``validate`` hook."""
 import importlib
 import inspect
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,15 +17,27 @@ from repro.core import strategy as jstrategy
 from repro.core.backend import JnpChunkedBackend
 from repro_torch.core import backend, clustering, strategy
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 MODULES = ("backend", "baselines", "clustering", "comm", "coreset",
            "distributed", "message_passing", "objective", "partition",
            "strategy", "topology")
+# modules outside core, by their path in the package
+PACKAGE_MODULES = ("wan.faults", "wan.schedules", "wan.runtime",
+                   "wan.quiesce", "data.selection")
+
+
+def _path(mod):
+    return mod if mod in PACKAGE_MODULES else f"core.{mod}"
 
 
 def _shared_functions():
-    for mod in MODULES:
-        port = importlib.import_module(f"repro_torch.core.{mod}")
-        ref = importlib.import_module(f"repro.core.{mod}")
+    for mod in MODULES + PACKAGE_MODULES:
+        port = importlib.import_module(f"repro_torch.{_path(mod)}")
+        ref = importlib.import_module(f"repro.{_path(mod)}")
         for name in sorted(vars(port)):
             f, g = getattr(port, name), getattr(ref, name, None)
             if (name.startswith("_") or not inspect.isfunction(f)
@@ -55,6 +68,16 @@ def test_the_clustering_names_are_all_held():
             ("message_passing", "torus_rounds_sum"),
             ("message_passing", "torus_mesh_shape"),
             ("message_passing", "collective_hops")} <= set(SHARED)
+    assert {("wan.faults", "random_fault_plan"),
+            ("wan.schedules", "activation_masks"),
+            ("wan.schedules", "liveness_masks"),
+            ("wan.runtime", "wan_flood_exec"),
+            ("wan.runtime", "async_algorithm1_rounds"),
+            ("wan.runtime", "restricted_sim_coreset"),
+            ("wan.quiesce", "certify_quiescence"),
+            ("data.selection", "select_coreset"),
+            ("data.selection", "embed_examples"),
+            ("data.selection", "gather_selected")} <= set(SHARED)
 
 
 @pytest.mark.parametrize("mod,name", SHARED,
@@ -62,8 +85,9 @@ def test_the_clustering_names_are_all_held():
 def test_parameters_are_the_references_in_order(mod, name):
     """The reference's parameter names are a prefix of the port's, so
     positional calls bind alike; the port's own parameters come after."""
-    port = getattr(importlib.import_module(f"repro_torch.core.{mod}"), name)
-    ref = getattr(importlib.import_module(f"repro.core.{mod}"), name)
+    port = getattr(importlib.import_module(f"repro_torch.{_path(mod)}"),
+                   name)
+    ref = getattr(importlib.import_module(f"repro.{_path(mod)}"), name)
     theirs = list(inspect.signature(ref).parameters)
     ours = list(inspect.signature(port).parameters)
     assert ours[:len(theirs)] == theirs, (ours, theirs)
@@ -83,20 +107,45 @@ def test_graph_distributed_kmeans_takes_the_references_full_prefix():
                                "strategy"]
 
 
-@pytest.mark.parametrize("kw", [{"faults": object()},
-                                {"faults": object(), "engine": "exec"},
+@pytest.mark.parametrize("kw", [{"faults": "plan"},
+                                {"faults": "plan", "routing": "bfs",
+                                 "engine": "exec"},
                                 {"engine": "async"}],
                          ids=["faults-sim", "faults-exec", "async"])
 def test_faults_and_async_raise_not_yet_ported(kw):
-    """The asynchronous WAN runtime is not ported: a faults plan (with any
-    engine) and engine="async" raise, naming ROADMAP A5, before any work."""
+    """The WAN runtime is ported (the test keeps the name it had before),
+    so the reference's rules hold: a faults plan needs
+    engine='exec'|'async' (the sim engine raises) and flood routing (a
+    tree route raises), with the reference's messages; engine="async" runs
+    on the WAN runtime."""
+    from repro.core import distributed as jdistributed
+    from repro.core import topology as jtopology
+    from repro.wan.faults import FaultPlan as JFaultPlan
     from repro_torch.core import distributed, prng, topology
+    from repro_torch.wan import FaultPlan
     g = topology.grid(2, 2)
-    sp = np.zeros((4, 8, 3), np.float32)
+    sp = np.random.default_rng(0).standard_normal((4, 8, 3)).astype(
+        np.float32)
     sm = np.ones((4, 8), bool)
-    with pytest.raises(ValueError, match="not yet ported.*ROADMAP A5"):
+    ours = dict(kw, faults=FaultPlan(seed=0)) if "faults" in kw else kw
+    if kw.get("engine") == "async":
+        res = distributed.graph_distributed_kmeans(prng.PRNGKey(0), sp, sm,
+                                                   2, 8, g, device="cpu",
+                                                   **ours)
+        assert res.centers.shape == (2, 3)
+        assert bool(torch.isfinite(res.centers).all())
+        return
+    theirs = dict(kw, faults=JFaultPlan(seed=0))
+    with pytest.raises(ValueError) as err:
         distributed.graph_distributed_kmeans(prng.PRNGKey(0), sp, sm, 2, 8,
-                                             g, device="cpu", **kw)
+                                             g, device="cpu", **ours)
+    with pytest.raises(ValueError) as jerr:
+        jdistributed.graph_distributed_kmeans(
+            jax.random.PRNGKey(0), jnp.asarray(sp), jnp.asarray(sm), 2, 8,
+            jtopology.grid(2, 2), **theirs)
+    assert str(err.value) == str(jerr.value).replace("repro.wan",
+                                                     "repro_torch.wan")
+    assert "not yet ported" not in str(err.value)
 
 
 # the stream package's public classes and their methods, against the

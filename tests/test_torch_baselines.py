@@ -19,6 +19,11 @@ from repro_torch import interop
 from repro_torch.core import baselines, clustering, coreset, distributed, prng
 from repro_torch.core import topology
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 K, S = 5, 60
 
 

@@ -23,6 +23,11 @@ import torch
 from repro_torch.core import mesh as mesh_mod
 from repro_torch.core import message_passing as mp
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (3, 5)
 # the foldings of each world size the tests run (R, C); (1, W) and (W, 1)

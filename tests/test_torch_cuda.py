@@ -45,16 +45,17 @@ def test_cuda_kernels_match_plain_versions(cuda, S, n, k, d):
     c = torch.tensor(rng.standard_normal((S, k, d)), dtype=torch.float32,
                      device=cuda)
     w = torch.tensor(rng.random((S, n)), dtype=torch.float32, device=cuda)
-    called = (da_mod.KERNEL, lu_mod.KERNEL)
+    called = (da_mod.KERNEL, lu_mod.KERNEL, lu_mod.REDUCE)
     launches = [kern.launches for kern in called]
     md, am = ops.min_dist_argmin(p, c)
     sums, counts, cost = ops.lloyd_stats(p, c, w)
     torch.cuda.synchronize()
     # a block that does not fit shared memory takes the two-pass form: a
-    # second distance_argmin launch instead of lloyd_stats
+    # second distance_argmin launch and lloyd_reduce instead of lloyd_stats
     fused = lu_mod.fits(k, d)
     assert [kern.launches for kern in called] == [
-        launches[0] + (1 if fused else 2), launches[1] + (1 if fused else 0)]
+        launches[0] + (1 if fused else 2), launches[1] + (1 if fused else 0),
+        launches[2] + (0 if fused else 1)]
     md_r, am_r = ref.min_dist_argmin_ref(p, c)
     # float32 on both sides, sums in different orders (see chip_smoke.py)
     np.testing.assert_allclose(md.cpu().numpy(), md_r.cpu().numpy(),
@@ -71,6 +72,53 @@ def test_cuda_kernels_match_plain_versions(cuda, S, n, k, d):
     again = ops.lloyd_stats(p, c, w)
     assert all(torch.equal(a, b) for a, b in zip((sums, counts, cost),
                                                  again))
+
+
+# below the limit (k <= 256 at d = 90) the fused kernel runs too; k = 70
+# spans two centre groups of lloyd_reduce; d = 4,096 is data selection's
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,k,d", [(1, 8, 3, 5), (3, 1001, 50, 90),
+                                     (2, 2500, 70, 33), (2, 2048, 8, 4096)])
+def test_cuda_lloyd_reduce_equals_fused_lloyd_stats(cuda, S, n, k, d):
+    """lloyd_reduce on distance_argmin's assignment and min d2 equals the
+    fused lloyd_stats kernel bit for bit where the fused block fits (the
+    same rows per block, the same chains in row order), and the plain
+    reduction within 1e-4 of the sums of |terms| at every shape; a row
+    assigned outside [0, k) adds to the cost only; a rerun is
+    bit-identical."""
+    rng = np.random.default_rng(n + d)
+    p = torch.tensor(rng.standard_normal((S, n, d)), dtype=torch.float32,
+                     device=cuda)
+    c = torch.tensor(rng.standard_normal((S, k, d)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.random((S, n)), dtype=torch.float32, device=cuda)
+    md, am = ops.min_dist_argmin(p, c)
+    before = lu_mod.REDUCE.launches
+    out = ops.lloyd_reduce(p, k, w, md, am)
+    again = ops.lloyd_reduce(p, k, w, md, am)
+    torch.cuda.synchronize()
+    assert lu_mod.REDUCE.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    if lu_mod.fits(k, d):
+        fused = ops.lloyd_stats(p, c, w)
+        assert all(torch.equal(a, b) for a, b in zip(out, fused))
+    plain = ref.lloyd_reduce(p, k, w, md, am)
+    scale = ref.lloyd_reduce(p.abs(), k, w.abs(), md, am)
+    for a, b, s in zip(out, plain, scale):
+        assert bool(((a - b).abs() <= 1e-4 * s + 1e-4).all())
+    # row 0 of site 0 moved to a centre past k: off every sum and count
+    am_out = am.clone()
+    am_out[0, 0] = k
+    sums, counts, cost = ops.lloyd_reduce(p, k, w, md, am_out)
+    keep = torch.ones(n, dtype=torch.bool, device=cuda)
+    keep[0] = False
+    sr, cr, _ = ref.lloyd_reduce(p[0, keep], k, w[0, keep], md[0, keep],
+                                 am[0, keep])
+    sa, ca, _ = ref.lloyd_reduce(p[0, keep].abs(), k, w[0, keep],
+                                 md[0, keep], am[0, keep])
+    assert bool(((sums[0] - sr).abs() <= 1e-4 * sa + 1e-4).all())
+    assert bool(((counts[0] - cr).abs() <= 1e-4 * ca + 1e-4).all())
+    assert torch.equal(cost, out[2])
 
 
 @pytest.mark.cuda
@@ -122,15 +170,17 @@ def _check_lloyd(p, c, w):
     kernel's own assignment and min d2 (lloyd_stats assigns bit for bit as
     distance_argmin does), within 1e-4 of the sums of |terms|; a rerun is
     bit-identical. Shapes whose block does not fit the kernel's shared
-    memory take the two-pass form and launch no lloyd_stats."""
-    before = lu_mod.KERNEL.launches
+    memory take the two-pass form and launch lloyd_reduce instead of
+    lloyd_stats."""
+    before = (lu_mod.KERNEL.launches, lu_mod.REDUCE.launches)
     sums, counts, cost = ops.lloyd_stats(p, c, w)
     again = ops.lloyd_stats(p, c, w)
     md, am = ops.min_dist_argmin(p, c)
     torch.cuda.synchronize()
     k = c.shape[-2]
     fused = lu_mod.fits(k, c.shape[-1])
-    assert lu_mod.KERNEL.launches == before + (2 if fused else 0)
+    assert (lu_mod.KERNEL.launches, lu_mod.REDUCE.launches) == (
+        before[0] + (2 if fused else 0), before[1] + (0 if fused else 2))
     assert all(torch.equal(a, b) for a, b in zip((sums, counts, cost),
                                                  again))
     sr, cr, co = ref.lloyd_reduce(p, k, w, md, am)
@@ -274,8 +324,10 @@ def test_cuda_weiszfeld_at_the_shared_memory_limit(cuda, name, k, d):
     """Just under the limit the kernel launches (its own count of shared
     memory agrees with lloyd_update.shared_floats) and matches the plain
     reduction; one centre more takes the two-pass form, with no launch of
-    the kernel, and equals the plain reduction of distance_argmin's
-    assignment exactly."""
+    the kernel: for weiszfeld_stats the plain reduction of distance_argmin's
+    assignment exactly, for lloyd_stats the lloyd_reduce kernel on that
+    assignment exactly (and the plain reduction within 1e-4 of the sums of
+    |terms|)."""
     mod = {"weiszfeld_stats": wz_mod, "lloyd_stats": lu_mod}[name]
     assert mod.fits(k, d) and not mod.fits(k + 1, d)
     rng = np.random.default_rng(k + d)
@@ -286,15 +338,24 @@ def test_cuda_weiszfeld_at_the_shared_memory_limit(cuda, name, k, d):
     w = torch.tensor(rng.standard_normal(3000), dtype=torch.float32,
                      device=cuda)
     STATS_CHECKS[name](p, c[:k], w)
-    before = (mod.KERNEL.launches, da_mod.KERNEL.launches)
+    before = (mod.KERNEL.launches, da_mod.KERNEL.launches,
+              lu_mod.REDUCE.launches)
     out = getattr(ops, name)(p, c, w)
     md, am = ops.min_dist_argmin(p, c)
-    want = (ref.weiszfeld_reduce(p, c, w, am) if name == "weiszfeld_stats"
-            else ref.lloyd_reduce(p, k + 1, w, md, am))
+    lloyd = name == "lloyd_stats"
+    want = (lu_mod.lloyd_reduce(p[None], w[None], md[None], am[None], k + 1)
+            if lloyd else ref.weiszfeld_reduce(p, c, w, am))
     torch.cuda.synchronize()
-    assert (mod.KERNEL.launches, da_mod.KERNEL.launches) == (
-        before[0], before[1] + 2)
-    assert all(torch.equal(a, b) for a, b in zip(out, want))
+    assert (mod.KERNEL.launches, da_mod.KERNEL.launches,
+            lu_mod.REDUCE.launches) == (before[0], before[1] + 2,
+                                        before[2] + 2 * lloyd)
+    assert all(torch.equal(a, b[0] if lloyd else b)
+               for a, b in zip(out, want))
+    if lloyd:
+        plain = ref.lloyd_reduce(p, k + 1, w, md, am)
+        scale = ref.lloyd_reduce(p.abs(), k + 1, w.abs(), md, am)
+        for a, b, s in zip(out, plain, scale):
+            assert bool(((a - b).abs() <= 1e-4 * s + 1e-4).all())
 
 
 @pytest.mark.cuda
@@ -812,7 +873,8 @@ def test_cuda_spmd_two_ranks_on_one_card_match_the_cpu(cuda):
         # per mode: 2k + 1 distance_argmin and 8 + 10 lloyd_stats launches
         assert rank["launches"] == {
             "distance_argmin": 3 * 9, "lloyd_stats": 3 * 18,
-            "weiszfeld_stats": 0, "distance_argmin_batched": 0}
+            "weiszfeld_stats": 0, "distance_argmin_batched": 0,
+            "lloyd_reduce": 0}
         assert rank["staged_bytes"] == staged
     assert all(r["launches"]["distance_argmin"] == 0
                and r["staged_bytes"] == 0 for r in cpu)
@@ -845,3 +907,131 @@ def test_cuda_spmd_two_ranks_on_one_card_match_the_cpu(cuda):
     costs = [float(clustering.cost(pts, c, device="cpu"))
              for c in (first[0], c_cpu)]
     assert abs(costs[0] - costs[1]) <= 1e-3 * costs[1], costs
+
+
+# -- the WAN runtime and data selection on the card -------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "clock", "random"])
+def test_cuda_wan_flood_matches_the_cpu(cuda, mode):
+    """wan_flood_exec on a CUDA payload against the same flood on the CPU
+    (wan_clusters(3, 4) under drops, churn, a dead node and duplicates):
+    the relay tables bit for bit, NaN and signed-zero payloads included,
+    and every result field but the wall time."""
+    from repro_torch.core import topology
+    from repro_torch.wan import FaultPlan, wan_flood_exec
+    g = topology.wan_clusters(3, 4, cross_links=2, seed=0)
+    plan = FaultPlan(drop=((0, 1),), churn=((5, 1, 3), (9, 0, -1)),
+                     dup_rate=0.3, seed=3)
+    rng = np.random.default_rng(1)
+    pay = rng.standard_normal((g.n, 7, 5)).astype(np.float32)
+    pay[::2, 0, 0] = -0.0
+    pay[1::3, 1, 1] = np.nan
+    out = {}
+    for dev in ("cpu", cuda):
+        table, res = wan_flood_exec(g, torch.from_numpy(pay).to(dev),
+                                    mode=mode, faults=plan, unit_points=2.0,
+                                    dim=4, seed=7, p=0.4)
+        out[str(dev)] = (table.cpu(), res)
+    (tc, rc), (tg, rg) = out["cpu"], out["cuda"]
+    assert torch.equal(tc.view(torch.int32), tg.view(torch.int32))
+    assert (rc.rounds, rc.rounds_to_complete, rc.rounds_to_quiesce,
+            rc.per_round_transmissions) == (
+        rg.rounds, rg.rounds_to_complete, rg.rounds_to_quiesce,
+        rg.per_round_transmissions)
+    for f in ("completion", "staleness", "known"):
+        assert np.array_equal(getattr(rc, f), getattr(rg, f)), f
+    assert rc.ledger.as_dict(by_phase=True) == rg.ledger.as_dict(
+        by_phase=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["kmeans", "kmedian"])
+def test_cuda_async_equals_exec_and_the_restricted_oracle(cuda, objective):
+    """On the card: engine="async" in full mode equals engine="exec" bit for
+    bit with the same launches per kernel; a faulty clock run equals the
+    restricted oracle and the final solve bit for bit."""
+    from repro_torch.core import distributed, prng, topology
+    from repro_torch.core.coreset import Coreset
+    from repro_torch.wan import FaultPlan, restricted_sim_coreset
+    sp, sm = (torch.from_numpy(a).to(cuda) for a in _staged_sites(12))
+    g = topology.wan_clusters(3, 4, cross_links=2, seed=0)
+    key = prng.PRNGKey(5, device=cuda)
+
+    def run(**kw):
+        before = [kern.launches for kern in ops.KERNELS]
+        res = distributed.graph_distributed_kmeans(
+            key, sp, sm, 4, 96, g, objective=objective, backend="cuda",
+            device=cuda, **kw)
+        torch.cuda.synchronize()
+        return res, [kern.launches - b for kern, b in zip(ops.KERNELS,
+                                                          before)]
+
+    ex, n_ex = run(engine="exec")
+    asy, n_as = run(engine="async", wan_mode="full")
+    assert torch.equal(ex.centers, asy.centers)
+    assert torch.equal(ex.coreset.points, asy.coreset.points)
+    assert torch.equal(ex.coreset.weights, asy.coreset.weights)
+    assert n_ex == n_as and sum(n_as) > 0
+    plan = FaultPlan(drop=((0, 1),), churn=((5, 1, 3), (9, 0, -1)), seed=3)
+    res, _ = run(engine="async", faults=plan, wan_seed=1)
+    k1, k2 = prng.split(key)
+    pts, w, _, _ = restricted_sim_coreset(
+        k1, sp, sm, 4, 96, 96, objective, 8, False, "cuda",
+        plan.surviving_nodes(g.n), device=cuda)
+    assert torch.equal(res.coreset.points, pts)
+    assert torch.equal(res.coreset.weights, w)
+    assert torch.equal(res.centers, distributed._solve_on_coreset(
+        k2, Coreset(pts, w), 4, objective, 8, "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 4096])
+def test_cuda_select_coreset_matches_the_cpu(cuda, monkeypatch, d):
+    """select_coreset on the card against the CPU's plain versions: t_i
+    exact, the weight-0 pattern and the live slots' indices equal but for
+    draws one index off (at most 1%: the masses differ in the last bits),
+    the mass the pool's, a rerun bit-identical; at d = 4,096 distance_argmin
+    runs the general tile and lloyd_stats the two-pass form (lloyd_reduce
+    after it). embed_examples
+    agrees with the CPU to 1e-6 and chunks alike."""
+    from repro_torch.core import prng
+    from repro_torch.data import embed_examples, select_coreset, selection
+    rng = np.random.default_rng(d)
+    table = rng.standard_normal((500, d)).astype(np.float32)
+    toks = rng.integers(0, 500, size=(4, 256, 16))
+    emb_c = embed_examples(table, toks, device="cpu")
+    emb_g = embed_examples(table, toks, device=cuda)
+    np.testing.assert_allclose(emb_g.cpu().numpy(), emb_c.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    monkeypatch.setattr(selection, "EMBED_CHUNK_BYTES", 2 ** 20)
+    assert torch.equal(emb_g, embed_examples(table, toks, device=cuda))
+    mask = np.ones((4, 256), bool)
+    before = {r.name: r.launches for r in da_mod.ROUTES}
+    lloyd_before = (lu_mod.KERNEL.launches, lu_mod.REDUCE.launches)
+    sel_g = select_coreset(prng.PRNGKey(0, device=cuda), emb_g, mask, 4, 64,
+                           backend="cuda", device=cuda)
+    torch.cuda.synchronize()
+    by = {r.name: r.launches - before[r.name] for r in da_mod.ROUTES}
+    fused = lu_mod.fits(4, d)
+    assert (lu_mod.KERNEL.launches - lloyd_before[0],
+            lu_mod.REDUCE.launches - lloyd_before[1]) == (
+                (5, 0) if fused else (0, 5))
+    assert by[da_mod.ONE_CENTER.name] == 4
+    general = by[da_mod.TILE.name] + by[da_mod.RESIDENT.name]
+    assert general == (1 if fused else 6)
+    assert (by[da_mod.TILE.name] > 0) == (d == 4096)
+    again = select_coreset(prng.PRNGKey(0, device=cuda), emb_g, mask, 4, 64,
+                           backend="cuda", device=cuda)
+    for f in ("indices", "weights", "t_i", "local_costs"):
+        assert torch.equal(getattr(sel_g, f), getattr(again, f)), f
+    sel_c = select_coreset(prng.PRNGKey(0), emb_g.cpu(), mask, 4, 64,
+                           device="cpu")
+    assert torch.equal(sel_g.t_i.cpu(), sel_c.t_i)
+    wg, wc = sel_g.weights.cpu().numpy(), sel_c.weights.numpy()
+    assert np.array_equal(wg != 0, wc != 0)
+    ig, ic = sel_g.indices.cpu().numpy(), sel_c.indices.numpy()
+    moved = (ig != ic) & (wc != 0)
+    assert moved.sum() <= max(1, moved.size // 100), int(moved.sum())
+    np.testing.assert_allclose(float(wg.astype(np.float64).sum()), 4 * 256,
+                               rtol=1e-3)

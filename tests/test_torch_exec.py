@@ -26,6 +26,11 @@ from repro_torch.core import comm, distributed, message_passing as mp
 from repro_torch.core import prng, topology
 from repro_torch.core.coreset import Coreset
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 KEY = prng.PRNGKey(0)
 JKEY = jax.random.PRNGKey(0)
 

@@ -19,6 +19,11 @@ from repro_torch.kernels import distance_argmin as da_mod
 from repro_torch.kernels import lloyd_update as lu_mod
 from repro_torch.kernels import ops, ref
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 # shapes of tests/test_kernels.py
 SHAPES = [
     (8, 4, 3),
@@ -196,12 +201,46 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     plain version through it (only ops dispatches by device)."""
     p = torch.zeros(1, 8, 3)
     c = torch.zeros(1, 64, 3)
-    before = (da_mod.KERNEL.launches, lu_mod.KERNEL.launches)
+    before = (da_mod.KERNEL.launches, lu_mod.KERNEL.launches,
+              lu_mod.REDUCE.launches)
     with pytest.raises(ValueError, match="CUDA device"):
         da_mod.distance_argmin(p, c)
     with pytest.raises(ValueError, match="CUDA device"):
         lu_mod.lloyd_stats(p, c, torch.ones(1, 8), 2)
-    assert (da_mod.KERNEL.launches, lu_mod.KERNEL.launches) == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        lu_mod.lloyd_reduce(p, torch.ones(1, 8), torch.zeros(1, 8),
+                            torch.zeros(1, 8, dtype=torch.int32), 2)
+    assert (da_mod.KERNEL.launches, lu_mod.KERNEL.launches,
+            lu_mod.REDUCE.launches) == before
+
+
+@pytest.mark.parametrize("n,k,d", SHAPES)
+def test_ops_lloyd_reduce_on_cpu_matches_jax_ref(n, k, d):
+    """ops.lloyd_reduce on CPU tensors is the plain reduction (no launch),
+    with and without the site axis; given the plain assignment it gives
+    the JAX package's lloyd statistics."""
+    pts, ctr, w = _data(n, k, d, seed=3)
+    p, c, wt = map(torch.from_numpy, (pts, ctr, w))
+    md, am = ref.min_dist_argmin_ref(p, c)
+    before = [kern.launches for kern in ops.KERNELS]
+    out = ops.lloyd_reduce(p, k, wt, md, am)
+    batched = ops.lloyd_reduce(p[None], k, wt[None], md[None], am[None])
+    assert [kern.launches for kern in ops.KERNELS] == before
+    for a, b, x in zip(out, ref.lloyd_reduce(p, k, wt, md, am), batched):
+        assert torch.equal(a, b)
+        # a batched product may sum in another order than a 2-D one
+        np.testing.assert_allclose(x[0].numpy(), a.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    sums_j, counts_j, cost_j = jref.lloyd_stats_ref(
+        jnp.asarray(pts), jnp.asarray(ctr), jnp.asarray(w))
+    same = np.asarray(am) == np.asarray(jref.min_dist_argmin_ref(
+        jnp.asarray(pts), jnp.asarray(ctr))[1])
+    if same.all():
+        np.testing.assert_allclose(out[0].numpy(), np.asarray(sums_j),
+                                   rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(out[1].numpy(), np.asarray(counts_j),
+                                   rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(out[2]), float(cost_j), rtol=1e-4)
 
 
 def test_ops_on_cpu_launch_no_kernel():
@@ -249,7 +288,7 @@ def test_route_counters_are_kernels_of_the_distance_argmin_library():
     assert {k.library for k in da_mod.ROUTES} == {"distance_argmin"}
     assert da_mod.TILE.function == "distance_argmin_tile_launch"
     assert da_mod.RESIDENT.function == "distance_argmin_resident_launch"
-    assert len({k.name for k in (*ops.KERNELS, *da_mod.ROUTES)}) == 7
+    assert len({k.name for k in (*ops.KERNELS, *da_mod.ROUTES)}) == 8
 
 
 @pytest.mark.parametrize("entry,served", [

@@ -26,6 +26,11 @@ from repro_torch.kernels import lloyd_update as lu_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import weiszfeld as wz_mod
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 # shapes of tests/test_kernels.py
 SHAPES = [
     (8, 4, 3),

@@ -22,6 +22,11 @@ from repro_torch import interop
 from repro_torch.core import (backend, clustering, coreset, distributed,
                               objective, prng, topology)
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 K, T = 5, 400
 ZS = [0.5, 1.5, 3.0]
 TRIMS = [0, 3, 16, 0.05, 0.5]

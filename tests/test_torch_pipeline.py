@@ -20,6 +20,11 @@ from repro_torch.core import (backend, clustering, comm, coreset,
                               distributed, partition, prng, topology)
 from repro_torch.data import synthetic
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 K, T = 5, 400
 
 
@@ -137,20 +142,20 @@ def test_solve_with_restarts_matches_reference(instance, runs):
 
 
 def test_engines_and_routings_not_ported_raise(instance):
-    """engine="async" is not ported and raises, as unknown names do;
-    engine="exec", min-cost routing, the cohen_addad / mapreduce strategies
-    and the power / trimmed objectives are ported and run."""
+    """Unknown names raise; engine="exec" and "async", min-cost routing,
+    the cohen_addad / mapreduce strategies and the power / trimmed
+    objectives are ported and run."""
     _, sp, sm = instance
     g = topology.grid(3, 3)
-    for kw, match in (({"engine": "async"}, "not yet ported"),
-                      ({"engine": "nope"}, "unknown engine"),
+    for kw, match in (({"engine": "nope"}, "unknown engine"),
                       ({"routing": "nope"}, "unknown routing"),
                       ({"strategy": "algorithm2"}, "unknown strategy"),
                       ({"objective": "power(abc)"}, "unknown objective")):
         with pytest.raises(ValueError, match=match):
             distributed.graph_distributed_kmeans(prng.PRNGKey(0), sp, sm, K,
                                                  T, g, device="cpu", **kw)
-    for kw in ({"engine": "exec"}, {"routing": "min_cost"},
+    for kw in ({"engine": "exec"}, {"engine": "async"},
+               {"routing": "min_cost"},
                {"strategy": "cohen_addad"},
                {"strategy": "mapreduce"}, {"objective": "power(3)"},
                {"objective": "kmeans_trimmed(0.05)"}):

@@ -6,6 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import clustering as jclustering
 from repro.core import coreset as jcoreset
@@ -15,6 +16,11 @@ from repro.core import topology as jtopology
 from repro_torch.core import clustering, coreset, distributed, prng, topology
 from repro_torch.data.synthetic import paper_dataset
 from test_torch_objectives import _DIRECT
+
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

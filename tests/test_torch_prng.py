@@ -10,6 +10,11 @@ from repro.core import strategy as jstrategy
 from repro_torch import interop
 from repro_torch.core import prng, strategy
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 SEEDS = [0, 1, 42, 2**31 + 3, -5]
 
 

@@ -22,6 +22,11 @@ from repro_torch.kernels import distance_argmin as da_mod
 from repro_torch.kernels import ops, ref
 from repro_torch.serve import ClusterServeEngine, StaticCenters
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 # (T, m, k, d): tenant count, queries per tenant, max centres, dimension
 SHAPES = [(1, 8, 4, 3), (5, 12, 8, 16), (9, 33, 17, 7)]
 

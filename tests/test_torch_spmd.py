@@ -31,6 +31,11 @@ from repro_torch.core.distributed import (spmd_distributed_kmeans,
                                           spmd_distributed_kmeans_fn)
 from repro_torch.core.partition import pad_partition, partition_indices
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K, D = 4, 8
 T8, T6 = 256, 192

@@ -31,6 +31,11 @@ from repro.kernels import ops as jops
 from repro_torch.core import clustering, coreset, prng, strategy
 from repro_torch.kernels import ops
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 KEY = prng.PRNGKey(0)
 JKEY = jax.random.PRNGKey(0)
 FIELDS = ("points", "weights", "t_i", "local_costs")

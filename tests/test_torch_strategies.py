@@ -19,6 +19,11 @@ from repro_torch import interop
 from repro_torch.core import (clustering, comm, coreset, distributed, prng,
                               strategy, topology)
 
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
+
 K, T = 5, 400
 STRATEGIES = ["cohen_addad", "mapreduce"]
 

@@ -30,6 +30,12 @@ from repro_torch.data import synthetic
 from repro_torch.serve import ClusterServeEngine
 from repro_torch.stream import (ClusterQueryService, CoresetTree,
                                 DistributedStream, StreamState, TreeConfig)
+from repro_torch.wan import FaultPlan
+
+# torch runs single-threaded in these tests: with JAX's CPU runtime in the
+# same process, the two thread pools contend and torch's ops run 10-40x
+# slower
+torch.set_num_threads(1)
 
 KEY = prng.PRNGKey(0)
 JKEY = jax.random.PRNGKey(0)
@@ -343,9 +349,9 @@ def test_distributed_stream_uneven_sites():
 
 
 def test_distributed_stream_push_and_aggregate_errors():
-    """Bad sites, engines, transports, routings and modes raise; the
-    asynchronous WAN runtime (engine="async", or faults= with any engine)
-    is not ported and raises naming ROADMAP A5."""
+    """Bad sites, engines, transports, routings and modes raise; so do the
+    WAN runtime's rules, with the reference's messages: faults need
+    engine='exec'|'async', and an async round needs the flood transport."""
     ds = DistributedStream(topology.grid(2, 2), CFG, device="cpu")
     batch = _stream(1, seed=31)[0]
     for site in (4, -1):
@@ -358,9 +364,11 @@ def test_distributed_stream_push_and_aggregate_errors():
                       ({"transport": "pigeon"}, "transport"),
                       ({"transport": "tree", "routing": "warp"}, "routing"),
                       ({"mode": "sideways"}, "mode"),
-                      ({"engine": "async"}, "not yet ported.*ROADMAP A5"),
-                      ({"engine": "exec", "faults": object()},
-                       "not yet ported.*ROADMAP A5")):
+                      ({"engine": "async", "transport": "tree"},
+                       "faulty/async rounds support transport='flood' "
+                       "only, got 'tree'"),
+                      ({"engine": "sim", "faults": FaultPlan(seed=0)},
+                       r"faults require engine='exec'\|'async'")):
         with pytest.raises(ValueError, match=match):
             ds.aggregate(k=4, t=60, **kw)
     assert ds.rounds == 0
