@@ -19,9 +19,10 @@ Phases (any failed check raises, and the script exits non-zero):
    phases 3 and 5, 256 stacked serving tenants) plus ragged, d=256,
    forced-tie and coincident-centre cases, and for both resident
    statistics kernels a view from row 1 (odd offset), k = 1, the largest k
-   whose block fits shared memory and one more (the two-pass form, for
-   lloyd_stats the distance_argmin kernel and then lloyd_reduce), and a
-   NaN row; wherever lloyd_stats runs fused, lloyd_reduce on
+   whose block fits shared memory and one more (the two-pass form: the
+   distance_argmin kernel, then lloyd_reduce or weiszfeld_reduce, with no
+   plain version running), and a NaN row; wherever lloyd_stats or
+   weiszfeld_stats runs fused, lloyd_reduce or weiszfeld_reduce on
    distance_argmin's outputs must equal it bit for bit. Value error,
    argmin flips (each must be a near tie) and, for the fused statistics,
    arithmetic error against the reduction recomputed from the kernel's own
@@ -38,7 +39,11 @@ Phases (any failed check raises, and the script exits non-zero):
    tile, resident) and the profiler's device time per launch. Then time
    kernel, plain version and a PyTorch library yardstick, beside the bound
    from the shapes, at full data and (all three general kernels) at the
-   sites' shape. A sha256 digest of distance_argmin's outputs at those
+   sites' shape; weiszfeld_reduce at data selection's shape (8 x 2,048 x
+   4,096, k = 8) and the sites' with k = 320, first held there through
+   weiszfeld_stats (two launches, no plain version) and timed only within
+   SUM_RTOL of the plain reduction. A sha256 digest of
+   distance_argmin's outputs at those
    seven shapes and 30 small ones, of lloyd_stats' and weiszfeld_stats'
    outputs at the sites' and the coresets' shapes, and of each route's
    centres, lets two trees be compared bit for bit.
@@ -145,14 +150,29 @@ Phases (any failed check raises, and the script exits non-zero):
    128,256 x 4,096 table, 8 sites x 2,048 examples x 512 tokens, k = 8, t
    = a quarter of the pool): sum t_i = t, the pool's mass, indices in
    range, a bit-identical rerun, ``gather_selected``'s shapes, and the d =
-   4,096 routes (one-centre kernel, general tile, lloyd_stats' two-pass
-   form through the lloyd_reduce kernel) held to their plain versions, and
+   4,096 routes (one-centre kernel, general tile, lloyd_stats' and
+   weiszfeld_stats' two-pass forms through the lloyd_reduce and
+   weiszfeld_reduce kernels) held to their plain versions, and
    lloyd_reduce timed there beside its plain version, the library's
    index_add_ and its bound.
+13. The roofline of the main paths (``repro_torch.roofline``): phase 3's
+   k-means and phase 5's k-median flood routes, one serving step of phase
+   6, one ``select_coreset`` of phase 12 and a k-median solve of the
+   selection's embeddings (d = 4,096: weiszfeld_reduce; held before to
+   the same solve by backend='torch', full-data cost within
+   DRAW_COST_RTOL, and digested), each under
+   ``roofline.record()`` and the profiler: per phase and function calls,
+   flops, bytes, bound, device time and bound / device, busy time, idle
+   share and a ``RooflineReport``'s three terms; the ledger's calls equal
+   the launch counters, every kernel launch under a ledger call, no bound
+   / device above 1.05, digests unchanged with recording on; the ledger
+   at scale 0.1 equal under backend='cuda' and 'torch'; phase 11's W = 4
+   all-gather collectives by phase against the bytes it received.
 
-It prints a ``{"kernels": [...]}`` line (each entry also with its launches
-on phases 9, 10, 11 and 12), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
+Every bound is ``repro_torch.roofline.work``'s on the card's data-sheet
+figures (``roofline.report.detect``). It prints a ``{"kernels": [...]}``
+line (each entry also with its launches on phases 9, 10, 11 and 12), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -173,10 +193,6 @@ import torch
 # float32 products in full precision everywhere (TF32 flips argmins)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-
-# H100 SXM peaks at 700 W (NVIDIA data sheet): fp32 on the CUDA cores, HBM3
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 # |kernel - plain| on a squared distance, relative to |p|^2 + |c|^2: both
 # evaluate |p|^2 + |c|^2 - 2 p.c in float32 with d-term sums in different
@@ -280,51 +296,16 @@ def cuda_ms(fn, reps=20):
     return start.elapsed_time(stop) / reps
 
 
-def bound(flops, nbytes):
-    """Least time (ms) the card could take, and which limit sets it."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def distance_work(S, n, k, d):
-    flops = S * n * k * (2 * d + 3) + 2 * S * (n + k) * d
-    nbytes = 4 * S * (n * d + k * d) + 8 * S * n
-    return flops, nbytes
-
-
-def lloyd_work(S, n, k, d):
-    flops, _ = distance_work(S, n, k, d)
-    flops += S * n * (2 * d + 3)
-    nbytes = 4 * S * (n * d + n + k * d) + 4 * S * (k * d + k + 1)
-    return flops, nbytes
-
-
-def weiszfeld_work(S, n, k, d):
-    """The assignment, the exact-form distance (3 d), the numerators (2 d)
-    and the inverse and cost (~8) per point."""
-    flops, _ = distance_work(S, n, k, d)
-    flops += S * n * (5 * d + 8)
-    nbytes = 4 * S * (n * d + n + k * d) + 4 * S * (k * d + k + 1)
-    return flops, nbytes
-
-
-def batched_work(T, m, k_live, d):
-    """T tenants of m queries against their live centres only (k_live is
-    the total over tenants): what the data needs, not the padded rows."""
-    flops = m * k_live * (2 * d + 3) + 2 * (T * m + k_live) * d
-    nbytes = 4 * (T * m * d + k_live * d) + 8 * T * m
-    return flops, nbytes
-
-
 def expect_launches(label, got, by_kernel, *, argmin_one_center=0,
                     argmin_resident=0, lloyd=0):
     """Hold a run's launches to the counts its path implies: one-centre
     (D^z seeding) and resident-tile distance_argmin launches, lloyd_stats
-    launches, and no weiszfeld_stats, batched or lloyd_reduce launch."""
+    launches, and no weiszfeld_stats, batched, lloyd_reduce or
+    weiszfeld_reduce launch."""
     want = {"distance_argmin": argmin_one_center + argmin_resident,
             "lloyd_stats": lloyd, "weiszfeld_stats": 0,
-            "distance_argmin_batched": 0, "lloyd_reduce": 0}
+            "distance_argmin_batched": 0, "lloyd_reduce": 0,
+            "weiszfeld_reduce": 0}
     check(got == want, f"{label}: launches {got}, expected {want}")
     want_by = {"distance_one_center": argmin_one_center,
                "distance_argmin_resident": argmin_resident,
@@ -784,7 +765,7 @@ def phase8(seed, dev, data, k, sp, sm, g, t, sim_bfs, sim_wan, counts,
                 {"lloyd_stats": 0,
                  "weiszfeld_stats": 2 * 8 * WEISZFELD_ITERS})
         want.update(distance_argmin=2 * k + 1, distance_argmin_batched=0,
-                    lloyd_reduce=0)
+                    lloyd_reduce=0, weiszfeld_reduce=0)
         check(out["exec"][3] == want
               and out["exec"][4]["distance_one_center"] == 2 * k
               and out["exec"][4]["distance_argmin_resident"] == 1,
@@ -1341,8 +1322,11 @@ def phase11_rank(mesh, spec):
     spawned process): every run of ``SPMD_RUNS[spec["world"]]`` on the
     global sites memory-mapped from ``spec["points"]`` / ``spec["mask"]``,
     each with every launch count from zero just before it and read just
-    after. The kernels were built by the parent: a rank loads the
-    libraries ``spec["libraries"]`` and never builds. Returns host values."""
+    after, and the collectives it issued by phase
+    (``roofline.trace.collective_phase_analysis`` of the collectives
+    recorded around the run).
+    The kernels were built by the parent: a rank loads the libraries
+    ``spec["libraries"]`` and never builds. Returns host values."""
     # a spawned process starts with PyTorch's defaults: TF32 off here too
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1350,6 +1334,8 @@ def phase11_rank(mesh, spec):
     from repro_torch.core.distributed import spmd_distributed_kmeans
     from repro_torch.kernels import ops
     from repro_torch.kernels import distance_argmin as da
+    from repro_torch.roofline.trace import (collective_phase_analysis,
+                                            record)
     missing = [p for p in spec["libraries"] if not os.path.exists(p)]
     if missing:
         raise FileNotFoundError(f"rank {mesh.rank}: kernels not built: "
@@ -1367,10 +1353,12 @@ def phase11_rank(mesh, spec):
         staged = mesh.staged_bytes
         times = {}
         t0 = time.perf_counter()
-        c, lc, t_i = spmd_distributed_kmeans(
-            mesh, "sites", prng.PRNGKey(spec["seed"], device=mesh.device),
-            sp, sm, spec["k"], spec["t"], lloyd_iters=spec["lloyd_iters"],
-            phase_times=times, **kw)
+        with record() as led:
+            c, lc, t_i = spmd_distributed_kmeans(
+                mesh, "sites", prng.PRNGKey(spec["seed"],
+                                            device=mesh.device),
+                sp, sm, spec["k"], spec["t"],
+                lloyd_iters=spec["lloyd_iters"], phase_times=times, **kw)
         if cuda:
             torch.cuda.synchronize(mesh.device)
         wall = time.perf_counter() - t0
@@ -1381,6 +1369,10 @@ def phase11_rank(mesh, spec):
             "launches": {kern.name: kern.launches for kern in ops.KERNELS},
             "by_kernel": {kern.name: kern.launches for kern in da.ROUTES},
             "staged": mesh.staged_bytes - staged,
+            "collectives": {
+                phase: (a.collective_counts, a.collective_bytes_by_kind)
+                for phase, a in collective_phase_analysis(
+                    led.collectives).items()},
             "peak_gib": (torch.cuda.max_memory_allocated(mesh.device) / 2**30
                          if cuda else 0.0)})
     return out
@@ -1446,7 +1438,8 @@ def phase11(seed, dev, pts, sp, sm, k, t, base_km, base_md, libraries,
     phase 2's kernel checks, run here at one rank's merged-site shape.
     ``libraries`` are the built kernels' paths. Adds digests; returns the
     launches of rank 0 over the W = 4 k-means and k-median all_gather
-    runs (per entry and by kernel)."""
+    runs (per entry and by kernel), and rank 0's record of the W = 4
+    k-means all_gather run (for phase 13)."""
     import tempfile
     from repro_torch.core import clustering
     from repro_torch.core.coreset import proportional_allocation
@@ -1483,7 +1476,8 @@ def phase11(seed, dev, pts, sp, sm, k, t, base_km, base_md, libraries,
         return ({"distance_argmin": 2 * k + 1,
                  "lloyd_stats": 0 if kmedian else steps,
                  "weiszfeld_stats": WEISZFELD_ITERS * steps if kmedian
-                 else 0, "distance_argmin_batched": 0, "lloyd_reduce": 0},
+                 else 0, "distance_argmin_batched": 0, "lloyd_reduce": 0,
+                 "weiszfeld_reduce": 0},
                 {"distance_one_center": 2 * k,
                  "distance_argmin_resident": 1, "distance_argmin_tile": 0})
 
@@ -1567,6 +1561,9 @@ def phase11(seed, dev, pts, sp, sm, k, t, base_km, base_md, libraries,
                       f"of {tm['hops']} hops; staged host bytes per rank "
                       f"{[rank[j]['staged'] for rank in ranks]}; per rank (s) "
                       f"{json.dumps(per_rank)}")
+                if (world, backend, label) == (4, "gloo",
+                                               "kmeans all_gather"):
+                    w4_gather = r0
                 if world == 4 and label in ("kmeans all_gather",
                                             "kmedian all_gather"):
                     for name, v in (*r0["launches"].items(),
@@ -1609,7 +1606,7 @@ def phase11(seed, dev, pts, sp, sm, k, t, base_km, base_md, libraries,
             print(f"  an NCCL group of 2 ranks on cuda:0: the probe's "
                   f"launch failed: {str(e)[-600:]}")
     print(f"  phase 11 wall {time.perf_counter() - t_phase:.1f} s")
-    return total
+    return total, w4_gather
 
 
 # llama3-8b's embedding widths (src/repro/configs/llama3_8b.py) and the
@@ -1622,7 +1619,7 @@ SELECT_K, SELECT_FRACTION = 8, 0.25
 LEDGER_UNITS = ("scalars", "points", "messages", "bytes", "link_cost")
 
 
-def phase12(seed, dev, k, sites25, stream25, counts, digests, checks):
+def phase12(seed, dev, k, sites25, stream25, counts, digests, checks, hw):
     """The asynchronous WAN runtime and data selection (backend='cuda').
 
     (a) ``sites25`` (phase 8's 25 weighted sites of the full data) on
@@ -1645,10 +1642,12 @@ def phase12(seed, dev, k, sites25, stream25, counts, digests, checks):
     = 0.25 of the pool, ``gather_selected``; the d = 4,096 routes (the
     one-centre kernel, the general tile, lloyd_stats' two-pass form through
     lloyd_reduce) held to their plain versions, and lloyd_reduce timed
-    (:func:`time_lloyd_reduce`). ``counts`` as in :func:`phase7`; adds
-    digests; any failed check raises. Returns the phase's launches (the
-    async, faulty, certificate, stream and selection runs; not the exec
-    runs they are held to) and lloyd_reduce's kernels-line fields."""
+    (:func:`time_reduce`) on the card ``hw``. ``counts`` as in
+    :func:`phase7`; adds digests; any failed check raises. Returns the
+    phase's launches (the async, faulty, certificate, stream and selection
+    runs; not the exec runs they are held to), lloyd_reduce's kernels-line
+    fields and (key, embeddings, mask, t) of the selection, for phase
+    13."""
     import copy
     from repro_torch.core import prng, topology
     from repro_torch.core.coreset import Coreset
@@ -1735,7 +1734,7 @@ def phase12(seed, dev, k, sites25, stream25, counts, digests, checks):
                 {"lloyd_stats": 0,
                  "weiszfeld_stats": 2 * 8 * WEISZFELD_ITERS})
         want.update(distance_argmin=2 * k + 1, distance_argmin_batched=0,
-                    lloyd_reduce=0)
+                    lloyd_reduce=0, weiszfeld_reduce=0)
         want_by = {da.ONE_CENTER.name: 2 * k, da.RESIDENT.name: 1,
                    da.TILE.name: 0}
         check(asy[2] == ex[2] == want and asy[3] == ex[3] == want_by,
@@ -1929,7 +1928,7 @@ def phase12(seed, dev, k, sites25, stream25, counts, digests, checks):
     # nearest-example search; each step's sums through lloyd_reduce
     want = {"distance_argmin": SELECT_K + 5 + 1, "lloyd_stats": 0,
             "weiszfeld_stats": 0, "distance_argmin_batched": 0,
-            "lloyd_reduce": 5}
+            "lloyd_reduce": 5, "weiszfeld_reduce": 0}
     want_by = {da.ONE_CENTER.name: SELECT_K, da.RESIDENT.name: 0,
                da.TILE.name: 5 + 1}
     check(n_sel == want and by_sel == want_by,
@@ -1954,49 +1953,228 @@ def phase12(seed, dev, k, sites25, stream25, counts, digests, checks):
                        checks["rows"](emb, 1))
     checks["distance"]("selection", emb, c8)
     checks["lloyd"]("selection", emb, c8, mask.float())
-    reduce_row = time_lloyd_reduce(dev, emb, c8, mask.float())
-    del table, tokens, emb, sel, again, out
+    checks["weiszfeld"]("selection", emb, c8, mask.float())
+    reduce_row = time_reduce(dev, "lloyd_reduce", emb, c8, mask.float(), hw)
+    del table, tokens, sel, again, out
     print(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s")
-    return total, reduce_row
+    return total, reduce_row, (key, emb, mask, t_sel)
 
 
-def time_lloyd_reduce(dev, p, c, w):
-    """lloyd_reduce at data selection's shape, given distance_argmin's
-    assignment: its largest deviation from the plain reduction (sums and
-    counts), and the kernel, the plain version (a one-hot product) and the
-    library's index_add_ timed beside the bound. Returns the kernels-line
-    fields."""
+# substrings of the port's kernel names: every device operation that holds
+# one was launched by a kernel wrapper
+PORT_KERNELS = ("distance_", "lloyd_", "weiszfeld_", "partials_reduce")
+
+
+def ledger_launches(ledger):
+    """The launches each kernel entry makes for a ledger's calls, by the
+    routing rule of ``kernels.ops``: a statistics call whose block does not
+    fit shared memory runs distance_argmin and its reduction kernel; and
+    the one-centre launches (the calls with k = 1)."""
+    from repro_torch.kernels import lloyd_update as lu
+    from repro_torch.kernels import weiszfeld as wz
+    want = {"distance_argmin": 0, "lloyd_stats": 0, "weiszfeld_stats": 0,
+            "distance_argmin_batched": 0, "lloyd_reduce": 0,
+            "weiszfeld_reduce": 0}
+    one_center = 0
+    for call in ledger:
+        _, _, k, d = call.sizes()
+        if call.function == "min_dist_argmin":
+            want["distance_argmin"] += 1
+            one_center += k == 1
+        elif call.function == "min_dist_argmin_batched":
+            want["distance_argmin_batched"] += 1
+        else:
+            fits = (lu if call.function == "lloyd_stats" else wz).fits(k, d)
+            if fits:
+                want[call.function] += 1
+            else:
+                want["distance_argmin"] += 1
+                want[call.function.replace("_stats", "_reduce")] += 1
+    return want, one_center
+
+
+def phase13(seed, dev, hw, runs, counts, small, w4_gather, digests):
+    """The roofline of the main paths at full width: each of ``runs``
+    (label -> (run, digest key or None)) once under
+    ``repro_torch.roofline.record()`` and ``torch.profiler``, with every
+    launch count from zero around it. Per phase and function: calls,
+    flops, bytes, bound, device time and bound / device; the device's busy
+    time and idle share; the three terms of a ``RooflineReport``. Checks:
+    the ledger's calls give the launch counters exactly
+    (:func:`ledger_launches`); every device operation of the port's
+    kernels ran under a ledger call; every function's device time is
+    measured and no bound / device exceeds 1.05; a run with a digest key
+    gives that digest with recording on. Then the ledger of phase 4's
+    scale-0.1 instance (``small``: data, sites, mask, graph, k, t) equal
+    under backend='cuda' and 'torch', and phase 11's W = 4 all_gather run
+    (``w4_gather``): its collectives by phase, each gather's link bytes
+    equal to the bytes the run recorded receiving. Returns each run's
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import roofline
+    from repro_torch.core import prng
+    from repro_torch.core.distributed import graph_distributed_kmeans
+    from repro_torch.kernels import distance_argmin as da
+    from repro_torch.roofline import report, trace
+
+    t_phase = time.perf_counter()
+    reset_counts, entry_counts, route_counts = counts
+    print(f"phase 13: the roofline of the main paths on {hw.name} figures "
+          f"(fp32 {hw.fp32_flops / 1e12:g} TFLOP/s, memory "
+          f"{hw.hbm_bytes_per_s / 1e12:g} TB/s; this card's power limit "
+          f"{hw.power_limit_w:g} W)")
+    launched = {}
+    for label, (run, digest_key) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with roofline.record() as led:
+                out = run()
+                torch.cuda.synchronize()
+        got, by = entry_counts(), route_counts()
+        launched[label] = got
+        peak = torch.cuda.max_memory_allocated()
+        spans = trace.device_spans(prof.events(),
+                                   {c.phase for c in led if c.phase})
+        roof = trace.analyze(led, spans, hw)
+        print(f"  {label}: {len(led)} calls, wall "
+              f"{roof.wall_ms:.3f} ms (tracing on), launches "
+              f"{json.dumps(got)}")
+        for line in roof.lines():
+            print(f"    {line}")
+        rep = report.build_report(label, "full width", "1 card", None,
+                                  "cluster", 0, 0, 1, roof.analysis(), None,
+                                  float(peak), hw, precision="fp32")
+        print(f"    three terms: compute {rep.compute_s * 1e3:.4f} ms, "
+              f"memory {rep.memory_s * 1e3:.4f} ms, collective "
+              f"{rep.collective_s * 1e3:.4f} ms ({rep.bottleneck}); peak "
+              f"device memory {peak / 2**30:.2f} GiB")
+        want, one_center = ledger_launches(led)
+        check(got == want and by[da.ONE_CENTER.name] == one_center
+              and sum(by.values()) == want["distance_argmin"]
+              + want["distance_argmin_batched"],
+              f"phase 13 {label}: launches {got} {by}, the ledger's calls "
+              f"give {want} and {one_center} one-centre")
+        stray = sorted({s.name[:60] for s in spans if s.function is None
+                        and any(x in s.name for x in PORT_KERNELS)})
+        check(not stray, f"phase 13 {label}: kernels launched outside every "
+              f"ledger call: {stray}")
+        for row in roof.rows:
+            check(row.device_ms and row.share <= 1.05,
+                  f"phase 13 {label}: {row.phase} {row.function} bound "
+                  f"{row.bound_ms:.4f} ms against device "
+                  f"{row.device_ms} ms")
+        if digest_key is not None:
+            got_digest = digest(*out)
+            check(got_digest == digests[digest_key],
+                  f"phase 13 {label}: digest {got_digest} with recording on, "
+                  f"{digests[digest_key]} without")
+            print(f"    digest equals {digest_key}'s with recording on")
+    # the ledger does not depend on the backend that serves the calls
+    data_s, sp_s, sm_s, g, k, t = small
+    leds = {}
+    for backend in ("cuda", "torch"):
+        with roofline.record() as led:
+            graph_distributed_kmeans(prng.PRNGKey(seed), sp_s, sm_s, k, t, g,
+                                     backend=backend, device=dev)
+        leds[backend] = [(c.function, c.sizes(), c.phase) for c in led]
+    check(leds["cuda"] == leds["torch"],
+          "phase 13: the scale-0.1 ledger differs between backend='cuda' "
+          "and 'torch'")
+    print(f"  scale 0.1 (n={data_s.shape[0]}): the ledger's "
+          f"{len(leds['cuda'])} calls equal under backend='cuda' and "
+          f"'torch'")
+    # the collectives of the SPMD path, by phase
+    times = w4_gather["times"]
+    print(f"  phase 11 W=4 kmeans all_gather, rank 0: collectives by phase "
+          f"{json.dumps(w4_gather['collectives'])}")
+    for phase in ("round1", "round2"):
+        link = w4_gather["collectives"][phase][1].get("all-gather", 0.0)
+        want = times[f"{phase}_gather_bytes"]
+        check(abs(link - want) <= 1e-9 * want,
+              f"phase 13: W=4 {phase} all-gather link bytes {link}, the run "
+              f"received {want}")
+    print("  each round's all-gather link bytes equal the bytes the run "
+          "received in that round")
+    print(f"  phase 13 wall {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def weiszfeld_scale(p, c, w, am):
+    """The sums of |terms| of the Weiszfeld reduction given an assignment:
+    nums, denoms (themselves sums of terms >= 0) and cost."""
+    from repro_torch.kernels import ref
+    idx = am.long()[..., None].expand(*am.shape, p.shape[-1])
+    diff = p - torch.gather(c, -2, idx)
+    d2 = (diff * diff).sum(-1)
+    inv = w.clamp_min(0.0) / torch.sqrt(d2 + ref.WEISZFELD_ETA2)
+    oh = torch.nn.functional.one_hot(am.long(), c.shape[-2]).float()
+    na = (oh * inv[..., None]).transpose(-1, -2) @ p.abs()
+    return na, (oh * inv[..., None]).sum(-2), (
+        w.abs() * torch.sqrt(d2)).sum(-1)
+
+
+def time_reduce(dev, name, p, c, w, hw):
+    """One reduction kernel of the two-pass form (``name``: lloyd_reduce or
+    weiszfeld_reduce) at ``p``'s shape, given distance_argmin's assignment:
+    its largest deviation from the plain reduction (sums and counts),
+    which must lie within SUM_RTOL of the sums of |terms|, and the kernel,
+    the plain version (a one-hot product) and the library's index_add_
+    timed beside the bound on ``hw``. Returns the kernels-line fields."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.roofline import work
     S, M, d = p.shape
     kk = c.shape[-2]
     md, am = ops.min_dist_argmin(p, c)
-    out = ops.lloyd_reduce(p, kk, w, md, am)
-    plain = ref.lloyd_reduce(p, kk, w, md, am)
-    torch.cuda.synchronize()
-    err = max(float((a - b).abs().max()) for a, b in zip(out[:2], plain[:2]))
     flat = (am.long() + torch.arange(S, device=dev)[:, None] * kk).view(-1)
+    if name == "lloyd_reduce":
+        args = (p, kk, w, md, am)
 
-    def library():
-        """The same statistics by PyTorch's own calls: two index_add_ and
-        a sum."""
-        torch.zeros(S * kk, d, device=dev).index_add_(
-            0, flat, (w[..., None] * p).view(-1, d))
-        torch.zeros(S * kk, device=dev).index_add_(0, flat, w.view(-1))
-        return (w * md).sum(-1)
+        def library():
+            """The same statistics by PyTorch's own calls: two index_add_
+            and a sum."""
+            torch.zeros(S * kk, d, device=dev).index_add_(
+                0, flat, (w[..., None] * p).view(-1, d))
+            torch.zeros(S * kk, device=dev).index_add_(0, flat, w.view(-1))
+            return (w * md).sum(-1)
+    else:
+        args = (p, c, w, am)
 
-    ms = cuda_ms(lambda: ops.lloyd_reduce(p, kk, w, md, am))
-    plain_ms = cuda_ms(lambda: ref.lloyd_reduce(p, kk, w, md, am), reps=5)
+        def library():
+            """The same statistics by PyTorch's own calls: the assigned
+            centre's exact distance, two index_add_ and a sum."""
+            diff = p - torch.gather(c, -2, am.long()[..., None].expand(
+                *am.shape, d))
+            d2 = (diff * diff).sum(-1)
+            inv = w.clamp_min(0.0) / torch.sqrt(d2 + ref.WEISZFELD_ETA2)
+            torch.zeros(S * kk, d, device=dev).index_add_(
+                0, flat, (inv[..., None] * p).view(-1, d))
+            torch.zeros(S * kk, device=dev).index_add_(0, flat,
+                                                       inv.view(-1))
+            return (w * torch.sqrt(d2)).sum(-1)
+    kernel, plain_fn = getattr(ops, name), getattr(ref, name)
+    out = kernel(*args)
+    plain = plain_fn(*args)
+    scale = (ref.lloyd_reduce(p.abs(), kk, w.abs(), md, am)
+             if name == "lloyd_reduce" else weiszfeld_scale(p, c, w, am))
+    torch.cuda.synchronize()
+    errs = [(a - b).abs() for a, b in zip(out[:2], plain[:2])]
+    for e, sa, what in zip(errs, scale[:2], ("sums", "counts")):
+        check((e <= SUM_RTOL * sa + 1e-6).all(),
+              f"{name} {tuple(p.shape)} k={kk}: {what} error "
+              f"{float(e.max())} against the plain reduction")
+    err = max(float(e.max()) for e in errs)
+    ms = cuda_ms(lambda: kernel(*args))
+    plain_ms = cuda_ms(lambda: plain_fn(*args), reps=5)
     library_ms = cuda_ms(library)
-    # one fmaf per point feature, an add per count and an fmaf per cost
-    # term; each point, weight, min d2 and assignment read once, the
-    # statistics written once
-    b_ms, b_by = bound(2 * S * M * (d + 2),
-                       4 * S * M * (d + 3) + 4 * S * (kk * d + kk + 1))
-    print(f"    lloyd_reduce {tuple(p.shape)} k={kk} (ms, mean of 20): "
-          f"kernel {ms:.4f}, plain (one-hot product) {plain_ms:.4f}, "
-          f"library (index_add_) {library_ms:.4f}, bound {b_ms:.4f} "
-          f"({b_by}); kernel at {b_ms / ms:.3f} of the bound; max |err| "
-          f"against the plain reduction {err:.3g}")
+    b_ms, b_by = work.bound(*getattr(work, name)(S, M, kk, d), hw)
+    print(f"    {name} {tuple(p.shape)} k={kk} (ms, mean of 20): kernel "
+          f"{ms:.4f}, plain (one-hot product) {plain_ms:.4f}, library "
+          f"(index_add_) {library_ms:.4f}, bound {b_ms:.4f} ({b_by}); "
+          f"kernel at {b_ms / ms:.3f} of the bound; max |err| against the "
+          f"plain reduction {err:.3g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
@@ -2025,11 +2203,15 @@ def main(argv=None) -> int:
     from repro_torch.core.objective import WEISZFELD_ITERS
     from repro_torch.core.partition import pad_partition, partition_indices
     from repro_torch.core.topology import bfs_spanning_tree, grid
+    from repro_torch.data import select_coreset
     from repro_torch.data.synthetic import paper_dataset
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import distance_argmin as da
     from repro_torch.kernels import lloyd_update as lu
     from repro_torch.kernels import weiszfeld as wz
+    from repro_torch.roofline import report as rf_report
+    from repro_torch.roofline import trace as rf_trace
+    from repro_torch.roofline import work as rwork
     from repro_torch.serve import ClusterServeEngine, StaticCenters
 
     t_all = time.perf_counter()
@@ -2049,6 +2231,12 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
+    # the card's data-sheet figures (refuses a card it has none for)
+    hw = rf_report.detect(0)
+
+    def bound(flops, nbytes):
+        """Least time (ms) the card could take, and which limit sets it."""
+        return rwork.bound(flops, nbytes, hw)
 
     # -- phase 1: build ---------------------------------------------------
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
@@ -2067,9 +2255,9 @@ def main(argv=None) -> int:
             entry = "one_center" in line
         if entry:
             print(f"  one-centre kernel: {line}")
-    # five kernel entries with their own counters over four libraries
+    # six kernel entries with their own counters over four libraries
     check(set(built) == {k.library for k in ops.KERNELS}
-          and len({k.name for k in ops.KERNELS}) == 5,
+          and len({k.name for k in ops.KERNELS}) == 6,
           f"built {sorted(built)}, kernels "
           f"{[(k.name, k.library) for k in ops.KERNELS]}")
 
@@ -2146,18 +2334,6 @@ def main(argv=None) -> int:
               f"near-tie flips (gap <= {D2_RTOL:g} (|p|^2+|c|^2))")
         return md, am, ar, value_err
 
-    def weiszfeld_scale(p, c, w, am):
-        """The sums of |terms| of the Weiszfeld reduction given an
-        assignment: nums, denoms (themselves sums of terms >= 0) and cost."""
-        idx = am.long()[..., None].expand(*am.shape, p.shape[-1])
-        diff = p - torch.gather(c, -2, idx)
-        d2 = (diff * diff).sum(-1)
-        inv = w.clamp_min(0.0) / torch.sqrt(d2 + ref.WEISZFELD_ETA2)
-        oh = torch.nn.functional.one_hot(am.long(), c.shape[-2]).float()
-        na = (oh * inv[..., None]).transpose(-1, -2) @ p.abs()
-        return na, (oh * inv[..., None]).sum(-2), (
-            w.abs() * torch.sqrt(d2)).sum(-1)
-
     def check_launches(label, kern, fits, before, c):
         """The resident kernel launched twice (a call and its rerun) where
         its block fits shared memory, and not at all where ops takes the
@@ -2168,19 +2344,48 @@ def main(argv=None) -> int:
               f"times, expected {2 * fused}")
         return "one pass" if fused else "two-pass form"
 
+    def without_plain(fn):
+        """``fn()`` with the plain Weiszfeld versions refusing to run: what
+        it computes on the card, it computes by kernels."""
+        saved = ref.weiszfeld_reduce, ref.weiszfeld_stats_ref
+
+        def refuse(*args, **kw):
+            raise CheckFailed("a plain Weiszfeld version ran on the card")
+
+        ref.weiszfeld_reduce = ref.weiszfeld_stats_ref = refuse
+        try:
+            return fn()
+        finally:
+            ref.weiszfeld_reduce, ref.weiszfeld_stats_ref = saved
+
     def check_weiszfeld(label, p, c, w):
         """weiszfeld_stats against the plain reduction of the kernel's own
         assignment (arithmetic error, relative to the sums of |terms|) and
         against the plain version (value error, near-tie flips included);
-        a rerun must be bit-identical."""
+        a rerun must be bit-identical, and no plain version may run. The
+        two-pass form launches weiszfeld_reduce twice (a call and its
+        rerun); where the fused kernel runs, weiszfeld_reduce on
+        distance_argmin's assignment must equal it bit for bit."""
         before = wz.KERNEL.launches
-        out = ops.weiszfeld_stats(p, c, w)
-        again = ops.weiszfeld_stats(p, c, w)
+        reduce_before = wz.REDUCE.launches
+        out, again = without_plain(lambda: (ops.weiszfeld_stats(p, c, w),
+                                            ops.weiszfeld_stats(p, c, w)))
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
               f"weiszfeld_stats[{label}] differs between two runs")
         route = check_launches(label, wz.KERNEL, wz.fits, before, c)
+        two_pass = route == "two-pass form"
+        check(wz.REDUCE.launches == reduce_before + 2 * two_pass,
+              f"weiszfeld_reduce[{label}] launched "
+              f"{wz.REDUCE.launches - reduce_before} times, expected "
+              f"{2 * two_pass}")
         # weiszfeld_stats assigns every point bit for bit as distance_argmin
         _, am, ar, _ = check_distance(f"{label}, assignment", p, c)
+        if not two_pass:
+            route += ", equal bit for bit to distance_argmin + " \
+                "weiszfeld_reduce"
+            check(all(torch.equal(a, b) for a, b in zip(
+                out, ops.weiszfeld_reduce(p, c, w, am))),
+                  f"weiszfeld_reduce[{label}] differs from the fused kernel")
         nr, dr, cr = ref.weiszfeld_reduce(p, c, w, am)
         na, _, ca = weiszfeld_scale(p, c, w, am)
         plain = ref.weiszfeld_stats_ref(p, c, w)
@@ -2349,7 +2554,7 @@ def main(argv=None) -> int:
         t = (cuda_ms(lambda: ops.min_dist_argmin(p, c1)),
              cuda_ms(lambda: ref.min_dist_argmin_ref(p, c1)),
              cuda_ms(lambda: torch.cdist(p, c1).min(-1)),
-             *bound(*distance_work(S1, M1, 1, p.shape[-1])))
+             *bound(*rwork.min_dist_argmin(S1, M1, 1, p.shape[-1])))
         print(f"  distance_argmin one-centre [{label}] {tuple(p.shape)}: "
               f"kernel {t[0]:.4f}, plain {t[1]:.4f}, library (cdist + min) "
               f"{t[2]:.4f}, bound {t[3]:.4f} ({t[4]}); kernel at "
@@ -2503,9 +2708,9 @@ def main(argv=None) -> int:
               f"the general tile")
         if batched:
             live = int((c[..., 0] != ref.CENTER_SENTINEL).sum())
-            work = batched_work(S1, M1, live, d)
+            work = rwork.min_dist_argmin_batched(S1, M1, live, d)
         else:
-            work = distance_work(S1, M1, k, d)
+            work = rwork.min_dist_argmin(S1, M1, k, d)
         b_ms, b_by = bound(*work)
         res, tile = da.distance_argmin_resident, da.distance_argmin_tile
         tt = [cuda_ms(lambda: fn(p, c)) for fn in (res, tile, tile, res)]
@@ -2562,8 +2767,8 @@ def main(argv=None) -> int:
         return (w * torch.sqrt(d2)).sum(-1)
 
     ls_lib = cuda_ms(lambda: lloyd_library(p2d, c2d, w_main))
-    da_bound, da_by = bound(*distance_work(1, n, k, d))
-    ls_bound, ls_by = bound(*lloyd_work(1, n, k, d))
+    da_bound, da_by = bound(*rwork.min_dist_argmin(1, n, k, d))
+    ls_bound, ls_by = bound(*rwork.lloyd_stats(1, n, k, d))
     print(f"  timing at n={n} k={k} d={d} (ms, mean of 20):")
     print(f"  distance_argmin: kernel {da_ms:.4f}, plain {da_plain:.4f}, "
           f"library (cdist + min) {da_lib:.4f}, bound {da_bound:.4f} "
@@ -2575,13 +2780,13 @@ def main(argv=None) -> int:
     wz_plain = cuda_ms(lambda: ref.weiszfeld_stats_ref(p2d, c2d, w_signed))
 
     wz_lib = cuda_ms(lambda: weiszfeld_library(p2d, c2d, w_signed))
-    wz_bound, wz_by = bound(*weiszfeld_work(1, n, k, d))
+    wz_bound, wz_by = bound(*rwork.weiszfeld_stats(1, n, k, d))
     print(f"  weiszfeld_stats: kernel {wz_ms:.4f}, plain {wz_plain:.4f}, "
           f"library (cdist + argmin + gather + index_add_) {wz_lib:.4f}, "
           f"bound {wz_bound:.4f} ({wz_by})")
     db = {}
     for m, q in q_srv.items():
-        b_ms, b_by = bound(*batched_work(T_srv, m, k_sum, d))
+        b_ms, b_by = bound(*rwork.min_dist_argmin_batched(T_srv, m, k_sum, d))
         db[m] = (cuda_ms(lambda: ops.min_dist_argmin_batched(q, c_srv)),
                  cuda_ms(lambda: ref.min_dist_argmin_batched_ref(q, c_srv),
                          reps=5),
@@ -2596,24 +2801,44 @@ def main(argv=None) -> int:
             ("distance_argmin", lambda: ops.min_dist_argmin(sp, c_sites),
              lambda: ref.min_dist_argmin_ref(sp, c_sites),
              ("cdist + min", lambda: torch.cdist(sp, c_sites).min(-1)),
-             distance_work(S, M, k, d)),
+             rwork.min_dist_argmin(S, M, k, d)),
             ("lloyd_stats", lambda: ops.lloyd_stats(sp, c_sites, w_sites),
              lambda: ref.lloyd_stats_ref(sp, c_sites, w_sites),
              ("cdist + argmin + index_add_",
               lambda: lloyd_library(sp, c_sites, w_sites)),
-             lloyd_work(S, M, k, d)),
+             rwork.lloyd_stats(S, M, k, d)),
             ("weiszfeld_stats", lambda: ops.weiszfeld_stats(
                 sp, c_sites, w_sites),
              lambda: ref.weiszfeld_stats_ref(sp, c_sites, w_sites),
              ("cdist + argmin + gather + index_add_",
               lambda: weiszfeld_library(sp, c_sites, w_sites)),
-             weiszfeld_work(S, M, k, d))):
+             rwork.weiszfeld_stats(S, M, k, d))):
         b_ms, b_by = bound(*work)
         ms = cuda_ms(fn)
         print(f"  {label} sites ({S} x {M}): kernel {ms:.4f}, plain "
               f"{cuda_ms(plain, reps=5):.4f}, library (batched {lib[0]}) "
               f"{cuda_ms(lib[1]):.4f}, bound {b_ms:.4f} ({b_by}); kernel at "
               f"{b_ms / ms:.3f} of the bound")
+
+    # weiszfeld_reduce (weiszfeld_stats' two-pass form) at data selection's
+    # shape (8 sites x 2,048 rows x 4,096 features, k = 8) and at the sites'
+    # with k = 320, past the fused kernel's limit at d = 90, each checked
+    # through weiszfeld_stats and then timed; drawn from a generator of
+    # their own, so the later phases draw what they drew
+    gen_wr = torch.Generator(device=dev).manual_seed(args.seed + 25)
+    p_sel = torch.randn((8, 2048, 4096), generator=gen_wr, device=dev)
+    w_sel = torch.rand((8, 2048), generator=gen_wr, device=dev) * 2.0 - 1.0
+    c_sel = p_sel[:, :8].clone()
+    check(not wz.fits(8, 4096), "k = 8 at d = 4,096 fits weiszfeld_stats")
+    check_weiszfeld("selection's shape", p_sel, c_sel, w_sel)
+    wr_row = time_reduce(dev, "weiszfeld_reduce", p_sel, c_sel, w_sel, hw)
+    del p_sel, w_sel, c_sel
+    check(not wz.fits(320, d), "k = 320 at d = 90 fits weiszfeld_stats")
+    pick = torch.randint(0, M, (320,), generator=gen_wr, device=dev)
+    c_pick = sp[:, pick].contiguous()
+    check_weiszfeld("sites, k = 320", sp, c_pick, w_sites)
+    time_reduce(dev, "weiszfeld_reduce", sp, c_pick, w_sites, hw)
+    del c_pick
 
     # -- phase 3: the main path at full size ----------------------------------
     lap("data + phase 2")
@@ -2628,7 +2853,8 @@ def main(argv=None) -> int:
 
     def traced_route(label, run, kernels):
         """Trace one run of a route: wall, device busy time (the union of
-        the device operations' spans), idle share, the six kernels with the
+        the device operations' spans, ``roofline.trace.busy_us``), idle
+        share, the six kernels with the
         most device time, and for each ``(part, title)`` of ``kernels`` the
         device time and launches of the kernels whose name holds ``part``
         (printed as ``title``)."""
@@ -2640,25 +2866,19 @@ def main(argv=None) -> int:
             run()
             torch.cuda.synchronize()
             traced_wall = time.perf_counter() - t0
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        # the device's operations, not the phases' annotations
+        spans = rf_trace.device_spans(prof.events(), ())
         if not spans:
             print(f"  traced {label} run: idle share not measured (the "
                   f"profiler saw no device events)")
             return
-        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-        for s, e in spans[1:]:
-            if s > cur_e:
-                busy += cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy = (busy + cur_e - cur_s) / 1e6
+        busy = rf_trace.busy_us(spans) / 1e6
         print(f"  traced {label} run: wall {traced_wall:.3f} s, device busy "
               f"{busy:.3f} s over {len(spans)} device operations, idle "
               f"share {1 - busy / traced_wall:.3f} (tracing on)")
-        top = sorted(prof.key_averages(),
+        notes = {e.name for e in prof.events()
+                 if getattr(e, "is_user_annotation", False)}
+        top = sorted((a for a in prof.key_averages() if a.key not in notes),
                      key=lambda a: -getattr(a, "device_time_total", 0.0))
         for a in top[:6]:
             print(f"    {getattr(a, 'device_time_total', 0.0) / 1e3:9.2f} ms "
@@ -2743,7 +2963,7 @@ def main(argv=None) -> int:
     check_one_center("coreset seeding", cs.points, rows(cs.points, 1))
     time_one_center("coreset", cs.points, rows(cs.points, 1))
     check_lloyd("coreset", cs.points, flood.centers, cs.weights)
-    b_ms, b_by = bound(*lloyd_work(1, cs.points.shape[0], k, d))
+    b_ms, b_by = bound(*rwork.lloyd_stats(1, cs.points.shape[0], k, d))
     cs_args = (cs.points, flood.centers, cs.weights)
     ls_cs = cuda_ms(lambda: ops.lloyd_stats(*cs_args))
     print(f"  lloyd_stats coreset ({cs.points.shape[0]} rows): kernel "
@@ -2862,7 +3082,8 @@ def main(argv=None) -> int:
         # WEISZFELD_ITERS passes in Round 1 and in the solve
         expect = {"distance_argmin": 2 * k + 1, "lloyd_stats": 0,
                   "weiszfeld_stats": 2 * 8 * WEISZFELD_ITERS,
-                  "distance_argmin_batched": 0, "lloyd_reduce": 0}
+                  "distance_argmin_batched": 0, "lloyd_reduce": 0,
+                  "weiszfeld_reduce": 0}
         check(md_launches[routing] == expect,
               f"k-median {routing}: launches {md_launches[routing]}, "
               f"expected {expect}")
@@ -2887,7 +3108,7 @@ def main(argv=None) -> int:
     for routing in ("flood", "bfs"):
         digests[f"kmedian centres[{routing}]"] = digest(
             md_results[routing].centers)
-    b_ms, b_by = bound(*weiszfeld_work(1, cs_md.points.shape[0], k, d))
+    b_ms, b_by = bound(*rwork.weiszfeld_stats(1, cs_md.points.shape[0], k, d))
     wz_args = (cs_md.points, md_results["flood"].centers, cs_md.weights)
     wz_cs = cuda_ms(lambda: ops.weiszfeld_stats(*wz_args))
     print(f"  weiszfeld_stats coreset ({cs_md.points.shape[0]} rows): kernel "
@@ -2950,7 +3171,7 @@ def main(argv=None) -> int:
     check(srv_launches == {"distance_argmin": 0, "lloyd_stats": 0,
                            "weiszfeld_stats": 0,
                            "distance_argmin_batched": st.n_dispatches,
-                           "lloyd_reduce": 0},
+                           "lloyd_reduce": 0, "weiszfeld_reduce": 0},
           f"serving: launches {srv_launches}, {st.n_dispatches} dispatches")
     # every dispatch pads its centres to 64 rows at d = 90: the general
     # tile's 8-point shape for the 8-row bucket, else the resident tile, by
@@ -3042,15 +3263,77 @@ def main(argv=None) -> int:
         args.seed, dev, data, data_s, pts, k, sites25, base_cost,
         (reset_counts, counts, route_counts), digests, checks)
     lap("phase 10")
-    new_paths["phase 11"] = phase11(
+    new_paths["phase 11"], w4_gather = phase11(
         args.seed, dev, pts, sp_np, sm_np, k, t, base_cost, base_md,
         [str(r.path) for r in built.values()], digests, checks)
     lap("phase 11")
-    new_paths["phase 12"], reduce_row = phase12(
+    new_paths["phase 12"], reduce_row, selection = phase12(
         args.seed, dev, k, sites25, stream25,
-        (reset_counts, counts, route_counts), digests, checks)
+        (reset_counts, counts, route_counts), digests, checks, hw)
     del stream25
     lap("phase 12")
+
+    # -- phase 13: the roofline of the main paths ----------------------------
+    sel_key, emb, sel_mask, t_sel = selection
+    eng13 = new_engine()
+
+    def serve_step():
+        """One step of the engine on phase 6's first burst."""
+        for tid, q in traffic[0]:
+            eng13.enqueue(tid, q)
+        eng13.step()
+
+    def select():
+        sel = select_coreset(sel_key, emb, sel_mask, SELECT_K, t_sel,
+                             backend="cuda", device=dev)
+        return sel.indices, sel.weights
+
+    def kmedian_embeddings(backend="cuda"):
+        """k-median of the selection's 16,384 embeddings of 4,096 features
+        (k = 8): weiszfeld_stats' two-pass form, through weiszfeld_reduce."""
+        return clustering.solve(prng.PRNGKey(args.seed),
+                                emb.reshape(-1, emb.shape[-1]), SELECT_K,
+                                lloyd_iters=4, objective="kmedian",
+                                backend=backend, device=dev)
+
+    # the k-median of the embeddings held to the same solve by the plain
+    # versions: the full-data cost of the centres within DRAW_COST_RTOL
+    # (near-tie flips over four Weiszfeld steps move the centres' last
+    # bits); its digest is held again with recording on in phase 13
+    flat_emb = emb.reshape(-1, emb.shape[-1])
+    md_cuda, md_torch = kmedian_embeddings(), kmedian_embeddings("torch")
+    full = [float(torch.sqrt(ref.min_dist_argmin_ref(
+        flat_emb, cs)[0].clamp_min(0.0)).sum()) for cs, _ in
+        (md_cuda, md_torch)]
+    centre_gap = float((md_cuda[0] - md_torch[0]).abs().max())
+    check(np.isfinite(full).all() and abs(full[0] / full[1] - 1.0)
+          <= DRAW_COST_RTOL,
+          f"k-median of the selection embeddings: full-data cost "
+          f"cuda/torch {full[0] / full[1]}")
+    digests["kmedian[selection embeddings]"] = digest(*md_cuda)
+    print(f"  k-median of the selection embeddings {tuple(flat_emb.shape)} "
+          f"k={SELECT_K}: full-data cost cuda/torch "
+          f"{full[0] / full[1]:.8f}, max |centre diff| {centre_gap:.3g} "
+          f"(max |centre| {float(md_torch[0].abs().max()):.3g})")
+    del md_cuda, md_torch, flat_emb
+
+    launched13 = phase13(
+        args.seed, dev, hw,
+        {"k-means flood": (lambda: (drive("flood").centers,),
+                           "kmeans centres[flood]"),
+         "k-median flood": (lambda: (drive_md("flood").centers,),
+                            "kmedian centres[flood]"),
+         "serving step": (serve_step, None),
+         "selection": (select, "selection[llama3-8b widths]"),
+         "k-median, selection embeddings": (
+             kmedian_embeddings, "kmedian[selection embeddings]")},
+        (reset_counts, counts, route_counts), (data_s, sp_s, sm_s, g, k, t),
+        w4_gather, digests)
+    wr_launches = launched13["k-median, selection embeddings"][
+        "weiszfeld_reduce"]
+    check(wr_launches > 0, "phase 13: weiszfeld_reduce never launched")
+    del emb, sel_mask, eng13
+    lap("phase 13")
     for phase, got in new_paths.items():
         for name in ("distance_argmin", "lloyd_stats", "weiszfeld_stats",
                      da.ONE_CENTER.name):
@@ -3103,6 +3386,18 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/lloyd_update.py:67",
          "launches": new_paths["phase 12"].get("lloyd_reduce", 0),
          **reduce_row},
+        # weiszfeld_stats' two-pass form: no route of the reference takes
+        # it, so its launches come from a k-median solve of the selection's
+        # embeddings that this script drives (phase 13); timed at
+        # selection's shape
+        {"name": "weiszfeld_reduce", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lloyd_reduce.cu",
+         "replaces": "src/repro/kernels/weiszfeld.py:100",
+         "launches": wr_launches,
+         "launches_from": "synthetic: k-median of phase 12's selection "
+                          "embeddings (16,384 x 4,096, k = 8), not a route "
+                          "of the reference",
+         **wr_row},
     ]
     # each kernel's launches on the staged (phase 9), streaming (phase 10),
     # SPMD (phase 11: rank 0 of W = 4, k-means and k-median) and WAN and
@@ -3111,7 +3406,7 @@ def main(argv=None) -> int:
     for entry, name in zip(kernels, (da.ONE_CENTER.name, "distance_argmin",
                                      "lloyd_stats", "weiszfeld_stats",
                                      "distance_argmin_batched",
-                                     "lloyd_reduce")):
+                                     "lloyd_reduce", "weiszfeld_reduce")):
         entry["launches_new_paths"] = {
             phase: got.get(name, 0) for phase, got in new_paths.items()}
     print(json.dumps({"kernels": kernels}))

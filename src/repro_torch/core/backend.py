@@ -33,6 +33,9 @@ Registered backends:
 * ``"cuda"``  -- the hand-written CUDA kernels through
   :mod:`repro_torch.kernels.ops` (their plain versions for CPU tensors).
 
+Inside ``repro_torch.roofline.record()`` every protocol call of these three
+backends is entered in the work ledger (:func:`repro_torch.roofline.trace.work`).
+
 Selection precedence: explicit argument (name or instance) > ambient
 default set by :func:`use_backend` > auto-detection from the data's device
 (``"cuda"`` for CUDA tensors, ``"torch"`` for CPU tensors).
@@ -52,6 +55,7 @@ import torch
 from repro_torch.core import objective as objective_mod
 from repro_torch.core.objective import ObjectiveLike
 from repro_torch.kernels import ops, ref
+from repro_torch.roofline import trace as _trace
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -110,15 +114,19 @@ class TorchBackend:
 
     name = "torch"
 
+    @_trace.work
     def min_dist_argmin(self, points, centers):
         return ref.min_dist_argmin_ref(points, centers)
 
+    @_trace.work
     def min_dist_argmin_batched(self, queries, centers):
         return ref.min_dist_argmin_batched_ref(queries, centers)
 
+    @_trace.work
     def lloyd_stats(self, points, centers, weights=None):
         return ref.lloyd_stats_ref(points, centers, weights)
 
+    @_trace.work
     def weiszfeld_stats(self, points, centers, weights=None):
         return ref.weiszfeld_stats_ref(points, centers, weights)
 
@@ -144,6 +152,7 @@ class TorchChunkedBackend:
         return (pts.unflatten(-2, (-1, self.chunk)),
                 w.unflatten(-1, (-1, self.chunk)))
 
+    @_trace.work
     def min_dist_argmin(self, points, centers):
         n = points.shape[-2]
         if n <= self.chunk:
@@ -154,6 +163,7 @@ class TorchChunkedBackend:
         return (torch.cat([md for md, _ in parts], -1)[..., :n],
                 torch.cat([am for _, am in parts], -1)[..., :n])
 
+    @_trace.work
     def min_dist_argmin_batched(self, queries, centers):
         T, m, _ = queries.shape
         if T * m <= self.chunk:
@@ -187,9 +197,11 @@ class TorchChunkedBackend:
         return sums, counts, _windowed_sum(torch.stack(
             [cost for _, _, cost in parts], -1))
 
+    @_trace.work
     def lloyd_stats(self, points, centers, weights=None):
         return self._stats(ref.lloyd_stats_ref, points, centers, weights)
 
+    @_trace.work
     def weiszfeld_stats(self, points, centers, weights=None):
         return self._stats(ref.weiszfeld_stats_ref, points, centers,
                            weights)
@@ -200,15 +212,19 @@ class CudaBackend:
 
     name = "cuda"
 
+    @_trace.work
     def min_dist_argmin(self, points, centers):
         return ops.min_dist_argmin(points, centers)
 
+    @_trace.work
     def min_dist_argmin_batched(self, queries, centers):
         return ops.min_dist_argmin_batched(queries, centers)
 
+    @_trace.work
     def lloyd_stats(self, points, centers, weights=None):
         return ops.lloyd_stats(points, centers, weights)
 
+    @_trace.work
     def weiszfeld_stats(self, points, centers, weights=None):
         return ops.weiszfeld_stats(points, centers, weights)
 

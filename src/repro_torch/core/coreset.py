@@ -33,6 +33,7 @@ from repro_torch.core import objective as objective_mod
 from repro_torch.core import prng
 from repro_torch.core.backend import BackendLike, DeviceLike, as_tensor
 from repro_torch.core.objective import ObjectiveLike
+from repro_torch.roofline import trace as _trace
 
 _TINY = 1e-30
 # block length of XLA's two-level scan (its CPU cumsum): see _cumsum
@@ -41,10 +42,14 @@ _SCAN_BLOCK = 16
 
 @contextlib.contextmanager
 def _phase(times: Optional[dict], name: str, device: torch.device):
-    """Add the wall seconds of the block to ``times[name]``, synchronizing
-    the device before and after; does nothing when ``times`` is None."""
+    """Run the block as phase ``name`` (``repro_torch.roofline.trace.phase``:
+    a profiler scope, and the phase the work ledger and its collective
+    records read) and add its wall seconds to ``times[name]``, synchronizing
+    the device before and after; no wall and no sync when ``times`` is
+    None."""
     if times is None:
-        yield
+        with _trace.phase(name):
+            yield
         return
 
     def sync():
@@ -53,7 +58,8 @@ def _phase(times: Optional[dict], name: str, device: torch.device):
 
     sync()
     t0 = time.perf_counter()
-    yield
+    with _trace.phase(name):
+        yield
     sync()
     times[name] = times.get(name, 0.0) + time.perf_counter() - t0
 

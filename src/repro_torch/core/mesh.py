@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.backend import DeviceLike, resolve_device
+from repro_torch.roofline.trace import note_collective
 
 _BOUND = threading.local()
 
@@ -55,7 +56,10 @@ _BOUND = threading.local()
 class Mesh:
     """One named axis over the default process group, as seen from one
     rank. ``staged_bytes`` counts the bytes a gloo mesh on a CUDA device
-    copied between the device and pinned host memory, both ways."""
+    copied between the device and pinned host memory, both ways. Inside
+    ``repro_torch.roofline.record()`` every collective issued (XLA's
+    ``all-gather`` and ``collective-permute``) is appended to the ledger's
+    ``collectives``, for ``roofline.trace.collective_phase_analysis``."""
 
     axis_name: str
     backend: str
@@ -112,6 +116,7 @@ class Mesh:
         send = self._wire(x)
         out = self._wire_empty((self.size,) + tuple(x.shape), x.dtype)
         dist.all_gather(list(out.unbind(0)), send)
+        note_collective("all-gather", tuple(range(self.size)), out.nbytes)
         return self._unwire(out)
 
     def hop(self, buf: torch.Tensor, dst: int, src: int) -> torch.Tensor:
@@ -125,6 +130,7 @@ class Mesh:
                dist.P2POp(dist.irecv, recv, src)]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        note_collective("collective-permute", (self.rank, dst), recv.nbytes)
         return self._unwire(recv)
 
 

@@ -65,13 +65,32 @@ def lloyd_reduce(points: torch.Tensor, weights: torch.Tensor,
     points ``(S, M, d)``, weights and min d2 ``(S, M)`` f32, assignment
     ``(S, M)`` i32 -> ``(sums (S, k, d), counts (S, k), cost (S,))``. A row
     assigned outside ``[0, k)`` adds to the cost only."""
+    partials, out = reduce_buffers(points, weights, assign, k,
+                                   min_d2=min_d2)
+    S, M, d = points.shape
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = REDUCE.fn()(points.data_ptr(), weights.data_ptr(),
+                         min_d2.data_ptr(), assign.data_ptr(),
+                         partials.data_ptr(), out.data_ptr(), S, M, k, d,
+                         ROWS_PER_BLOCK, stream)
+    return reduce_result(REDUCE, rc, out, k, d)
+
+
+def reduce_buffers(points: torch.Tensor, weights: torch.Tensor,
+                   assign: torch.Tensor, k: int, **rows: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check the inputs of an entry of ``csrc/lloyd_reduce.cu`` -- points
+    ``(S, M, d)``, weights, the assignment (i32) and the other per-row
+    inputs ``rows`` ``(S, M)`` -- and allocate its partials ``(S, G, k d +
+    k + 1)`` and output ``(S, k d + k + 1)``."""
     check_cuda(points, "points", 3)
     check_cuda(weights, "weights", 2)
-    check_cuda(min_d2, "min_d2", 2)
     check_cuda(assign, "assign", 2, torch.int32)
+    for name, t in rows.items():
+        check_cuda(t, name, 2)
     S, M, d = points.shape
-    for name, t in (("weights", weights), ("min_d2", min_d2),
-                    ("assign", assign)):
+    for name, t in (("weights", weights), ("assign", assign), *rows.items()):
         if tuple(t.shape) != (S, M):
             raise ValueError(f"{name} {tuple(t.shape)} do not match points "
                              f"{tuple(points.shape)}")
@@ -84,20 +103,19 @@ def lloyd_reduce(points: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"{S} sites exceed the grid's 65535")
     E = k * d + k + 1
     G = -(-M // ROWS_PER_BLOCK)
-    partials = torch.empty((S, G, E), dtype=torch.float32,
-                           device=points.device)
-    out = torch.empty((S, E), dtype=torch.float32, device=points.device)
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = REDUCE.fn()(points.data_ptr(), weights.data_ptr(),
-                         min_d2.data_ptr(), assign.data_ptr(),
-                         partials.data_ptr(), out.data_ptr(), S, M, k, d,
-                         ROWS_PER_BLOCK, stream)
+    return (torch.empty((S, G, E), dtype=torch.float32, device=points.device),
+            torch.empty((S, E), dtype=torch.float32, device=points.device))
+
+
+def reduce_result(kernel: Kernel, rc: int, out: torch.Tensor, k: int, d: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Raise on a failed launch, else count it and split the output into
+    its three blocks ``((S, k, d), (S, k), (S,))``."""
     if rc != 0:
-        raise RuntimeError(f"lloyd_reduce launch failed with CUDA error "
+        raise RuntimeError(f"{kernel.name} launch failed with CUDA error "
                            f"{rc}")
-    REDUCE.launches += 1
-    return (out[:, :k * d].view(S, k, d), out[:, k * d:k * d + k],
+    kernel.launches += 1
+    return (out[:, :k * d].view(-1, k, d), out[:, k * d:k * d + k],
             out[:, -1])
 
 

@@ -24,9 +24,9 @@ with ``(S, k, d)`` centres -- and then serves all sites in ONE launch, as
   centres (4 MiB of VMEM). Above its limit each takes the two-pass form:
   the ``distance_argmin`` kernel, then the reduction given the assignment
   -- for ``lloyd_stats`` the ``lloyd_reduce`` kernel
-  (:func:`lloyd_reduce`), for ``weiszfeld_stats`` a plain one-hot product
-  (ROADMAP C). That is routing by shape: a CUDA tensor still reaches a
-  kernel.
+  (:func:`lloyd_reduce`), for ``weiszfeld_stats`` its ``weiszfeld_reduce``
+  entry (:func:`weiszfeld_reduce`). That is routing by shape: a CUDA
+  tensor still reaches a kernel.
 * **Launch counts.** :data:`KERNELS` lists each kernel entry with its
   ``launches`` counter (the batched argmin is an entry of the
   ``distance_argmin`` library with a counter of its own);
@@ -49,7 +49,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import weiszfeld as _wz
 
 KERNELS = (_da.KERNEL, _lu.KERNEL, _wz.KERNEL, _da.KERNEL_BATCHED,
-           _lu.REDUCE)
+           _lu.REDUCE, _wz.REDUCE)
 
 
 def query_bucket(n: int, min_bucket: int = 8,
@@ -201,11 +201,18 @@ def lloyd_reduce(points: torch.Tensor, k: int, weights: torch.Tensor,
     over all sites, or :func:`ref.lloyd_reduce` for CPU tensors."""
     if not points.is_cuda:
         return ref.lloyd_reduce(points, k, weights, min_d2, assign)
-    squeeze = points.ndim == 2
-    args = (points, weights.float(), min_d2.float(), assign.to(torch.int32))
+    return _sites_launch(lambda *a: _lu.lloyd_reduce(*a, k), points,
+                         weights.float(), min_d2.float(),
+                         assign.to(torch.int32))
+
+
+def _sites_launch(kernel_fn, *args):
+    """``kernel_fn`` on contiguous ``args`` with a leading site axis: added
+    to and dropped from the results where the points ``args[0]`` are 2-D."""
+    squeeze = args[0].ndim == 2
     if squeeze:
         args = tuple(a.unsqueeze(0) for a in args)
-    out = _lu.lloyd_reduce(*(a.contiguous() for a in args), k)
+    out = kernel_fn(*(a.contiguous() for a in args))
     return tuple(x[0] for x in out) if squeeze else out
 
 
@@ -214,13 +221,26 @@ def weiszfeld_stats(points: torch.Tensor, centers: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused Weiszfeld statistics ``(nums (..., k, d), denoms (..., k),
     cost (...))`` (k-median); two passes -- the ``distance_argmin`` kernel,
-    then :func:`ref.weiszfeld_reduce` -- where
+    then :func:`weiszfeld_reduce` -- where
     :func:`repro_torch.kernels.weiszfeld.fits` is false, the limit the
     kernel's wrapper itself checks."""
     return _fused_stats(
         _wz.weiszfeld_stats, ref.weiszfeld_stats_ref,
-        lambda p, c, w, md, am: ref.weiszfeld_reduce(p, c, w, am),
+        lambda p, c, w, md, am: weiszfeld_reduce(p, c, w, am),
         _wz.fits, points, centers, weights)
+
+
+def weiszfeld_reduce(points: torch.Tensor, centers: torch.Tensor,
+                     weights: torch.Tensor, assign: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Weiszfeld statistics given an assignment, ``(nums (..., k, d),
+    denoms (..., k), cost (...))``: the ``weiszfeld_reduce`` kernel, one
+    launch over all sites, or :func:`ref.weiszfeld_reduce` for CPU
+    tensors."""
+    if not points.is_cuda:
+        return ref.weiszfeld_reduce(points, centers, weights, assign)
+    return _sites_launch(_wz.weiszfeld_reduce, points, centers.float(),
+                         weights.float(), assign.to(torch.int32))
 
 
 def lloyd_step(points: torch.Tensor, centers: torch.Tensor,

@@ -121,6 +121,80 @@ def test_cuda_lloyd_reduce_equals_fused_lloyd_stats(cuda, S, n, k, d):
     assert torch.equal(cost, out[2])
 
 
+# as test_cuda_lloyd_reduce_equals_fused_lloyd_stats; k = 320 at d = 90 is
+# over the fused kernel's limit (phase 2 of chip_smoke.py takes it there)
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,n,k,d", [(1, 8, 3, 5), (3, 1001, 50, 90),
+                                     (2, 2500, 70, 33), (2, 3000, 320, 90),
+                                     (2, 2048, 8, 4096)])
+def test_cuda_weiszfeld_reduce_equals_fused_weiszfeld_stats(cuda, S, n, k,
+                                                            d):
+    """weiszfeld_reduce on distance_argmin's assignment equals the fused
+    weiszfeld_stats kernel bit for bit where the fused block fits (the
+    exact-form d2 by the same lanes and butterfly, the same rows per block,
+    the same chains in row order), and the plain reduction within 1e-4 of
+    the sums of |terms| at every shape; a row assigned outside [0, k) adds
+    nothing; a rerun is bit-identical."""
+    rng = np.random.default_rng(n + d + 1)
+    p = torch.tensor(rng.standard_normal((S, n, d)), dtype=torch.float32,
+                     device=cuda)
+    c = torch.tensor(rng.standard_normal((S, k, d)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.standard_normal((S, n)), dtype=torch.float32,
+                     device=cuda)
+    _, am = ops.min_dist_argmin(p, c)
+    before = wz_mod.REDUCE.launches
+    out = ops.weiszfeld_reduce(p, c, w, am)
+    again = ops.weiszfeld_reduce(p, c, w, am)
+    torch.cuda.synchronize()
+    assert wz_mod.REDUCE.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    if wz_mod.fits(k, d):
+        fused = ops.weiszfeld_stats(p, c, w)
+        assert all(torch.equal(a, b) for a, b in zip(out, fused))
+    plain = ref.weiszfeld_reduce(p, c, w, am)
+    na, ca = _weiszfeld_scale(p, c, w, am)
+    for a, b, s in zip(out, plain, (na, plain[1], ca)):
+        assert bool(((a - b).abs() <= 1e-4 * s + 1e-4).all())
+    # row 0 of site 0 moved to a centre past k: off every sum and the cost
+    am_out = am.clone()
+    am_out[0, 0] = k
+    nums, denoms, cost = ops.weiszfeld_reduce(p, c, w, am_out)
+    keep = torch.ones(n, dtype=torch.bool, device=cuda)
+    keep[0] = False
+    nr, dr, cr = ref.weiszfeld_reduce(p[0, keep], c[0], w[0, keep],
+                                      am[0, keep])
+    na, ca = _weiszfeld_scale(p[0, keep], c[0], w[0, keep], am[0, keep])
+    assert bool(((nums[0] - nr).abs() <= 1e-4 * na + 1e-4).all())
+    assert bool(((denoms[0] - dr).abs() <= 1e-4 * dr + 1e-4).all())
+    assert abs(float(cost[0] - cr)) <= 1e-4 * float(ca) + 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_weiszfeld_two_pass_runs_no_plain_product(cuda, monkeypatch):
+    """At data selection's shape (8 sites x 2,048 rows x 4,096 features,
+    k = 8) ops.weiszfeld_stats launches one distance_argmin and one
+    weiszfeld_reduce, and never reaches a plain version."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(ref, "weiszfeld_reduce", refuse)
+    monkeypatch.setattr(ref, "weiszfeld_stats_ref", refuse)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    p = torch.randn(8, 2048, 4096, generator=g).to(cuda)
+    c = p[:, :8].clone()
+    w = torch.rand(8, 2048, generator=g).to(cuda)
+    assert not wz_mod.fits(8, 4096)
+    before = [kern.launches for kern in ops.KERNELS]
+    ops.weiszfeld_stats(p, c, w)
+    torch.cuda.synchronize()
+    moved = {kern.name: kern.launches - b
+             for kern, b in zip(ops.KERNELS, before)}
+    assert moved == {"distance_argmin": 1, "lloyd_stats": 0,
+                     "weiszfeld_stats": 0, "distance_argmin_batched": 0,
+                     "lloyd_reduce": 0, "weiszfeld_reduce": 1}, moved
+
+
 @pytest.mark.cuda
 def test_cuda_ties_pick_the_lowest_index(cuda):
     p = torch.randn(3000, 12, device=cuda)
@@ -147,14 +221,16 @@ def _check_weiszfeld(p, c, w):
     kernel's own assignment (weiszfeld_stats assigns bit for bit as
     distance_argmin does), within 1e-4 of the sums of |terms|; a rerun is
     bit-identical. Shapes whose block does not fit the kernel's shared
-    memory take the two-pass form and launch no weiszfeld_stats."""
-    before = wz_mod.KERNEL.launches
+    memory take the two-pass form and launch weiszfeld_reduce instead of
+    weiszfeld_stats."""
+    before = (wz_mod.KERNEL.launches, wz_mod.REDUCE.launches)
     nums, denoms, cost = ops.weiszfeld_stats(p, c, w)
     again = ops.weiszfeld_stats(p, c, w)
     _, am = ops.min_dist_argmin(p, c)
     torch.cuda.synchronize()
     fused = wz_mod.fits(c.shape[-2], c.shape[-1])
-    assert wz_mod.KERNEL.launches == before + (2 if fused else 0)
+    assert (wz_mod.KERNEL.launches, wz_mod.REDUCE.launches) == (
+        before[0] + (2 if fused else 0), before[1] + (0 if fused else 2))
     assert all(torch.equal(a, b) for a, b in zip((nums, denoms, cost),
                                                  again))
     nr, dr, cr = ref.weiszfeld_reduce(p, c, w, am)
@@ -324,10 +400,9 @@ def test_cuda_weiszfeld_at_the_shared_memory_limit(cuda, name, k, d):
     """Just under the limit the kernel launches (its own count of shared
     memory agrees with lloyd_update.shared_floats) and matches the plain
     reduction; one centre more takes the two-pass form, with no launch of
-    the kernel: for weiszfeld_stats the plain reduction of distance_argmin's
-    assignment exactly, for lloyd_stats the lloyd_reduce kernel on that
-    assignment exactly (and the plain reduction within 1e-4 of the sums of
-    |terms|)."""
+    the kernel: the reduction kernel (weiszfeld_reduce, lloyd_reduce) on
+    distance_argmin's assignment exactly, and the plain reduction within
+    1e-4 of the sums of |terms|."""
     mod = {"weiszfeld_stats": wz_mod, "lloyd_stats": lu_mod}[name]
     assert mod.fits(k, d) and not mod.fits(k + 1, d)
     rng = np.random.default_rng(k + d)
@@ -339,23 +414,27 @@ def test_cuda_weiszfeld_at_the_shared_memory_limit(cuda, name, k, d):
                      device=cuda)
     STATS_CHECKS[name](p, c[:k], w)
     before = (mod.KERNEL.launches, da_mod.KERNEL.launches,
-              lu_mod.REDUCE.launches)
+              mod.REDUCE.launches)
     out = getattr(ops, name)(p, c, w)
     md, am = ops.min_dist_argmin(p, c)
     lloyd = name == "lloyd_stats"
     want = (lu_mod.lloyd_reduce(p[None], w[None], md[None], am[None], k + 1)
-            if lloyd else ref.weiszfeld_reduce(p, c, w, am))
+            if lloyd else wz_mod.weiszfeld_reduce(p[None], c[None], w[None],
+                                                  am[None]))
     torch.cuda.synchronize()
     assert (mod.KERNEL.launches, da_mod.KERNEL.launches,
-            lu_mod.REDUCE.launches) == (before[0], before[1] + 2,
-                                        before[2] + 2 * lloyd)
-    assert all(torch.equal(a, b[0] if lloyd else b)
-               for a, b in zip(out, want))
+            mod.REDUCE.launches) == (before[0], before[1] + 2,
+                                     before[2] + 2)
+    assert all(torch.equal(a, b[0]) for a, b in zip(out, want))
     if lloyd:
         plain = ref.lloyd_reduce(p, k + 1, w, md, am)
         scale = ref.lloyd_reduce(p.abs(), k + 1, w.abs(), md, am)
-        for a, b, s in zip(out, plain, scale):
-            assert bool(((a - b).abs() <= 1e-4 * s + 1e-4).all())
+    else:
+        plain = ref.weiszfeld_reduce(p, c, w, am)
+        na, ca = _weiszfeld_scale(p, c, w, am)
+        scale = (na, plain[1], ca)
+    for a, b, s in zip(out, plain, scale):
+        assert bool(((a - b).abs() <= 1e-4 * s + 1e-4).all())
 
 
 @pytest.mark.cuda
@@ -874,7 +953,7 @@ def test_cuda_spmd_two_ranks_on_one_card_match_the_cpu(cuda):
         assert rank["launches"] == {
             "distance_argmin": 3 * 9, "lloyd_stats": 3 * 18,
             "weiszfeld_stats": 0, "distance_argmin_batched": 0,
-            "lloyd_reduce": 0}
+            "lloyd_reduce": 0, "weiszfeld_reduce": 0}
         assert rank["staged_bytes"] == staged
     assert all(r["launches"]["distance_argmin"] == 0
                and r["staged_bytes"] == 0 for r in cpu)

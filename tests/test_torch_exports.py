@@ -1,7 +1,10 @@
 """The port's package exports against the JAX package's: for ``core``,
-``stream``, ``serve``, ``kernels``, ``data`` and ``wan`` the port's ``__all__``
-covers the reference's, except the names still to be ported, each tagged
-with the ROADMAP item that ports it. Every exported name resolves."""
+``stream``, ``serve``, ``kernels``, ``data``, ``wan``, ``roofline``,
+``configs`` and ``models`` the port's ``__all__`` covers the reference's
+(where the reference has no ``__all__``, the functions and constants its
+package defines), except the names still to be ported, each tagged with
+the ROADMAP item that ports it, and the names with a counterpart of
+another name. Every exported name resolves."""
 import importlib
 
 import pytest
@@ -9,9 +12,19 @@ import pytest
 # reference exports not yet ported, by ROADMAP item
 PENDING = {
     "A8": {"data": {"BigramLM"},
-           "serve": {"Engine", "Request", "generate", "make_serve_steps"}},
+           "serve": {"Engine", "Request", "generate", "make_serve_steps"},
+           "models": {"blocks", "layers", "model", "moe", "rglru",
+                      "sharding", "ssd", "cache_spec", "forward",
+                      "init_cache", "init_params", "make_positions"}},
 }
-PACKAGES = ("core", "stream", "serve", "kernels", "data", "wan")
+# reference name -> (the port's name, why it differs), per package
+COUNTERPARTS = {
+    "roofline": {"hlo": ("trace", "the port runs eagerly and has no HLO to "
+                         "parse: trace records the same flops, bytes and "
+                         "collectives by phase as the program runs")},
+}
+PACKAGES = ("core", "stream", "serve", "kernels", "data", "wan", "roofline",
+            "configs", "models")
 
 
 def _pending(package):
@@ -19,12 +32,35 @@ def _pending(package):
                          for items in PENDING.values()))
 
 
+def _exports(module):
+    """``__all__``, or where a package has none the functions and
+    constants it defines itself."""
+    if hasattr(module, "__all__"):
+        return set(module.__all__)
+    return {name for name, value in vars(module).items()
+            if not name.startswith("_") and (
+                name.isupper()
+                or getattr(value, "__module__", None) == module.__name__)}
+
+
 @pytest.mark.parametrize("package", PACKAGES)
 def test_the_port_exports_what_the_reference_does(package):
     ours = importlib.import_module(f"repro_torch.{package}")
     theirs = importlib.import_module(f"repro.{package}")
-    missing = set(theirs.__all__) - set(ours.__all__) - _pending(package)
+    missing = (_exports(theirs) - set(ours.__all__) - _pending(package)
+               - set(COUNTERPARTS.get(package, {})))
     assert not missing, sorted(missing)
+
+
+@pytest.mark.parametrize("package", sorted(COUNTERPARTS))
+def test_each_counterpart_stands_for_a_reference_name(package):
+    """A counterpart replaces a name the reference exports and the port
+    does not, and the port exports it in its place."""
+    ours = importlib.import_module(f"repro_torch.{package}")
+    theirs = importlib.import_module(f"repro.{package}")
+    for name, (port_name, why) in COUNTERPARTS[package].items():
+        assert name in _exports(theirs) and name not in ours.__all__, name
+        assert port_name in ours.__all__ and why, name
 
 
 @pytest.mark.parametrize("package", PACKAGES)
@@ -41,7 +77,6 @@ def test_pending_names_are_still_missing(package):
     ours = importlib.import_module(f"repro_torch.{package}")
     theirs = importlib.import_module(f"repro.{package}")
     pending = _pending(package)
-    assert pending <= set(theirs.__all__), sorted(pending - set(
-        theirs.__all__))
+    assert pending <= _exports(theirs), sorted(pending - _exports(theirs))
     assert not pending & set(ours.__all__), sorted(pending & set(
         ours.__all__))

@@ -243,6 +243,31 @@ def test_ops_lloyd_reduce_on_cpu_matches_jax_ref(n, k, d):
     np.testing.assert_allclose(float(out[2]), float(cost_j), rtol=1e-4)
 
 
+@pytest.mark.parametrize("n,k,d", SHAPES)
+def test_ops_weiszfeld_reduce_on_cpu_matches_jax_ref(n, k, d):
+    """ops.weiszfeld_reduce on CPU tensors is the plain reduction (no
+    launch), with and without the site axis; given the JAX package's
+    assignment it gives the JAX package's Weiszfeld reduction."""
+    pts, ctr, w = _data(n, k, d, seed=4)
+    w = 2.0 * w - 1.0
+    p, c, wt = map(torch.from_numpy, (pts, ctr, w))
+    _, am_j = jref.min_dist_argmin_ref(jnp.asarray(pts), jnp.asarray(ctr))
+    am = torch.from_numpy(np.array(am_j))
+    before = [kern.launches for kern in ops.KERNELS]
+    out = ops.weiszfeld_reduce(p, c, wt, am)
+    batched = ops.weiszfeld_reduce(p[None], c[None], wt[None], am[None])
+    assert [kern.launches for kern in ops.KERNELS] == before
+    want = jref.weiszfeld_reduce(jnp.asarray(pts), jnp.asarray(ctr),
+                                 jnp.asarray(w), am_j)
+    for a, b, x in zip(out, ref.weiszfeld_reduce(p, c, wt, am), batched):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(x[0].numpy(), a.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    for a, b in zip(out, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-3)
+
+
 def test_ops_on_cpu_launch_no_kernel():
     before = [k.launches for k in ops.KERNELS]
     pts, ctr, w = _data(50, 3, 4)
@@ -288,7 +313,7 @@ def test_route_counters_are_kernels_of_the_distance_argmin_library():
     assert {k.library for k in da_mod.ROUTES} == {"distance_argmin"}
     assert da_mod.TILE.function == "distance_argmin_tile_launch"
     assert da_mod.RESIDENT.function == "distance_argmin_resident_launch"
-    assert len({k.name for k in (*ops.KERNELS, *da_mod.ROUTES)}) == 8
+    assert len({k.name for k in (*ops.KERNELS, *da_mod.ROUTES)}) == 9
 
 
 @pytest.mark.parametrize("entry,served", [

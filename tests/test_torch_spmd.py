@@ -2,7 +2,10 @@
 JAX package, on the reference's own instances: the 8-site instance of
 ``test_core_distributed.SPMD_SCRIPT`` and ``test_collectives.TORUS_SCRIPT``
 (k = 4, d = 8, 1,600 points, t = 256) and the 6-site instance of
-``NONPOW2_SCRIPT`` (1,200 points, t = 192).
+``NONPOW2_SCRIPT`` (1,200 points, t = 192). The collectives each run
+issues, by phase, are held to the reference's compiled program, parsed by
+``repro.roofline.hlo.collective_phase_analysis`` as
+``test_collectives.TORUS_SCRIPT`` parses it.
 
 The reference runs in one subprocess on 8 forced host devices (a 6-device
 mesh takes the first six), as its own scripts do, and saves ``np.asarray``
@@ -30,6 +33,7 @@ from repro_torch.core.coreset import proportional_allocation
 from repro_torch.core.distributed import (spmd_distributed_kmeans,
                                           spmd_distributed_kmeans_fn)
 from repro_torch.core.partition import pad_partition, partition_indices
+from repro_torch.roofline import trace
 
 # torch runs single-threaded in these tests: with JAX's CPU runtime in the
 # same process, the two thread pools contend and torch's ops run 10-40x
@@ -66,6 +70,11 @@ RUNS = {
 }
 EIGHT = [name for name, (inst, _) in RUNS.items() if inst != "six"]
 SIX = [name for name, (inst, _) in RUNS.items() if inst == "six"]
+# the runs whose collectives are held to the reference's compiled program:
+# the three modes on 8 ranks and on 6
+PHASE_RUNS = ["kmeans/all_gather", "kmeans/neighbor_rounds",
+              "kmeans/torus_2d", "six/all_gather", "six/neighbor_rounds",
+              "six/torus_2d"]
 
 
 def instance(which, pad_partition=pad_partition,
@@ -90,11 +99,14 @@ REFERENCE = textwrap.dedent("""
     import os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     import numpy as np, jax, jax.numpy as jnp
-    from jax.sharding import Mesh
+    from jax.sharding import Mesh, PartitionSpec as P
+    from repro.compat import shard_map
     from repro.core import clustering, spmd_distributed_kmeans
+    from repro.core.distributed import spmd_distributed_kmeans_fn
     from repro.core.partition import pad_partition, partition_indices
+    from repro.roofline.hlo import collective_phase_analysis
     sys.path.insert(0, "tests")
-    from test_torch_spmd import K, RUNS, instance
+    from test_torch_spmd import K, PHASE_RUNS, RUNS, instance
 
     def inst(which):
         return instance(which, pad_partition, partition_indices)
@@ -117,6 +129,26 @@ REFERENCE = textwrap.dedent("""
                                        jnp.asarray(pts), K, restarts=4,
                                        objective=objective)
             out[f"{which}:{objective}:full"] = np.asarray(full)
+    # each mode's compiled program, its collectives by phase
+    for name in PHASE_RUNS:
+        which, kw = RUNS[name]
+        pts, sp, sm, t, t_buffer = inst(which)
+        n = 6 if which == "six" else 8
+        mesh = Mesh(np.array(jax.devices()[:n]), ("sites",))
+        fn = spmd_distributed_kmeans_fn("sites", n, K, t, t_buffer, **kw)
+
+        def device_fn(key, p, m):
+            return fn(key, p.reshape(-1, p.shape[-1]), m.reshape(-1))
+        hlo = jax.jit(shard_map(
+            device_fn, mesh=mesh, in_specs=(P(), P("sites"), P("sites")),
+            out_specs=(P(), P("sites"), P("sites")),
+        )).lower(jax.random.PRNGKey(0), jnp.asarray(sp),
+                 jnp.asarray(sm)).compile().as_text()
+        for phase, a in collective_phase_analysis(hlo).items():
+            for kind, count in a.collective_counts.items():
+                out[f"{name}:{phase}:{kind}:count"] = count
+                out[f"{name}:{phase}:{kind}:bytes"] = (
+                    a.collective_bytes_by_kind[kind])
     np.savez(sys.argv[1], **out)
 """)
 
@@ -156,7 +188,10 @@ def _error(fn, *args, **kw):
 
 def run_ranks(mesh, names):
     """One rank: every run of ``names`` (from the reference's key, on the
-    CPU), its phase record, and the validation errors. Host values only."""
+    CPU), its phase record, its collectives by phase
+    (``trace.collective_phase_analysis`` of the collectives recorded around
+    the run: per phase, counts and link bytes by kind) and the validation
+    errors. Host values only."""
     torch.set_num_threads(1)
     key = prng.PRNGKey(0, device="cpu")
     out = {}
@@ -164,10 +199,15 @@ def run_ranks(mesh, names):
         which, kw = RUNS[name]
         _, sp, sm, t, t_buffer = instance(which)
         times = {}
-        c, lc, t_i = spmd_distributed_kmeans(
-            mesh, "sites", key, sp, sm, K, t=t, t_buffer=t_buffer,
-            phase_times=times, **kw)
+        with trace.record() as led:
+            c, lc, t_i = spmd_distributed_kmeans(
+                mesh, "sites", key, sp, sm, K, t=t, t_buffer=t_buffer,
+                phase_times=times, **kw)
         out[name] = (c.numpy(), lc.numpy(), t_i.numpy(), times)
+        out[name + ":collectives"] = {
+            phase: (a.collective_counts, a.collective_bytes_by_kind)
+            for phase, a in trace.collective_phase_analysis(
+                led.collectives).items()}
     _, sp, sm, t, _ = instance("eight" if mesh.size == 8 else "six")
     run = (mesh, "sites", key, sp, sm, K)
     out["errors"] = {
@@ -193,6 +233,8 @@ def port(reference_run):
                                 device="cpu", timeout=LAUNCH_TIMEOUT)
         for name in names:
             out[name] = [r[name] for r in ranks]
+            out[name + ":collectives"] = [r[name + ":collectives"]
+                                          for r in ranks]
         out[f"errors{world}"] = [r["errors"] for r in ranks]
     return out
 
@@ -310,6 +352,36 @@ def test_phase_record(port, name):
     hops = {"all_gather": world - 1, "torus_2d": {8: 4, 6: 3}[world]}
     assert times["hops"] == hops[kw.get("collectives", "all_gather")]
     assert times["staged_bytes"] == 0
+
+
+@pytest.mark.parametrize("name", PHASE_RUNS)
+def test_collectives_by_phase_equal_the_compiled_references(reference, port,
+                                                            name):
+    """Every rank's collectives in Round 1 and Round 2 -- counts and link
+    bytes by kind, the port's round1_gather and round2_gather phases
+    against the reference's round1 and round2 scopes -- equal what the
+    reference's compiled program issues: one all-gather, or one
+    collective-permute per ring or torus hop. "other" differs by the
+    port's output gather: spmd_distributed_kmeans hands every rank the
+    local costs and t_i by two all-gathers of one 4-byte scalar per rank,
+    where the reference's shard_map assembles its sharded outputs outside
+    the compiled program, with no collective."""
+    world = 6 if name.startswith("six") else 8
+    for rank in port[name + ":collectives"]:
+        for phase in ("round1", "round2"):
+            counts, link = rank[phase]
+            prefix = f"{name}:{phase}:"
+            kinds = {key[len(prefix):].rsplit(":", 1)[0]
+                     for key in reference if key.startswith(prefix)}
+            assert kinds, (name, phase)
+            assert counts == {kind: float(reference[prefix + kind + ":count"])
+                              for kind in kinds}, (name, phase)
+            assert link == {kind: float(reference[prefix + kind + ":bytes"])
+                            for kind in kinds}, (name, phase)
+        assert not any(key.startswith(f"{name}:other:") for key in reference)
+        scalars = world * 4
+        assert rank["other"] == ({"all-gather": 2.0}, {
+            "all-gather": 2 * (world - 1) / world * scalars})
 
 
 @pytest.mark.parametrize("world", [8, 6])
