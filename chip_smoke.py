@@ -169,6 +169,24 @@ Phases (any failed check raises, and the script exits non-zero):
    at scale 0.1 equal under backend='cuda' and 'torch'; phase 11's W = 4
    all-gather collectives by phase against the bytes it received.
 
+14. The language-model stack (``repro_torch.models``, ``repro_torch.train
+   .loss``), which reaches no kernel of the port: (a) the ten reduced
+   configurations on the same seeded params on the card and on the CPU,
+   forward, prefill and decode logits and the aux loss, in exactified f32
+   (within 2e-4 of max |logit|, digested) and in bf16 (within 5e-2; a MoE
+   model's score forward up to each row's first routing flip, each flip at
+   a near tie); (b) llama3-8b whole (32 layers, d 4,096, vocab 128,256,
+   f32 params): a bf16 score forward at B = 2, L = 2,048 (wall, tokens/s)
+   and ``lm_loss`` on it, a prefill of 2,048 tokens into a cache of 2,080,
+   32 decode steps (ms per token), and, exactified to f32, prefill and
+   decode logits equal to the score forward's within 5e-4 of max |logit|;
+   (c) the same for granite-moe-3b (40 experts, top 8), mamba2-370m
+   (within 5e-3: the SSD's chunked scan loses ~1e-3 in f32 at its widths),
+   recurrentgemma-2b (a prefill past its 2,048-token window: the ring
+   cache) and qwen2-vl-2b (M-RoPE) at their published widths; peak memory
+   per model; one llama3-8b layer's attention against
+   ``scaled_dot_product_attention``.
+
 Every bound is ``repro_torch.roofline.work``'s on the card's data-sheet
 figures (``roofline.report.detect``). It prints a ``{"kernels": [...]}``
 line (each entry also with its launches on phases 9, 10, 11 and 12), the
@@ -2102,6 +2120,347 @@ def phase13(seed, dev, hw, runs, counts, small, w4_gather, digests):
     return launched
 
 
+# -- phase 14: the language-model stack ----------------------------------------
+
+# (a) the reduced configs, CUDA against the CPU on the same params: batch,
+# sequence and prefill lengths of tests/test_models.py
+LM_B, LM_L, LM_LP = 2, 32, 24
+# exactified f32: |CUDA - CPU| <= LM_F32_RTOL * max |logit| (the CPU tests'
+# tolerance against the JAX package: the same f32 math in other orders)
+LM_F32_RTOL = 2e-4
+# default bf16: a few bf16 roundings (2^-8 relative) per layer, as the CPU
+# tests hold the port against the JAX package
+LM_BF16_RTOL = 5e-2
+# a MoE router's top-k set may differ between the two devices only at a
+# near tie (the k-th and the next probability closer than this) or at or
+# after a position of its row that differed before; each row's logits are
+# held up to its first flip (tests/test_torch_models.py)
+LM_NEAR_TIE = 4e-3
+# prefill and decode against the score forward (tests/test_models.py)
+LM_DECODE_RTOL = 5e-4
+# ... except for the SSD: its chunked scan (the JAX package's formula)
+# takes exp of differences of running sums of dt * A within a chunk, which
+# at mamba2-370m's widths reach ~1e4 (A down to -32, chunks of 256), so f32
+# loses ~1e-3 in each exponent; prefill (chunk 256) and the score forward
+# (chunk 208 at L = 1,040) round differently, and decode (the exact
+# recurrence) differs from both. Measured 1.7e-3 / 5.3e-4 of max |logit|
+LM_SSD_DECODE_RTOL = 5e-3
+# (b) and (c): (architecture, batch, prefill length, decode steps) at the
+# published widths, each model whole. llama3-8b: a 2,048-token prefill into
+# a cache of 2,080; recurrentgemma: a prefill past its 2,048-token window
+# (the ring cache)
+LM_FULL = (("llama3_8b", 2, 2048, 32), ("granite_moe_3b_a800m", 2, 1024, 16),
+           ("mamba2_370m", 2, 1024, 16), ("recurrentgemma_2b", 2, 2304, 16),
+           ("qwen2_vl_2b", 2, 1024, 16))
+
+
+def lm_exactify(cfg):
+    """f32 activations and drop-free MoE, so that prefill and decode equal
+    the score forward (tests/test_models.py's ``_exactify``)."""
+    cf = cfg.capacity_factor
+    if cfg.n_experts:
+        cf = float(cfg.n_experts) / cfg.top_k
+    return dataclasses.replace(cfg, dtype="float32", capacity_factor=cf)
+
+
+class recorded_routes:
+    """Within the block, every MoE layer's router probabilities and top-k
+    experts (host copies), in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.seen = moe, moe.route, []
+
+        def spy(p, x, cfg):
+            out = self.route(p, x, cfg)
+            self.seen.append((out[0].float().cpu(), out[2].cpu()))
+            return out
+
+        moe.route = spy
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+        return False
+
+
+def lm_modes(tc, params, tok, prefill, routes=False):
+    """Score forward on ``tok``, prefill of ``prefill`` tokens into a cache
+    of ``tok``'s length, then decode to the end, on ``tok``'s device:
+    logits, aux, prefill logits, decode logits (B, steps, V) and, with
+    ``routes``, the score forward's MoE routing."""
+    from repro_torch.models import forward, init_cache, make_positions
+    out = {}
+    with torch.inference_mode():
+        with recorded_routes() as seen:
+            out["logits"], _, aux = forward(params, tok,
+                                            make_positions(tok, tc), tc)
+        out["aux"], out["routes"] = float(aux), seen
+        cache = init_cache(tc, tok.shape[0], tok.shape[1], tok.device)
+        out["prefill"], cache, _ = forward(
+            params, tok[:, :prefill], make_positions(tok[:, :prefill], tc),
+            tc, cache=cache)
+        steps = []
+        for s in range(prefill, tok.shape[1]):
+            ls, cache, _ = forward(params, tok[:, s:s + 1], make_positions(
+                tok[:, s:s + 1], tc, offset=s), tc, cache=cache)
+            steps.append(ls[:, 0])
+        out["decode"] = torch.stack(steps, dim=1)
+    return out
+
+
+def rows_before_first_flip(tc, routes_a, routes_b, length):
+    """(B, L) mask of each row's positions before its first MoE routing
+    difference between two runs; fails on a difference at no near tie."""
+    first = [length] * routes_a[0][1].shape[0]
+    for (probs, idx_a), (_, idx_b) in zip(routes_a, routes_b):
+        top = torch.sort(probs, dim=-1, descending=True).values
+        gap = top[..., tc.top_k - 1] - top[..., tc.top_k]
+        flips = (torch.sort(idx_a, -1).values
+                 != torch.sort(idx_b, -1).values).any(-1)
+        for b, pos in torch.nonzero(flips).tolist():
+            check(pos >= first[b] or float(gap[b, pos]) < LM_NEAR_TIE,
+                  f"{tc.name}: routing differs at row {b} position {pos}, "
+                  f"gap {float(gap[b, pos]):.3g} is no near tie")
+            first[b] = min(first[b], pos)
+    return torch.arange(length)[None] < torch.tensor(first)[:, None]
+
+
+def lm_reduced(seed, dev, digests):
+    """Phase 14 (a): every reduced architecture on the same seeded params
+    on the card and on the CPU, in exactified f32 and in the default bf16:
+    forward, prefill and decode logits and the aux loss. f32 within
+    LM_F32_RTOL; bf16 within LM_BF16_RTOL (a MoE model's score forward up
+    to each row's first routing flip, flips only at near ties; its prefill
+    and decode are held in f32). The f32 logits are digested."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    worst = {}
+    for arch in configs.ARCH_IDS:
+        for exact in (True, False):
+            tc = configs.get_reduced(arch)
+            tc = lm_exactify(tc) if exact else tc
+            tok = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+                0, tc.vocab_size, (LM_B, LM_L)).astype(np.int32))
+            runs = {}
+            for where in ("cpu", dev):
+                params = init_params(torch.Generator().manual_seed(seed), tc,
+                                     where)
+                runs[str(where)] = lm_modes(tc, params, tok.to(where), LM_LP)
+            ref, got = runs["cpu"], runs[str(dev)]
+            scale = float(ref["logits"].abs().max())
+            errs = {k: float((got[k].cpu() - ref[k]).abs().max()) / scale
+                    for k in ("logits", "prefill", "decode")}
+            label = f"{arch} {'f32' if exact else 'bf16'}"
+            for k, e in errs.items():
+                check(math.isfinite(e), f"phase 14 {label}: {k} not finite")
+            if exact:
+                check(max(errs.values()) <= LM_F32_RTOL,
+                      f"phase 14 {label}: |cuda - cpu| / max|logit| {errs}")
+                check(abs(got["aux"] - ref["aux"])
+                      <= LM_F32_RTOL * max(abs(ref["aux"]), 1e-6),
+                      f"phase 14 {label}: aux {got['aux']} {ref['aux']}")
+                digests[f"lm[{arch}] f32 logits"] = digest(
+                    got["logits"], got["prefill"], got["decode"])
+            elif tc.n_experts:
+                rows = rows_before_first_flip(tc, ref["routes"],
+                                              got["routes"], LM_L)
+                per_pos = (got["logits"].cpu() - ref["logits"]).abs().amax(
+                    -1) / scale
+                errs = {"logits (rows before their first flip)":
+                        float(per_pos[rows].max()),
+                        "positions held": int(rows.sum())}
+                check(errs["positions held"] >= LM_L // 2
+                      and errs["logits (rows before their first flip)"]
+                      <= LM_BF16_RTOL, f"phase 14 {label}: {errs}")
+                check(abs(got["aux"] - ref["aux"])
+                      <= LM_BF16_RTOL * abs(ref["aux"]),
+                      f"phase 14 {label}: aux {got['aux']} {ref['aux']}")
+            else:
+                check(max(errs.values()) <= LM_BF16_RTOL,
+                      f"phase 14 {label}: |cuda - cpu| / max|logit| {errs}")
+            worst[label] = errs
+    return worst
+
+
+def lm_full(seed, dev, arch, batch, prefill, steps, smi, digests,
+            get=None):
+    """Phase 14 (b) and (c): one model at its published widths, whole,
+    random f32 params from a seed on the card. The default bf16 score
+    forward (timed, tokens/s) and ``lm_loss`` on it, a bf16 prefill of
+    ``prefill`` tokens into a cache of ``prefill + steps`` and ``steps``
+    decode steps (timed); then, exactified to f32, the score forward over
+    all ``prefill + steps`` tokens, the prefill and each decode step, whose
+    logits must equal the score forward's within LM_DECODE_RTOL * max
+    |logit| (LM_SSD_DECODE_RTOL for the SSD). Returns the numbers it
+    prints."""
+    from repro_torch import configs
+    from repro_torch.models import (forward, init_cache, init_params,
+                                    make_positions)
+    from repro_torch.train import lm_loss
+    cfg = (get or configs.get)(arch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         dev)
+    n_params = sum(x.numel() for x in _lm_leaves(params))
+    check(n_params == cfg.param_count(),
+          f"phase 14 {arch}: {n_params} params, the config counts "
+          f"{cfg.param_count()}")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    L = prefill + steps
+    tok = torch.randint(0, cfg.vocab_size, (batch, L), generator=gen,
+                        device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    row = {"arch": arch, "params": n_params, "batch": batch,
+           "prefill": prefill, "decode_steps": steps,
+           "init_s": round(time.perf_counter() - t0, 3)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    with torch.inference_mode():
+        # the default bf16: score forward and its loss, prefill, decode
+        x = tok[:, :prefill]
+        (logits, _, aux), wall = timed(lambda: forward(
+            params, x, make_positions(x, cfg), cfg))
+        row["score_s"] = round(wall, 4)
+        row["score_tokens_per_s"] = round(batch * prefill / wall, 1)
+        loss, metrics = lm_loss(logits[:, :-1], x[:, 1:], cfg,
+                                aux=aux if cfg.n_experts else None)
+        row["loss"] = float(loss)
+        row["ce"] = float(metrics["ce"])
+        check(math.isfinite(row["loss"]) and bool(torch.isfinite(
+            logits).all()), f"phase 14 {arch}: bf16 loss {row['loss']}")
+        del logits
+        cache = init_cache(cfg, batch, L, dev)
+        _, wall = timed(lambda: forward(params, x, make_positions(x, cfg),
+                                        cfg, cache=cache))
+        row["prefill_s"] = round(wall, 4)
+
+        def decode():
+            for s in range(prefill, L):
+                forward(params, tok[:, s:s + 1], make_positions(
+                    tok[:, s:s + 1], cfg, offset=s), cfg, cache=cache)
+
+        _, wall = timed(decode)
+        row["decode_ms_per_token"] = round(1e3 * wall / steps, 3)
+        del cache
+        # exactified f32: prefill and decode against the score forward
+        c32 = lm_exactify(cfg)
+        (ref, _, _), wall = timed(lambda: forward(
+            params, tok, make_positions(tok, c32), c32))
+        row["f32_score_s"] = round(wall, 4)
+        scale = float(ref.abs().max())
+        cache = init_cache(c32, batch, L, dev)
+        got, _, _ = forward(params, x, make_positions(x, c32), c32,
+                            cache=cache)
+        err = float((got - ref[:, :prefill]).abs().max()) / scale
+        del got
+        errs = [err]
+        for s in range(prefill, L):
+            ls, cache, _ = forward(params, tok[:, s:s + 1], make_positions(
+                tok[:, s:s + 1], c32, offset=s), c32, cache=cache)
+            errs.append(float((ls[:, 0] - ref[:, s]).abs().max()) / scale)
+        row["f32_prefill_err"] = errs[0]
+        row["f32_decode_err"] = max(errs[1:])
+        tol = LM_SSD_DECODE_RTOL if "ssd" in cfg.pattern else LM_DECODE_RTOL
+        check(bool(torch.isfinite(ref).all()) and max(errs) <= tol,
+              f"phase 14 {arch}: f32 prefill / decode against the score "
+              f"forward, / max|logit|: {errs[0]:.3g} / {max(errs[1:]):.3g}")
+        digests[f"lm[{arch}] f32 last logits"] = digest(ref[:, -1])
+        del ref, cache
+    row["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 3)
+    del params
+    torch.cuda.empty_cache()
+    print(f"  {arch} ({n_params / 1e9:.3f}B params, B={batch}, prefill "
+          f"{prefill}, {steps} decode steps; {smi}): bf16 score "
+          f"{row['score_s']:.3f} s ({row['score_tokens_per_s']:.0f} tokens/s),"
+          f" loss {row['loss']:.4f} (ce {row['ce']:.4f}), prefill "
+          f"{row['prefill_s']:.3f} s, decode {row['decode_ms_per_token']:.2f}"
+          f" ms/token; f32 prefill / decode against the score forward "
+          f"{row['f32_prefill_err']:.3g} / {row['f32_decode_err']:.3g} of "
+          f"max|logit|; peak {row['peak_gib']:.2f} GiB")
+    return row
+
+
+def _lm_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _lm_leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _lm_leaves(v)]
+    return [tree]
+
+
+def sdpa_yardstick(seed, dev, smi, get=None, batch=2, length=2048):
+    """One llama3-8b layer's attention at (batch, length): the port's path
+    (q, k, v in bf16 -> ``flash_attention`` in f32, the online softmax in
+    torch ops) against ``torch.nn.functional.scaled_dot_product_attention``
+    (causal, GQA) on the same bf16 inputs; CUDA-event ms."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.models.flash import flash_attention
+    cfg = (get or configs.get)("llama3_8b")
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((batch, length, h, hd), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for h in (H, KV, KV))
+    pos = torch.arange(length, device=dev, dtype=torch.int32)
+    qg = q.reshape(batch, length, KV, H // KV, hd)
+
+    def port():
+        return flash_attention(qg, k, v, pos, pos, 2048, 4096)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    with torch.inference_mode():
+        a = port().reshape(batch, length, H, hd).float()
+        b = library().transpose(1, 2).float()
+        # both round the output to bf16: two of its ulps, relative
+        err = float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+        ms = {"port_ms": cuda_ms(port, reps=5),
+              "sdpa_ms": cuda_ms(library, reps=20)}
+    check(err <= 2 ** -7, f"phase 14: the port's attention against sdpa "
+          f"{err}")
+    print(f"  one llama3-8b layer's attention (B={batch}, L={length}, "
+          f"{H}/{KV} heads, bf16 in; {smi}): the port's flash_attention "
+          f"{ms['port_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{ms['sdpa_ms']:.4f} ms (max |diff| / max(1, |sdpa|) {err:.3g})")
+    return dict(ms, max_rel_diff=err)
+
+
+def phase14(seed, dev, smi, digests, get=None):
+    """The language-model stack (``repro_torch.models``, ``repro_torch.train
+    .loss``): (a) the ten reduced configs, CUDA against the CPU; (b)
+    llama3-8b whole; (c) the MoE, SSD, RG-LRU and M-RoPE models at their
+    published widths; the SDPA yardstick. ``get`` replaces
+    ``configs.get`` (a CPU rehearsal passes the reduced configs)."""
+    t_phase = time.perf_counter()
+    print(f"phase 14: the LM stack ({smi})")
+    worst = lm_reduced(seed, dev, digests)
+    for label, errs in worst.items():
+        print(f"  {label}: |cuda - cpu| / max|logit| "
+              f"{json.dumps({k: round(v, 9) for k, v in errs.items()})}")
+    t_a = time.perf_counter() - t_phase
+    rows = [lm_full(seed, dev, arch, b, lp, n, smi, digests, get)
+            for arch, b, lp, n in LM_FULL]
+    sdpa = sdpa_yardstick(seed, dev, smi, get)
+    out = {"card": smi, "reduced_s": round(t_a, 2), "models": rows,
+           "attention_layer": sdpa,
+           "wall_s": round(time.perf_counter() - t_phase, 2)}
+    print(f"phase 14: {json.dumps(out)}")
+    return out
+
+
 def weiszfeld_scale(p, c, w, am):
     """The sums of |terms| of the Weiszfeld reduction given an assignment:
     nums, denoms (themselves sums of terms >= 0) and cost."""
@@ -3334,6 +3693,11 @@ def main(argv=None) -> int:
     check(wr_launches > 0, "phase 13: weiszfeld_reduce never launched")
     del emb, sel_mask, eng13
     lap("phase 13")
+
+    # -- phase 14: the language-model stack ---------------------------------
+    torch.cuda.empty_cache()
+    phase14(args.seed, dev, smi, digests)
+    lap("phase 14")
     for phase, got in new_paths.items():
         for name in ("distance_argmin", "lloyd_stats", "weiszfeld_stats",
                      da.ONE_CENTER.name):

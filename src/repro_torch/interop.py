@@ -11,7 +11,12 @@ the port's next stage on it:
   become float32 / integer tensors;
 * a ``FaultPlan``'s fields become the port's
   :class:`~repro_torch.wan.faults.FaultPlan` (the same plan: the same
-  masks from the same seeds).
+  masks from the same seeds);
+* a language model's params and cache (numpy pytrees of the JAX package's
+  ``init_params`` / ``init_cache`` / ``forward`` outputs) become the
+  port's, whose layers are a list in depth order where the JAX package
+  stacks them by period and run (:func:`model_params`,
+  :func:`model_cache`).
 
 It imports no JAX: callers convert with ``np.asarray`` first.
 """
@@ -23,6 +28,7 @@ import torch
 from repro_torch.core.backend import DeviceLike, as_tensor, resolve_device
 from repro_torch.core.coreset import Coreset, DistributedCoreset
 from repro_torch.data.selection import Selection
+from repro_torch.models.config import ModelConfig
 from repro_torch.wan.faults import FaultPlan
 
 
@@ -71,3 +77,54 @@ def fault_plan(plan) -> FaultPlan:
     return FaultPlan(drop=tuple(tuple(e) for e in plan.drop),
                      churn=tuple(tuple(c) for c in plan.churn),
                      dup_rate=float(plan.dup_rate), seed=int(plan.seed))
+
+
+def _unstack_layers(tree, cfg: ModelConfig):
+    """The JAX package's ``{"scan": {run: ...}, "rem": {run: ...}}`` layer
+    tree as one entry per layer in depth order. ``scan[str(r)]`` holds
+    leading dims (n_periods,) for a run of one layer and (n_periods,
+    run_len) for a longer one; ``rem[str(r)]`` (run_len,) or none: layers
+    come period by period, run by run, then by index within the run."""
+    def pick(sub, *index):
+        if isinstance(sub, dict):
+            return {k: pick(v, *index) for k, v in sub.items()}
+        return np.asarray(sub)[index]
+
+    layers = []
+    for per in range(cfg.n_full_periods):
+        for r, (_, rlen) in enumerate(cfg.runs()):
+            sub = tree["scan"][str(r)]
+            layers += ([pick(sub, per)] if rlen == 1 else
+                       [pick(sub, per, i) for i in range(rlen)])
+    for r, (_, rlen) in enumerate(cfg.remainder_runs()):
+        sub = tree["rem"][str(r)]
+        layers += ([pick(sub)] if rlen == 1 else
+                   [pick(sub, i) for i in range(rlen)])
+    return layers
+
+
+def _tensors(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tensors(v, device) for v in tree]
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":    # ml_dtypes' bfloat16: no numpy op
+        return tensor(arr.astype(np.float32), device).to(torch.bfloat16)
+    return tensor(arr, device)
+
+
+def model_params(ref_params, cfg: ModelConfig, device: DeviceLike = None):
+    """The JAX package's LM params (``init_params``'s pytree as numpy) as
+    the port's: the same values, layers unstacked into a list."""
+    dev = resolve_device(device)
+    out = {k: _tensors(v, dev) for k, v in ref_params.items()
+           if k != "layers"}
+    out["layers"] = _tensors(_unstack_layers(ref_params["layers"], cfg), dev)
+    return out
+
+
+def model_cache(ref_cache, cfg: ModelConfig, device: DeviceLike = None):
+    """The JAX package's LM cache (``init_cache`` or a ``forward``'s cache,
+    as numpy) as the port's list of per-layer caches."""
+    return _tensors(_unstack_layers(ref_cache, cfg), resolve_device(device))

@@ -1,9 +1,15 @@
-"""Model configuration for the roofline's analytic terms: the port's copy
-of ``repro.models.config``. The model stack itself (blocks, layers, MoE,
-SSD, RG-LRU, sharding, the forward pass) is still to be ported (ROADMAP
-A8)."""
+"""Model zoo (the port of ``repro.models``): one block-pattern LM covering
+dense / MoE / SSM / hybrid / VLM-backbone / audio-backbone families, with
+the score, prefill and decode modes and their caches."""
 
-from repro_torch.models import config
+from repro_torch.models import (blocks, config, layers, model, moe, rglru,
+                                sharding, ssd)
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import (cache_spec, forward, init_cache,
+                                      init_params, make_positions)
 
-__all__ = ["config", "ModelConfig"]
+__all__ = [
+    "blocks", "config", "layers", "model", "moe", "rglru", "sharding", "ssd",
+    "ModelConfig", "cache_spec", "forward", "init_cache", "init_params",
+    "make_positions",
+]

@@ -1,0 +1,460 @@
+"""Common neural layers on plain tensors (the port of
+``repro.models.layers``).
+
+Conventions, as the JAX package's:
+* params are nested dicts of tensors; ``*_init(key, ...)`` builds them from
+  a ``torch.Generator`` (drawn on the generator's device), ``*_apply(p,
+  ...)`` runs them;
+* activations flow in ``cfg.dtype`` (bf16), norms/softmax/rope accumulate in
+  f32, params live in ``cfg.param_dtype`` (f32 master copies) and are cast
+  to the activations' dtype at each use;
+* where the JAX package asks a product of bf16 operands for an f32 result
+  (``preferred_element_type``), both operands are upcast to f32 first, so
+  the products are exact and the sums f32;
+* attention is chunked (online softmax over KV blocks) so the (L, L) score
+  matrix never materializes; local (sliding-window) attention slices a band
+  per query chunk: O(L * window).
+
+A cache passed to :func:`attention_apply` is written in place (prefill and
+decode alike) and returned.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+
+Params = Dict[str, Any]
+
+_NEG_INF = -1e30
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _pdtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.param_dtype]
+
+
+def normal(key: torch.Generator, shape, dtype) -> torch.Tensor:
+    return torch.randn(shape, generator=key, device=key.device, dtype=dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def dense_init(key: torch.Generator, d_in: int, d_out: int,
+               cfg: ModelConfig, bias: bool = False) -> Params:
+    p = {"w": normal(key, (d_in, d_out), _pdtype(cfg)) / math.sqrt(d_in)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=_pdtype(cfg), device=key.device)
+    return p
+
+
+def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def rmsnorm_init(d: int, cfg: ModelConfig,
+                 device: Optional[torch.device] = None) -> Params:
+    return {"scale": torch.ones((d,), dtype=_pdtype(cfg), device=device)}
+
+
+def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p["scale"].float()).to(x.dtype)
+
+
+def _f32_product(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with an f32 result: both operands upcast first."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# RoPE / M-RoPE
+# ---------------------------------------------------------------------------
+
+def _freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> torch.Tensor:
+    """positions (..., L) -> angles (..., L, head_dim//2) in f32."""
+    freqs = _freqs(head_dim, theta, positions.device)
+    return positions.float()[..., None] * freqs
+
+
+def _mrope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, ...]) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): positions (B, 3, L) carry (temporal, h, w) ids;
+    the head_dim//2 frequency slots are split into per-axis sections."""
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    freqs = _freqs(head_dim, theta, positions.device)
+    ang_all = positions.float()[..., None] * freqs               # (B,3,L,half)
+    parts = []
+    off = 0
+    for axis, sec in enumerate(sections):
+        parts.append(ang_all[:, axis, :, off:off + sec])
+        off += sec
+    return torch.cat(parts, dim=-1)                              # (B, L, half)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               sections: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+    """x (B, L, H, hd); positions (B, L) or (B, 3, L) for M-RoPE."""
+    hd = x.shape[-1]
+    if sections is not None:
+        ang = _mrope_angles(positions, hd, theta, sections)
+    else:
+        ang = _rope_angles(positions, hd, theta)
+    cos = torch.cos(ang)[:, :, None, :]                          # (B,L,1,half)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attention_init(key: torch.Generator, cfg: ModelConfig) -> Params:
+    d, qd = cfg.d_model, cfg.n_heads * cfg.head_dim
+    kvd = cfg.n_kv_heads * cfg.head_dim
+    p = {
+        "wq": dense_init(key, d, qd, cfg, bias=cfg.qkv_bias),
+        "wk": dense_init(key, d, kvd, cfg, bias=cfg.qkv_bias),
+        "wv": dense_init(key, d, kvd, cfg, bias=cfg.qkv_bias),
+        "wo": dense_init(key, qd, d, cfg),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(cfg.head_dim, cfg, key.device)
+        p["k_norm"] = rmsnorm_init(cfg.head_dim, cfg, key.device)
+    return p
+
+
+def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
+         cfg: ModelConfig, kind: str):
+    B, L, _ = x.shape
+    q = dense_apply(p["wq"], x).reshape(B, L, cfg.n_heads, cfg.head_dim)
+    k = dense_apply(p["wk"], x).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    v = dense_apply(p["wv"], x).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm_apply(p["q_norm"], q, cfg.rms_eps)
+        k = rmsnorm_apply(p["k_norm"], k, cfg.rms_eps)
+    theta = cfg.rope_theta_local if kind == "local" else cfg.rope_theta
+    q = apply_rope(q, positions, theta, cfg.mrope_sections)
+    k = apply_rope(k, positions, theta, cfg.mrope_sections)
+    return q, k, v
+
+
+def _fit_chunk(chunk: int, length: int) -> int:
+    """Largest divisor of ``length`` that is <= chunk."""
+    chunk = min(chunk, length)
+    while length % chunk:
+        chunk -= 1
+    return chunk
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, softcap: float
+            ) -> torch.Tensor:
+    """q (B, qc, KV, G, hd), k (B, kc, KV, hd) -> (B, KV, G, qc, kc) f32."""
+    s = _f32_product("bqkgh,bskh->bkgqs", q, k)
+    s = s / math.sqrt(q.shape[-1])
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    return s
+
+
+def _pv(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Probabilities rounded to v's dtype, times v, summed in f32:
+    (B, KV, G, qc, s), (B, s, KV, hd) -> (B, qc, KV, G, hd)."""
+    return _f32_product("bkgqs,bskh->bqkgh", p.to(v.dtype), v)
+
+
+def _attention_rect(q, k, v, q_pos, k_pos, cfg: ModelConfig, kv_chunk: int,
+                    q_chunk: int = 2048) -> torch.Tensor:
+    """Online softmax over KV chunks (the full causal rectangle, masked),
+    one Q chunk at a time so the f32 accumulator is (B, q_chunk, H, hd).
+
+    q (B, Lq, H, hd); k, v (B, Lkv, KV, hd); q_pos (Lq,), k_pos (Lkv,).
+    The path of a positive ``attn_logit_softcap``."""
+    B, Lq, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    q_chunk = _fit_chunk(q_chunk, Lq)
+    nk = k.shape[1] // kv_chunk
+    outs = []
+    for i in range(Lq // q_chunk):
+        qp = q_pos[i * q_chunk:(i + 1) * q_chunk]
+        qg = q[:, i * q_chunk:(i + 1) * q_chunk].reshape(
+            B, q_chunk, KV, G, hd)
+        acc = torch.zeros((B, q_chunk, KV, G, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((B, KV, G, q_chunk), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, KV, G, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        for j in range(nk):
+            sl = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            s = _scores(qg, k[:, sl], cfg.attn_logit_softcap)
+            mask = k_pos[sl][None, :] <= qp[:, None]             # (qc, kc)
+            s = torch.where(mask, s, _NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr.permute(0, 3, 1, 2)[..., None] + _pv(p, v[:, sl])
+            m = m_new
+        out = acc / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
+        outs.append(out.reshape(B, q_chunk, H, hd).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _attention_banded(q, k, v, q_pos, k_pos, cfg: ModelConfig,
+                      q_chunk: int) -> torch.Tensor:
+    """Sliding-window attention: each q chunk attends to a static-width band
+    [chunk_start - window, chunk_end). O(L * window) compute."""
+    B, L, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    w = cfg.window
+    q_chunk = min(q_chunk, L)
+    # pad keys left by w so every band slice is in bounds
+    kp = F.pad(k, (0, 0, 0, 0, w, 0))
+    vp = F.pad(v, (0, 0, 0, 0, w, 0))
+    kpos_p = F.pad(k_pos + 1, (w, 0)) - 1     # padded slots get pos -1
+    outs = []
+    for i in range(L // q_chunk):
+        start = i * q_chunk
+        qp = q_pos[start:start + q_chunk]
+        q_blk = q[:, start:start + q_chunk].reshape(B, q_chunk, KV, G, hd)
+        band = slice(start, start + w + q_chunk)
+        kp_band = kpos_p[band]
+        s = _scores(q_blk, kp[:, band], cfg.attn_logit_softcap)
+        mask = ((kp_band[None, :] <= qp[:, None]) &
+                (kp_band[None, :] > qp[:, None] - w) &
+                (kp_band[None, :] >= 0))
+        s = torch.where(mask, s, _NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1)
+        pv = _pv(p, vp[:, band])
+        out = pv / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
+        outs.append(out.reshape(B, q_chunk, H, hd).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _attention_decode(q, k_cache, v_cache, slot_pos, cur_pos,
+                      cfg: ModelConfig, kind: str) -> torch.Tensor:
+    """Single-token decode against a cache. q (B, 1, H, hd);
+    k/v_cache (B, S, KV, hd); slot_pos (B, S) absolute position held by each
+    cache slot (-1 = empty); cur_pos (B,) per-sequence positions."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, hd)
+    s = _scores(qg, k_cache, cfg.attn_logit_softcap)            # (B,KV,G,1,S)
+    valid = (slot_pos >= 0) & (slot_pos <= cur_pos[:, None])
+    if kind == "local":
+        valid &= slot_pos > (cur_pos[:, None] - cfg.window)
+    s = torch.where(valid[:, None, None, None, :], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return _pv(p, v_cache).reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8 KV quantization, per (batch, slot, head) absmax scale; rounds
+    half to even and clips to +-127."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCacheSpec:
+    """Cache layout for one attention layer: ring buffer of ``size`` slots
+    (size == window for local layers, max_len for global). With
+    cfg.kv_cache_dtype == "int8" the K/V payloads are quantized with
+    per-(slot, head) f32 scales."""
+    size: int
+
+    def init(self, batch: int, cfg: ModelConfig, device=None) -> Params:
+        kvd = (batch, self.size, cfg.n_kv_heads, cfg.head_dim)
+        pos = torch.full((batch, self.size), -1, dtype=torch.int32,
+                         device=device)
+        if cfg.kv_cache_dtype == "int8":
+            sc = (batch, self.size, cfg.n_kv_heads)
+            return {
+                "k": torch.zeros(kvd, dtype=torch.int8, device=device),
+                "v": torch.zeros(kvd, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sc, dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(sc, dtype=torch.float32,
+                                       device=device),
+                "pos": pos,
+            }
+        return {
+            "k": torch.zeros(kvd, dtype=_dtype(cfg), device=device),
+            "v": torch.zeros(kvd, dtype=_dtype(cfg), device=device),
+            "pos": pos,
+        }
+
+
+def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig, kind: str,
+                    cache: Optional[Params] = None, q_chunk: int = 2048,
+                    kv_chunk: int = 4096):
+    """Modes: cache is None -> training/scoring full pass (returns y, None).
+    cache given & L > 1 -> prefill (fills the cache). cache given & L == 1
+    -> single-token decode (updates the ring cache)."""
+    B, L, _ = x.shape
+    q, k, v = _qkv(p, x, positions, cfg, kind)
+
+    int8_cache = cfg.kv_cache_dtype == "int8"
+    if cache is not None and L == 1:
+        cur = positions[:, -1] if positions.dim() == 2 else positions[:, 0, -1]
+        S = cache["pos"].shape[1]
+        slot = (cur % S).long()                                  # (B,)
+        bidx = torch.arange(B, device=x.device)
+        if int8_cache:
+            kq, ksc = _quant_kv(k[:, 0])
+            vq, vsc = _quant_kv(v[:, 0])
+            cache["k"][bidx, slot] = kq
+            cache["v"][bidx, slot] = vq
+            cache["k_scale"][bidx, slot] = ksc
+            cache["v_scale"][bidx, slot] = vsc
+            k_cache = _dequant_kv(cache["k"], cache["k_scale"], k.dtype)
+            v_cache = _dequant_kv(cache["v"], cache["v_scale"], v.dtype)
+        else:
+            cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+            k_cache, v_cache = cache["k"], cache["v"]
+        cache["pos"][bidx, slot] = cur.to(torch.int32)
+        y = _attention_decode(q, k_cache, v_cache, cache["pos"], cur, cfg,
+                              kind)
+    else:
+        q_pos = positions[0] if positions.dim() == 2 else positions[0, 0]
+        kv_chunk = _fit_chunk(kv_chunk, L)
+        q_chunk = _fit_chunk(q_chunk, L)
+        if kind == "local":
+            y = _attention_banded(q, k, v, q_pos, q_pos, cfg, q_chunk)
+        elif cfg.attn_logit_softcap == 0.0:
+            # flash path: O(B L H hd) saved for the backward, probability
+            # blocks recomputed there (repro_torch.models.flash)
+            from repro_torch.models.flash import flash_attention
+            KV = k.shape[2]
+            qg = q.reshape(B, L, KV, cfg.n_heads // KV, cfg.head_dim)
+            y = flash_attention(qg, k, v, q_pos, q_pos, q_chunk,
+                                kv_chunk).reshape(B, L, cfg.n_heads,
+                                                  cfg.head_dim)
+        else:
+            y = _attention_rect(q, k, v, q_pos, q_pos, cfg, kv_chunk)
+        if cache is not None:
+            _prefill_cache(cache, k, v, q_pos, int8_cache)
+
+    y = y.reshape(B, L, cfg.n_heads * cfg.head_dim)
+    return dense_apply(p["wo"], y), cache
+
+
+def _prefill_cache(cache: Params, k, v, q_pos, int8_cache: bool) -> None:
+    """Write a prefill's keys and values into ``cache``: the first L slots,
+    or, when the sequence is longer than the cache (a local layer's ring),
+    its last S tokens aligned so that slot == pos % S."""
+    B, L = k.shape[:2]
+    S = cache["pos"].shape[1]
+    kw, vw = k, v
+    payload = {}
+    if int8_cache:
+        kw, payload["k_scale"] = _quant_kv(k)
+        vw, payload["v_scale"] = _quant_kv(v)
+    payload["k"], payload["v"] = kw, vw
+    payload["pos"] = q_pos.to(torch.int32)[None].expand(B, L)
+    for name, val in payload.items():
+        if S >= L:
+            cache[name][:, :L] = val.to(cache[name].dtype)
+        else:
+            shift = (L - S) % S
+            cache[name].copy_(torch.roll(val[:, L - S:], shift, dims=1))
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_init(key: torch.Generator, cfg: ModelConfig,
+             d_ff: Optional[int] = None) -> Params:
+    d_ff = d_ff or cfg.d_ff
+    p = {
+        "w_in": dense_init(key, cfg.d_model, d_ff, cfg),
+        "w_out": dense_init(key, d_ff, cfg.d_model, cfg),
+    }
+    if cfg.mlp_gated:
+        p["w_gate"] = dense_init(key, cfg.d_model, d_ff, cfg)
+    return p
+
+
+def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    act = F.silu if cfg.mlp_act == "silu" else gelu
+    if cfg.mlp_gated:
+        g = act(dense_apply(p["w_gate"], x))
+        return dense_apply(p["w_out"], g * dense_apply(p["w_in"], x))
+    return dense_apply(p["w_out"], act(dense_apply(p["w_in"], x)))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def embedding_init(key: torch.Generator, cfg: ModelConfig) -> Params:
+    return {"table": normal(key, (cfg.vocab_padded, cfg.d_model),
+                            _pdtype(cfg)) * 0.02}
+
+
+def embedding_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig
+                    ) -> torch.Tensor:
+    x = p["table"][tokens.long()].to(_dtype(cfg))
+    if cfg.emb_scale_by_sqrt_dim:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def lm_head_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """x (B, L, d) -> logits (B, L, vocab_padded) in f32."""
+    logits = x.float() @ p["table"].to(x.dtype).float().T
+    if cfg.final_logit_softcap > 0.0:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits

@@ -1,0 +1,137 @@
+"""Language model (the port of ``repro.models.model``): embedding -> the
+blocks of the pattern, layer by layer -> final norm -> (tied or untied) LM
+head.
+
+Params are ``{"embed", "final_norm"[, "lm_head"], "layers": [...]}`` with
+one dict per layer in depth order; layer ``i`` is of kind
+``cfg.pattern[i % cfg.period]`` (the ``n_layers % period`` remainder blocks
+continue the pattern). The JAX package stacks the same layers by period
+and run; ``repro_torch.interop.model_params`` carries them across. A cache
+is a list with one dict per layer, written in place by :func:`forward`.
+
+Works in three modes:
+  * train/score:   forward(params, tokens, positions)          -> logits
+  * prefill:       forward(..., cache=init_cache(...))         -> logits, cache
+  * decode:        forward with L == 1 and a cache             -> logits, cache
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import sharding
+from repro_torch.models.blocks import (block_apply, block_cache_init,
+                                       block_init)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (embedding_apply, embedding_init,
+                                       lm_head_apply, rmsnorm_apply,
+                                       rmsnorm_init)
+
+Params = Dict[str, Any]
+Cache = List[Params]
+KeyLike = Union[int, torch.Generator]
+DeviceLike = Union[str, torch.device, None]
+
+
+def _device(device: DeviceLike) -> torch.device:
+    # imported here: ``repro_torch.core`` imports the roofline layer, which
+    # imports this package for its config
+    from repro_torch.core.backend import resolve_device
+    return resolve_device(device)
+
+
+def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The mixer kind of each layer, in depth order."""
+    return tuple(cfg.pattern[i % cfg.period] for i in range(cfg.n_layers))
+
+
+def _to(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def init_params(key: KeyLike, cfg: ModelConfig,
+                device: DeviceLike = None) -> Params:
+    """Random parameters: dense weights ``normal / sqrt(d_in)``, embeddings
+    ``0.02 * normal``, norms ones, and the SSD and RG-LRU inits of the JAX
+    package, in ``cfg.param_dtype``. ``key`` is a seed (drawn on the target
+    device) or a ``torch.Generator`` (drawn on its device, then moved), so
+    one CPU generator gives the same params on every device."""
+    cfg.validate()
+    dev = _device(device)
+    gen = key if isinstance(key, torch.Generator) else \
+        torch.Generator(device=dev).manual_seed(int(key))
+    params: Params = {
+        "embed": embedding_init(gen, cfg),
+        "final_norm": rmsnorm_init(cfg.d_model, cfg, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embedding_init(gen, cfg)
+    params["layers"] = [block_init(gen, cfg, kind)
+                        for kind in layer_kinds(cfg)]
+    return _to(params, dev)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Cache:
+    dev = _device(device)
+    return [block_cache_init(batch, max_len, cfg, kind, dev)
+            for kind in layer_kinds(cfg)]
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
+    """The cache's shapes and dtypes, nothing allocated (meta tensors)."""
+    return init_cache(cfg, batch, max_len, device="meta")
+
+
+def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
+            cfg: ModelConfig, cache: Optional[Cache] = None,
+            remat: str = "none", head: bool = True
+            ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
+    """Returns (logits (B, L, vocab_padded) f32, cache | None, aux). With
+    ``head=False`` the first element is the normalized hidden state
+    (B, L, d) instead (the chunked-CE loss applies the head itself). With
+    ``remat="full"`` each block's activations are recomputed in the
+    backward instead of kept."""
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat is 'none' or 'full', got {remat!r}")
+    x = embedding_apply(params["embed"], tokens, cfg)
+    x = sharding.constrain(x, "batch", "model", None)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    recompute = remat == "full" and torch.is_grad_enabled()
+    for i, kind in enumerate(layer_kinds(cfg)):
+        c = None if cache is None else cache[i]
+        if recompute:
+            x, _, a = checkpoint(block_apply, params["layers"][i], x,
+                                 positions, cfg, kind, c,
+                                 use_reentrant=False)
+        else:
+            x, _, a = block_apply(params["layers"][i], x, positions, cfg,
+                                  kind, c)
+        aux_total = aux_total + a
+
+    x = rmsnorm_apply(params["final_norm"], x, cfg.rms_eps)
+    if not head:
+        return x, cache, aux_total
+    head_p = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = lm_head_apply(head_p, x, cfg)
+    logits = sharding.constrain(logits, "batch", None, "model")
+    return logits, cache, aux_total
+
+
+def make_positions(tokens: torch.Tensor, cfg: ModelConfig,
+                   offset: Union[torch.Tensor, int] = 0) -> torch.Tensor:
+    """Default position ids (int32). (B, L) for standard RoPE; (B, 3, L)
+    with identical t/h/w ids for M-RoPE text-only inputs."""
+    B, L = tokens.shape
+    pos = torch.arange(L, dtype=torch.int32, device=tokens.device)[None] \
+        + offset
+    pos = pos.to(torch.int32).expand(B, L)
+    if cfg.mrope_sections is not None:
+        pos = pos[:, None, :].expand(B, 3, L)
+    return pos

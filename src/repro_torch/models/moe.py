@@ -1,0 +1,118 @@
+"""Mixture-of-Experts FFN with top-k routing and capacity-based dispatch
+(the port of ``repro.models.moe``).
+
+Dispatch is local per sequence row: every (token, choice) gets a position
+inside its expert from a per-row cumulative count over the flattened
+(L * K) choices, token-major, and is added into its row of the (B, E,
+C_row, d) dispatch buffer (one ``index_add_`` for all choices: each kept
+slot receives one token, so the order of the adds changes nothing; the
+JAX package scatters one routing choice at a time). Tokens beyond the per-row
+capacity C = ceil(L * k / E * cf) (rounded up to 8) are dropped: they
+write zero into slot C - 1 and the residual passes through (Switch/GShard
+semantics, accounted per row).
+
+Top-k breaks ties as ``jax.lax.top_k`` does, the lower expert first (a
+stable descending sort): router logits in bf16 make equal probabilities
+common.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import sharding
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import _pdtype, dense_init, gelu, normal
+
+Params = Dict[str, Any]
+
+
+def moe_init(key: torch.Generator, cfg: ModelConfig) -> Params:
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    pdt = _pdtype(cfg)
+
+    def expert_w(din, dout):
+        return normal(key, (E, din, dout), pdt) / math.sqrt(din)
+
+    return {
+        "router": dense_init(key, d, E, cfg),
+        "experts": {
+            "w_gate": expert_w(d, ff),
+            "w_in": expert_w(d, ff),
+            "w_out": expert_w(ff, d),
+        },
+    }
+
+
+def _row_capacity(seq_len: int, cfg: ModelConfig) -> int:
+    c = int(math.ceil(seq_len * cfg.top_k / cfg.n_experts
+                      * cfg.capacity_factor))
+    return -(-c // 8) * 8
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest along the last dim, ties to the lower index."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """Router probabilities, the top-k gates and experts, and each choice's
+    capacity slot and kept flag: probs (B, L, E) f32, gate (B, L, K) f32,
+    idx, pos (B, L, K) int64, keep (B, L, K) bool."""
+    B, L, _ = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = _row_capacity(L, cfg)
+    logits = (x @ p["router"]["w"].to(x.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)                        # (B, L, E)
+    gate, idx = top_k(probs, K)                                  # (B, L, K)
+    gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    eid = idx.reshape(B, L * K)
+    onehot = (eid[..., None] == torch.arange(E, device=x.device)).long()
+    pos = torch.gather(onehot.cumsum(dim=1) - 1, 2, eid[..., None])[..., 0]
+    keep = pos < C
+    pos = pos.clamp_max(C - 1)
+    return probs, gate, idx, pos.reshape(B, L, K), keep.reshape(B, L, K)
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, L, d) -> (y (B, L, d), aux_loss scalar f32)."""
+    B, L, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    C = _row_capacity(L, cfg)
+    probs, gate, idx, pos, keep = route(p, x, cfg)
+
+    # each choice's row of the flattened (B * E * C, d) buffer; a kept
+    # choice's slot is its own, a dropped one adds zero into slot C - 1
+    slot = (torch.arange(B, device=x.device)[:, None, None] * E + idx) * C \
+        + pos                                                    # (B, L, K)
+    buf = x.new_zeros((B * E * C, d))
+    buf.index_add_(0, slot.reshape(-1), (x[:, :, None, :] * keep[
+        ..., None].to(x.dtype)).reshape(-1, d))
+    buf = sharding.constrain(buf.reshape(B, E, C, d), "batch", "model",
+                             None, None)
+
+    act = F.silu if cfg.mlp_act == "silu" else gelu
+    w = p["experts"]
+    hg = act(torch.einsum("becd,edf->becf", buf, w["w_gate"].to(x.dtype)))
+    hi = torch.einsum("becd,edf->becf", buf, w["w_in"].to(x.dtype))
+    ho = torch.einsum("becf,efd->becd", hg * hi, w["w_out"].to(x.dtype))
+    ho = sharding.constrain(ho, "batch", "model", None, None)
+
+    vals = ho.reshape(B * E * C, d)[slot]                        # (B,L,K,d)
+    scale = (gate * keep)[..., None].to(ho.dtype)
+    y = x.new_zeros((B, L, d))
+    for j in range(K):
+        y = y + vals[:, :, j] * scale[:, :, j]
+    y = sharding.constrain(y, "batch", "model", None)
+
+    # Switch-style load-balance aux loss
+    frac = (idx[..., 0].reshape(-1, 1) == torch.arange(
+        E, device=x.device)).float().mean(dim=0)
+    mean_prob = probs.reshape(-1, E).mean(dim=0)
+    aux = E * torch.sum(frac * mean_prob)
+    return y, aux

@@ -27,7 +27,10 @@ MODULES = ("backend", "baselines", "clustering", "comm", "coreset",
            "strategy", "topology")
 # modules outside core, by their path in the package
 PACKAGE_MODULES = ("wan.faults", "wan.schedules", "wan.runtime",
-                   "wan.quiesce", "data.selection")
+                   "wan.quiesce", "data.selection", "models.sharding",
+                   "models.layers", "models.moe", "models.ssd",
+                   "models.rglru", "models.blocks", "models.model",
+                   "train.loss")
 
 
 def _path(mod):
@@ -78,6 +81,14 @@ def test_the_clustering_names_are_all_held():
             ("data.selection", "select_coreset"),
             ("data.selection", "embed_examples"),
             ("data.selection", "gather_selected")} <= set(SHARED)
+    assert {("models.model", "init_params"), ("models.model", "forward"),
+            ("models.model", "init_cache"), ("models.model", "cache_spec"),
+            ("models.model", "make_positions"),
+            ("models.layers", "attention_apply"),
+            ("models.moe", "moe_apply"), ("models.ssd", "ssd_apply"),
+            ("models.rglru", "rglru_apply"), ("models.blocks", "block_apply"),
+            ("models.sharding", "param_specs"), ("train.loss", "lm_loss"),
+            ("train.loss", "chunked_lm_loss")} <= set(SHARED)
 
 
 @pytest.mark.parametrize("mod,name", SHARED,

@@ -1114,3 +1114,225 @@ def test_cuda_select_coreset_matches_the_cpu(cuda, monkeypatch, d):
     assert moved.sum() <= max(1, moved.size // 100), int(moved.sum())
     np.testing.assert_allclose(float(wg.astype(np.float64).sum()), 4 * 256,
                                rtol=1e-3)
+
+
+# -- the language-model stack (repro_torch.models) ------------------------------
+
+from _lm_routes import rows_before_first_flip           # noqa: E402
+from repro_torch import configs as lm_configs            # noqa: E402
+from repro_torch.models import flash as lm_flash         # noqa: E402
+from repro_torch.models import moe as lm_moe             # noqa: E402
+from repro_torch.models import (forward as lm_forward,   # noqa: E402
+                                init_cache as lm_init_cache,
+                                init_params as lm_init_params,
+                                make_positions as lm_positions)
+
+LM_ARCHS = lm_configs.ARCH_IDS
+LM_B, LM_L, LM_LP = 2, 32, 24
+# the CPU tests' tolerances against the JAX package, relative to max |logit|
+LM_F32_RTOL, LM_BF16_RTOL, LM_NEAR_TIE = 2e-4, 5e-2, 4e-3
+
+
+def _lm_cfg(arch, exact):
+    import dataclasses
+    cfg = lm_configs.get_reduced(arch)
+    if not exact:
+        return cfg
+    cf = (float(cfg.n_experts) / cfg.top_k if cfg.n_experts
+          else cfg.capacity_factor)
+    return dataclasses.replace(cfg, dtype="float32", capacity_factor=cf)
+
+
+def _lm_modes(tc, params, tok, monkeypatch):
+    """Score forward (MoE routing recorded), prefill of LM_LP tokens,
+    decode to LM_L, on ``tok``'s device; host copies."""
+    seen = []
+    route = lm_moe.route
+
+    def spy(p, x, cfg):
+        out = route(p, x, cfg)
+        seen.append((out[0].float().cpu(), out[2].cpu()))
+        return out
+
+    monkeypatch.setattr(lm_moe, "route", spy)
+    out = {}
+    with torch.inference_mode():
+        logits, _, aux = lm_forward(params, tok, lm_positions(tok, tc), tc)
+        monkeypatch.setattr(lm_moe, "route", route)
+        out["logits"], out["aux"], out["routes"] = logits.cpu(), float(aux), \
+            seen
+        cache = lm_init_cache(tc, LM_B, LM_L, tok.device)
+        lp, cache, _ = lm_forward(params, tok[:, :LM_LP],
+                                  lm_positions(tok[:, :LM_LP], tc), tc,
+                                  cache=cache)
+        out["prefill"] = lp.cpu()
+        steps = []
+        for s in range(LM_LP, LM_L):
+            ls, cache, _ = lm_forward(params, tok[:, s:s + 1], lm_positions(
+                tok[:, s:s + 1], tc, offset=s), tc, cache=cache)
+            steps.append(ls[:, 0].cpu())
+        out["decode"] = torch.stack(steps, dim=1)
+        out["cache"] = [{k: v.cpu() for k, v in c.items()} for c in cache]
+    return out
+
+
+def _lm_runs(arch, exact, cuda, monkeypatch, **changes):
+    import dataclasses
+    tc = dataclasses.replace(_lm_cfg(arch, exact), **changes)
+    tok = torch.from_numpy(np.random.default_rng(1).integers(
+        0, tc.vocab_size, (LM_B, LM_L)).astype(np.int32))
+    runs = {}
+    for where in ("cpu", cuda):
+        params = lm_init_params(torch.Generator().manual_seed(0), tc, where)
+        runs[str(where)] = _lm_modes(tc, params, tok.to(where), monkeypatch)
+    return tc, runs["cpu"], runs[str(cuda)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_matches_the_cpu_in_f32(cuda, monkeypatch, arch):
+    """Exactified f32, the same params on both devices: score, prefill and
+    decode logits, the aux loss and the prefill-and-decode cache."""
+    tc, cpu, gpu = _lm_runs(arch, True, cuda, monkeypatch)
+    scale = float(cpu["logits"].abs().max())
+    for k in ("logits", "prefill", "decode"):
+        torch.testing.assert_close(gpu[k], cpu[k], rtol=0,
+                                   atol=LM_F32_RTOL * scale, msg=k)
+    assert abs(gpu["aux"] - cpu["aux"]) <= LM_F32_RTOL * max(
+        abs(cpu["aux"]), 1e-6)
+    for a, b in zip(gpu["cache"], cpu["cache"]):
+        for k in a:
+            if a[k].dtype == torch.int32:
+                assert torch.equal(a[k], b[k]), k
+            else:
+                torch.testing.assert_close(
+                    a[k].float(), b[k].float(), rtol=0,
+                    atol=LM_F32_RTOL * float(b[k].abs().max() + 1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_matches_the_cpu_in_bf16(cuda, monkeypatch, arch):
+    """The default bf16: within LM_BF16_RTOL of max |logit|; a MoE model's
+    score forward up to each row's first routing flip, every flip at a near
+    tie (its prefill and decode are held in f32 above)."""
+    tc, cpu, gpu = _lm_runs(arch, False, cuda, monkeypatch)
+    scale = float(cpu["logits"].abs().max())
+    if not tc.n_experts:
+        for k in ("logits", "prefill", "decode"):
+            torch.testing.assert_close(gpu[k], cpu[k], rtol=0,
+                                       atol=LM_BF16_RTOL * scale, msg=k)
+        return
+    rows = torch.from_numpy(rows_before_first_flip(
+        [p.numpy() for p, _ in cpu["routes"]],
+        [i.numpy() for _, i in cpu["routes"]],
+        [i.numpy() for _, i in gpu["routes"]], tc.top_k, LM_NEAR_TIE))
+    assert int(rows.sum()) >= LM_L // 2
+    err = (gpu["logits"] - cpu["logits"]).abs().amax(-1)
+    assert bool((err[rows] <= LM_BF16_RTOL * scale).all())
+    assert abs(gpu["aux"] - cpu["aux"]) <= LM_BF16_RTOL * abs(cpu["aux"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_lm_decode_matches_forward(cuda, monkeypatch, arch, kv):
+    """On the card, exactified f32: prefill and decode logits equal the
+    score forward's within 5e-4 * max |logit| (tests/test_models.py's
+    check); with an int8 KV cache within 5e-2 (K and V quantized to 1/127
+    of each row's largest magnitude)."""
+    tc, _, gpu = _lm_runs(arch, True, cuda, monkeypatch, kv_cache_dtype=kv)
+    scale = float(gpu["logits"].abs().max())
+    tol = (5e-4 if kv == "bfloat16" else 5e-2) * scale
+    torch.testing.assert_close(gpu["prefill"], gpu["logits"][:, :LM_LP],
+                               rtol=0, atol=tol)
+    torch.testing.assert_close(gpu["decode"], gpu["logits"][:, LM_LP:],
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_entry_points_default_to_the_card(cuda):
+    """With no device, params and caches land on CUDA, positions follow
+    the tokens, and a forward runs there."""
+    tc = lm_configs.get_reduced("recurrentgemma_2b")
+    params = lm_init_params(0, tc)
+    cache = lm_init_cache(tc, 1, 8)
+    leaves = [params["embed"]["table"]] + [
+        x for layer in params["layers"] for x in _lm_leaves(layer)] + [
+        x for c in cache for x in c.values()]
+    assert all(x.device.type == "cuda" for x in leaves)
+    tok = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        logits, cache, _ = lm_forward(params, tok, lm_positions(tok, tc), tc,
+                                      cache=cache)
+    assert logits.device.type == "cuda"
+    assert bool(torch.isfinite(logits).all())
+
+
+def _lm_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _lm_leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+def test_cuda_lm_sets_no_tf32(cuda):
+    """A fresh interpreter that imports every port module and runs a
+    forward and a flash backward on the card leaves float32 matmuls at full
+    precision and cuDNN's TF32 flag at PyTorch's default: the port sets no
+    TF32 anywhere."""
+    import os
+    import subprocess
+    import sys
+    script = """
+import importlib, pkgutil, torch
+before = torch.backends.cudnn.allow_tf32
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+from repro_torch import configs
+from repro_torch.models import forward, init_params, make_positions
+from repro_torch.models.flash import flash_attention
+cfg = configs.get_reduced("llama3_8b")
+p = init_params(0, cfg)
+tok = torch.zeros((1, 8), dtype=torch.int32, device="cuda")
+forward(p, tok, make_positions(tok, cfg), cfg)
+q = torch.randn(1, 8, 2, 2, 16, device="cuda", requires_grad=True)
+k = torch.randn(1, 8, 2, 16, device="cuda")
+pos = torch.arange(8, device="cuda")
+flash_attention(q, k, k, pos, pos).sum().backward()
+print(torch.backends.cuda.matmul.allow_tf32,
+      torch.backends.cudnn.allow_tf32 == before,
+      torch.get_float32_matmul_precision())
+"""
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, check=True,
+                         env=dict(os.environ, PYTHONPATH=src))
+    assert out.stdout.split()[-3:] == ["False", "True", "highest"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_matches_the_cpu(cuda, dtype):
+    """Flash attention's forward and gradients on the card against the CPU
+    on the same inputs (f32: 2e-4 forward, 3e-3 gradients, the reference
+    test's tolerances; bf16: one bf16 rounding)."""
+    rng = np.random.default_rng(0)
+    B, L, KV, G, hd = 2, 96, 2, 2, 16
+    q, k, v = (torch.tensor(rng.standard_normal(s), dtype=dtype)
+               for s in ((B, L, KV, G, hd), (B, L, KV, hd), (B, L, KV, hd)))
+    pos = torch.arange(L, dtype=torch.int32)
+    res = []
+    for where in ("cpu", cuda):
+        xs = [x.to(where).requires_grad_() for x in (q, k, v)]
+        out = lm_flash.flash_attention(*xs, pos.to(where), pos.to(where), 32,
+                                       48)
+        grads = torch.autograd.grad(out.float().sum(), xs)
+        res.append([out.detach().float().cpu()] + [
+            g.float().cpu() for g in grads])
+    tols = ((2e-4, 3e-3, 3e-3, 3e-3) if dtype == torch.float32
+            else (2 ** -7,) * 4)
+    for a, b, tol in zip(res[1], res[0], tols):
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol)

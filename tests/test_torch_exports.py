@@ -1,6 +1,6 @@
 """The port's package exports against the JAX package's: for ``core``,
 ``stream``, ``serve``, ``kernels``, ``data``, ``wan``, ``roofline``,
-``configs`` and ``models`` the port's ``__all__`` covers the reference's
+``configs``, ``models`` and ``train`` the port's ``__all__`` covers the reference's
 (where the reference has no ``__all__``, the functions and constants its
 package defines), except the names still to be ported, each tagged with
 the ROADMAP item that ports it, and the names with a counterpart of
@@ -12,10 +12,9 @@ import pytest
 # reference exports not yet ported, by ROADMAP item
 PENDING = {
     "A8": {"data": {"BigramLM"},
-           "serve": {"Engine", "Request", "generate", "make_serve_steps"},
-           "models": {"blocks", "layers", "model", "moe", "rglru",
-                      "sharding", "ssd", "cache_spec", "forward",
-                      "init_cache", "init_params", "make_positions"}},
+           "serve": {"Engine", "Request", "generate", "make_serve_steps"}},
+    "A8b": {"train": {"pipeline", "train_step", "TrainConfig", "init_state",
+                      "make_train_step"}},
 }
 # reference name -> (the port's name, why it differs), per package
 COUNTERPARTS = {
@@ -24,7 +23,7 @@ COUNTERPARTS = {
                          "collectives by phase as the program runs")},
 }
 PACKAGES = ("core", "stream", "serve", "kernels", "data", "wan", "roofline",
-            "configs", "models")
+            "configs", "models", "train")
 
 
 def _pending(package):
