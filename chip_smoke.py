@@ -186,10 +186,29 @@ Phases (any failed check raises, and the script exits non-zero):
    cache) and qwen2-vl-2b (M-RoPE) at their published widths; peak memory
    per model; one llama3-8b layer's attention against
    ``scaled_dot_product_attention``.
+15. Training and LM serving (``repro_torch.train``, ``optim``,
+   ``checkpoint``, ``serve.engine``, ``data.BigramLM``): (a) each reduced
+   configuration in f32, one train step (remat "full", the chunked loss)
+   on the card against the CPU from the same params -- the loss, every
+   gradient leaf (to 1e-4 of its largest) and the params after the step
+   under the CPU tests' rules -- and for llama3-8b reduced ``microbatches=2`` and 30 steps with bf16
+   params and an f32 master (the loss falls, per-step losses within 2e-2
+   of the CPU's); (b) llama3-8b at its published widths cut to 8 layers
+   (2.80B params; whole it needs 128 GB of f32 state): a bigram pool of
+   512 examples of 2,048 tokens embedded with its table and selected by
+   ``select_coreset`` (k = 8, t = 0.25 of the pool: the one-centre kernel,
+   the general tile at d = 4,096 and ``lloyd_reduce`` launch here), 3
+   steps of 2 x 2,048 tokens (walls, tokens/s, losses, peak memory), its
+   params saved through ``AsyncCheckpointer``, restored onto the CPU and
+   moved back to the card bit for bit; (c) the slot engine on llama3-8b whole
+   in f32 (4 slots, 6 requests, 16 new tokens each) equal to ``generate``
+   per request, tokens/s and ms per step; (d) mamba2-370m whole: the f32
+   loss and gradients held against the CPU (to 1e-5 and 1e-2: its SSD's
+   f32 exponents at these widths), then 5 bf16 steps whose loss falls.
 
 Every bound is ``repro_torch.roofline.work``'s on the card's data-sheet
 figures (``roofline.report.detect``). It prints a ``{"kernels": [...]}``
-line (each entry also with its launches on phases 9, 10, 11 and 12), the
+line (each entry also with its launches on phases 9, 10, 11, 12 and 15), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1935,23 +1954,8 @@ def phase12(seed, dev, k, sites25, stream25, counts, digests, checks, hw):
     check(all(torch.equal(getattr(sel, f), getattr(again, f)) for f in
               ("indices", "weights", "t_i", "local_costs")),
           "phase 12 select_coreset: a rerun differs")
-    mass = float(sel.weights.double().sum())
-    check(int(sel.t_i.sum()) == t_sel and abs(mass - pool) <= 1e-3 * pool
-          and int(sel.indices.min()) >= 0
-          and int(sel.indices.max()) < SELECT_EXAMPLES,
-          f"phase 12 select_coreset: sum t_i {int(sel.t_i.sum())}, mass "
-          f"{mass}, indices in [{int(sel.indices.min())}, "
-          f"{int(sel.indices.max())}]")
-    # k seeding launches, one assignment per Lloyd step (5) and one for the
-    # nearest-example search; each step's sums through lloyd_reduce
-    want = {"distance_argmin": SELECT_K + 5 + 1, "lloyd_stats": 0,
-            "weiszfeld_stats": 0, "distance_argmin_batched": 0,
-            "lloyd_reduce": 5, "weiszfeld_reduce": 0}
-    want_by = {da.ONE_CENTER.name: SELECT_K, da.RESIDENT.name: 0,
-               da.TILE.name: 5 + 1}
-    check(n_sel == want and by_sel == want_by,
-          f"phase 12 select_coreset: launches {n_sel} {by_sel}, expected "
-          f"{want} {want_by}")
+    mass = check_selection("phase 12", sel, n_sel, by_sel, t_sel,
+                           SELECT_EXAMPLES)
     out = gather_selected(tokens, sel)
     slots = SELECT_SITES * (t_sel + SELECT_K)
     check(tuple(out["tokens"].shape) == (slots, SELECT_TOKENS)
@@ -1976,6 +1980,34 @@ def phase12(seed, dev, k, sites25, stream25, counts, digests, checks, hw):
     del table, tokens, sel, again, out
     print(f"  phase 12 wall {time.perf_counter() - t_phase:.1f} s")
     return total, reduce_row, (key, emb, mask, t_sel)
+
+
+def check_selection(label, sel, n_sel, by_sel, t_sel, per_site):
+    """A ``select_coreset`` run at d = 4,096 with every example live: sum
+    t_i is ``t_sel``, the weights' mass is the pool's size (within 1e-3),
+    every index lies in its site, and the kernels launched as the
+    selection calls them -- k seeding launches of the one-centre kernel,
+    one assignment on the general tile per Lloyd step (5) and one for the
+    nearest-example search, each step's sums through lloyd_reduce.
+    Returns the mass."""
+    from repro_torch.kernels import distance_argmin as da
+    pool = sel.weights.shape[0] * per_site
+    mass = float(sel.weights.double().sum())
+    check(int(sel.t_i.sum()) == t_sel and abs(mass - pool) <= 1e-3 * pool
+          and int(sel.indices.min()) >= 0
+          and int(sel.indices.max()) < per_site,
+          f"{label} select_coreset: sum t_i {int(sel.t_i.sum())}, mass "
+          f"{mass}, indices in [{int(sel.indices.min())}, "
+          f"{int(sel.indices.max())}]")
+    want = {"distance_argmin": SELECT_K + 5 + 1, "lloyd_stats": 0,
+            "weiszfeld_stats": 0, "distance_argmin_batched": 0,
+            "lloyd_reduce": 5, "weiszfeld_reduce": 0}
+    want_by = {da.ONE_CENTER.name: SELECT_K, da.RESIDENT.name: 0,
+               da.TILE.name: 5 + 1}
+    check(n_sel == want and by_sel == want_by,
+          f"{label} select_coreset: launches {n_sel} {by_sel}, expected "
+          f"{want} {want_by}")
+    return mass
 
 
 # substrings of the port's kernel names: every device operation that holds
@@ -2154,6 +2186,13 @@ LM_FULL = (("llama3_8b", 2, 2048, 32), ("granite_moe_3b_a800m", 2, 1024, 16),
            ("qwen2_vl_2b", 2, 1024, 16))
 
 
+def lm_leaves(tree):
+    """The leaves of a params / optimizer / cache tree, in
+    ``jax.tree_util``'s order (``repro_torch.tree``)."""
+    from repro_torch import tree as tree_mod
+    return tree_mod.leaves(tree)
+
+
 def lm_exactify(cfg):
     """f32 activations and drop-free MoE, so that prefill and decode equal
     the score forward (tests/test_models.py's ``_exactify``)."""
@@ -2305,7 +2344,7 @@ def lm_full(seed, dev, arch, batch, prefill, steps, smi, digests,
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
                          dev)
-    n_params = sum(x.numel() for x in _lm_leaves(params))
+    n_params = sum(x.numel() for x in lm_leaves(params))
     check(n_params == cfg.param_count(),
           f"phase 14 {arch}: {n_params} params, the config counts "
           f"{cfg.param_count()}")
@@ -2390,14 +2429,6 @@ def lm_full(seed, dev, arch, batch, prefill, steps, smi, digests,
     return row
 
 
-def _lm_leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _lm_leaves(v)]
-    if isinstance(tree, list):
-        return [x for v in tree for x in _lm_leaves(v)]
-    return [tree]
-
-
 def sdpa_yardstick(seed, dev, smi, get=None, batch=2, length=2048):
     """One llama3-8b layer's attention at (batch, length): the port's path
     (q, k, v in bf16 -> ``flash_attention`` in f32, the online softmax in
@@ -2459,6 +2490,473 @@ def phase14(seed, dev, smi, digests, get=None):
            "wall_s": round(time.perf_counter() - t_phase, 2)}
     print(f"phase 14: {json.dumps(out)}")
     return out
+
+
+# -- phase 15: training and LM serving ------------------------------------------
+
+# the CPU tests' rules against the JAX package (tests/_train_rules.py,
+# imported by train_rules below), held here between the card and the CPU
+# on the same params: the f32 loss and metrics within LOSS_RTOL; every
+# gradient leaf within CARD_GRAD_RTOL of its largest magnitude; the params
+# after one AdamW step from zero moments under its first-step rule
+# the reference's bf16-params test (tests/test_train_loss.py): 30 steps of
+# lr 1e-3 on bigram batches of 4 x 32, the loss falls by 0.005; the two
+# devices' per-step losses within TRAIN_BF16_LOSS_RTOL (bf16 params move
+# apart by bf16 roundings, as the CPU tests hold the port to the JAX
+# package)
+TRAIN_BF16_STEPS = 30
+TRAIN_BF16_LOSS_RTOL = 2e-2
+# (b) llama3-8b at its published widths cut to TRAIN_FULL_LAYERS layers
+# (8.03B params x 16 bytes of f32 params, gradients and AdamW moments is
+# 128 GB; 8 layers are 2.80B params, 44.7 GB), B x L tokens a step, remat
+# "full" and the chunked loss; the launcher's selection of its training
+# set (src/repro/launch/train.py:157-193): a bigram pool of 512 examples
+# on max(data axis, 2) = 2 sites, k = 8, t = 0.25 of the pool
+TRAIN_FULL_LAYERS = 8
+TRAIN_FULL_B, TRAIN_FULL_L, TRAIN_FULL_STEPS = 2, 2048, 3
+TRAIN_LOSS_CHUNK = 512
+TRAIN_POOL, TRAIN_SITES = 512, 2
+# (c) the slot engine on llama3-8b whole (f32 params and activations):
+# 4 slots, 6 requests of 24-64 prompt tokens, 16 new tokens each
+SERVE_SLOTS, SERVE_REQUESTS, SERVE_NEW = 4, 6, 16
+# a token may differ from generate's only where generate's two best
+# logits are closer than this times the largest |logit| (the engine
+# decodes 4 rows at once, generate one, and the matmuls round by batch)
+SERVE_NEAR_TIE = 4e-4
+# (d) mamba2-370m whole: the f32 loss and gradients of 1 x 64 tokens held
+# card against CPU, then TRAIN_SSD_STEPS steps of 2 x 1,024 bigram
+# tokens. At its published widths the SSD's chunked scan (the JAX
+# package's formula) takes exp of differences of running sums of dt * A,
+# and f32 loses ~1e-3 in those exponents (ROADMAP C): the loss agrees to
+# 1.2e-6 and the gradient leaves to 3.7e-3 of their largest, so the loss
+# is held to TRAIN_SSD_LOSS_RTOL and the gradients to TRAIN_SSD_GRAD_RTOL,
+# and the params after a step are not held entry by entry (the
+# first-step rule needs gradients clear of their noise)
+TRAIN_SSD_CHECK_L = 64
+TRAIN_SSD_LOSS_RTOL = 1e-5
+TRAIN_SSD_GRAD_RTOL = 1e-2
+TRAIN_SSD_B, TRAIN_SSD_L, TRAIN_SSD_STEPS = 2, 1024, 5
+
+def train_step_once(tc, train_cfg, where, seed, batch, length, step=True):
+    """One ``make_train_step`` step on ``where`` from ``init_params`` of a
+    CPU generator seeded ``seed`` (the same params on every device) and
+    numpy tokens: (loss, gradients, params before, params after,
+    metrics), host copies; with ``step=False`` only the loss and the
+    gradients."""
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import value_and_grad
+    params = init_params(torch.Generator().manual_seed(seed), tc, where)
+    rng = np.random.default_rng(seed + 1)
+    b = {k: torch.from_numpy(rng.integers(0, tc.vocab_size, (batch, length))
+                             .astype(np.int32)).to(where)
+         for k in ("tokens", "labels")}
+    (loss, _), grads = value_and_grad(params, b["tokens"], b["labels"], tc,
+                                      train_cfg)
+    grads = [g.cpu() for g in grads]
+    if not step:
+        return float(loss), grads
+    p0 = [p.cpu().clone() for p in lm_leaves(params)]
+    opt = adamw.init(params)
+    _, _, m = make_train_step(tc, train_cfg)(params, opt, b, 0)
+    return (float(loss), grads, p0, [p.cpu() for p in lm_leaves(params)],
+            {k: float(v) for k, v in m.items()})
+
+
+def train_rules():
+    """``tests/_train_rules.py`` beside this script (JAX-free): the one
+    copy of the train step's tolerances and checks."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import _train_rules
+    return _train_rules
+
+
+def ruled(label, fn, *args, **kw):
+    """``fn`` of the rules, its failed assertion turned into a failed
+    check."""
+    try:
+        return fn(*args, **kw)
+    except AssertionError as e:
+        raise CheckFailed(f"{label}: {e.args}") from None
+
+
+def worst_grad(label, grads, want, rtol):
+    """Holds the gradient leaves to ``rtol`` of their largest |g| (the
+    rules' ``assert_grads``); returns the largest |card - cpu| over it."""
+    ruled(label, train_rules().assert_grads, grads, want, label, rtol)
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(grads, want))
+
+
+def check_train_step(label, got, want):
+    """``got`` (the card's :func:`train_step_once`) against ``want`` (the
+    CPU's) under the rules above; returns the worst errors."""
+    rules = train_rules()
+    loss, grads, p0, p1, m = got
+    wloss, wgrads, wp0, wp1, wm = want
+    check(all(torch.equal(a, b) for a, b in zip(p0, wp0)),
+          f"{label}: the two devices start from other params")
+    worst = {"loss": abs(loss - wloss) / abs(wloss)}
+    check(math.isfinite(loss) and worst["loss"] <= rules.LOSS_RTOL,
+          f"{label}: loss {loss} against {wloss}")
+    for k, v in wm.items():
+        check(abs(m[k] - v) <= rules.LOSS_RTOL * abs(v) + 1e-7,
+              f"{label}: metric {k} {m[k]} against {v}")
+    worst["grad"] = worst_grad(label, grads, wgrads, rules.CARD_GRAD_RTOL)
+    worst["params_within_noise"] = ruled(
+        label, rules.assert_first_step, wp0, p1, wp1, wgrads, wm["lr"],
+        min(1.0, 1.0 / wm["grad_norm"]), label,
+        grad_rtol=rules.CARD_GRAD_RTOL)
+    return worst
+
+
+def train_reduced(seed, dev, digests):
+    """Phase 15 (a): every reduced config in f32, one train step (remat
+    "full", the chunked loss) on the card against the CPU; llama3-8b
+    reduced also with microbatches=2, and the reference's bf16-params run
+    (30 steps on the same bigram batches on both devices)."""
+    from repro_torch import configs
+    from repro_torch.data import BigramLM
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    kw = dict(remat="full", loss_chunk=8, warmup_steps=0, peak_lr=1e-3)
+    worst = {}
+    for arch in configs.ARCH_IDS:
+        tc = dataclasses.replace(configs.get_reduced(arch), dtype="float32")
+        runs = [train_step_once(tc, TrainConfig(**kw), where, seed, LM_B,
+                                LM_L) for where in ("cpu", dev)]
+        worst[arch] = check_train_step(f"phase 15 {arch}", runs[1], runs[0])
+        digests[f"train[{arch}] f32 step"] = digest(*runs[1][1],
+                                                    *runs[1][3])
+    tc = dataclasses.replace(configs.get_reduced("llama3_8b"),
+                             dtype="float32")
+    mb = {n: [train_step_once(tc, TrainConfig(microbatches=n, **kw), where,
+                              seed, 4, LM_L) for where in ("cpu", dev)]
+          for n in (1, 2)}
+    worst["llama3_8b microbatches=2"] = check_train_step(
+        "phase 15 llama3_8b microbatches=2", mb[2][1], mb[2][0])
+    for k in ("ce", "z_loss", "loss"):
+        check(abs(mb[2][1][4][k] - mb[1][1][4][k])
+              <= train_rules().LOSS_RTOL * abs(mb[1][1][4][k]),
+              f"phase 15 microbatches=2 against one batch: {k}")
+    # bf16 params with an f32 master, as tests/test_train_loss.py runs them
+    tc = configs.get_reduced("llama3_8b")
+    bkw = dict(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_BF16_STEPS,
+               remat="none", bf16_params=True, loss_chunk=16)
+    data = BigramLM(tc.vocab_size, device="cpu")
+    batches = [data.batch(s, 4, 32) for s in range(TRAIN_BF16_STEPS)]
+    losses = {}
+    for where in ("cpu", dev):
+        params, opt = init_state(torch.Generator().manual_seed(seed), tc,
+                                 TrainConfig(**bkw), device=where)
+        step = make_train_step(tc, TrainConfig(**bkw))
+        out = []
+        for s, b in enumerate(batches):
+            params, opt, m = step(params, opt, {k: v.to(where) for k, v in
+                                                b.items()}, s)
+            out.append(float(m["ce"]))
+        check({x.dtype for x in lm_leaves(params)} == {torch.bfloat16}
+              and {x.dtype for x in lm_leaves(opt["master"])}
+              == {torch.float32}, f"phase 15 bf16 params on {where}: "
+              f"dtypes changed")
+        check(out[-1] < out[0] - 0.005, f"phase 15 bf16 params on {where}: "
+              f"the loss did not fall: {out[::6]}")
+        losses[str(where)] = out
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses[str(dev)],
+                                                  losses["cpu"]))
+    check(err <= TRAIN_BF16_LOSS_RTOL, f"phase 15 bf16 params: per-step "
+          f"losses card against cpu {err:.3g}")
+    worst["llama3_8b bf16 params"] = {
+        "loss": err, "first_last_cuda": [losses[str(dev)][0],
+                                         losses[str(dev)][-1]]}
+    return worst
+
+
+def train_full(seed, dev, smi, counts, total, checks, get=None):
+    """Phase 15 (b): llama3-8b at its published widths, depth cut to
+    TRAIN_FULL_LAYERS, trained on a coreset-selected bigram set as the
+    launcher builds it (the selection held as phase 12 holds it, and
+    each kernel it launched held against its plain version on its
+    embeddings); then its params saved through ``AsyncCheckpointer``,
+    restored onto the CPU and moved back to the card, bit for bit.
+    Returns the numbers it prints."""
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.checkpoint import AsyncCheckpointer, restore
+    from repro_torch.core import prng
+    from repro_torch.data import (BigramLM, embed_examples, gather_selected,
+                                  select_coreset)
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg = dataclasses.replace((get or configs.get)("llama3_8b"),
+                              n_layers=TRAIN_FULL_LAYERS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = init_state(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, device=dev)
+    n_params = sum(x.numel() for x in lm_leaves(params))
+    check(n_params == cfg.param_count(), f"phase 15 (b): {n_params} params, "
+          f"the config counts {cfg.param_count()}")
+    row = {"arch": f"llama3_8b, {TRAIN_FULL_LAYERS} of "
+                   f"{(get or configs.get)('llama3_8b').n_layers} layers",
+           "params": n_params, "batch": TRAIN_FULL_B, "seq": TRAIN_FULL_L}
+    # the training set: a bigram pool, embedded with the model's table and
+    # selected by Algorithm 1 over the embeddings
+    data = BigramLM(cfg.vocab_size, device=dev)
+    pool = data.batch(10_000_019, TRAIN_POOL, TRAIN_FULL_L)
+    per = TRAIN_POOL // TRAIN_SITES
+    site = {k: v[:per * TRAIN_SITES].reshape(TRAIN_SITES, per, -1)
+            for k, v in pool.items()}
+    emb = embed_examples(params["embed"]["table"], site["tokens"],
+                         device=dev)
+    mask = torch.ones(emb.shape[:2], dtype=torch.bool, device=dev)
+    t_sel = max(int(SELECT_FRACTION * per * TRAIN_SITES), 8)
+    sel, n_sel, by_sel = _launched(counts, total, lambda: select_coreset(
+        prng.PRNGKey(1, device=dev), emb, mask, SELECT_K, t_sel,
+        backend="cuda", device=dev))
+    mass = check_selection("phase 15 (b)", sel, n_sel, by_sel, t_sel, per)
+    # the selection's kernels at its own shape: the one-centre kernel, the
+    # general tile and lloyd_reduce against their plain versions
+    checks["distance"]("phase 15 selection seeding (one centre)", emb,
+                       checks["rows"](emb, 1))
+    c8 = checks["rows"](emb, SELECT_K)
+    checks["distance"]("phase 15 selection", emb, c8)
+    checks["lloyd"]("phase 15 selection", emb, c8, mask.float())
+    chosen = gather_selected(site["tokens"], sel)
+    keep = chosen["weights"] > 0
+    toks = chosen["tokens"][keep]
+    labs = gather_selected(site["labels"], sel)["tokens"][keep]
+    n_batches = len(toks) // TRAIN_FULL_B
+    check(n_batches >= TRAIN_FULL_STEPS, f"phase 15 (b): {len(toks)} "
+          f"selected examples")
+    row.update(pool=TRAIN_POOL, sites=TRAIN_SITES, t=t_sel, mass=mass,
+               selected=int(keep.sum()), selection_launches=n_sel,
+               selection_by_kernel=by_sel)
+    del pool, site, emb, mask, chosen, c8
+    torch.cuda.synchronize()
+    row["setup_s"] = round(time.perf_counter() - t0, 3)
+    step = make_train_step(cfg, TrainConfig(
+        remat="full", loss_chunk=TRAIN_LOSS_CHUNK, warmup_steps=0,
+        total_steps=TRAIN_FULL_STEPS))
+    walls, losses = [], []
+    for s in range(TRAIN_FULL_STEPS):
+        b = {"tokens": toks[s * TRAIN_FULL_B:(s + 1) * TRAIN_FULL_B],
+             "labels": labs[s * TRAIN_FULL_B:(s + 1) * TRAIN_FULL_B]}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b, s)
+        loss = float(m["loss"])
+        walls.append(round(time.perf_counter() - t, 4))
+        losses.append(loss)
+        check(math.isfinite(loss) and math.isfinite(float(m["grad_norm"])),
+              f"phase 15 (b) step {s}: loss {loss}")
+    row.update(step_s=walls, losses=losses,
+               tokens_per_s=[round(TRAIN_FULL_B * TRAIN_FULL_L / w, 1)
+                             for w in walls],
+               peak_gib=round(torch.cuda.max_memory_allocated() / 2**30, 3))
+    del toks, labs, m
+    # the params and the step, through the async writer
+    tree = {"params": params, "step": opt["step"]}
+    with tempfile.TemporaryDirectory(prefix="phase15-") as tmp:
+        ck = AsyncCheckpointer(tmp)
+        t = time.perf_counter()
+        ck.save(TRAIN_FULL_STEPS, tree)
+        row["ckpt_snapshot_s"] = round(time.perf_counter() - t, 3)
+        ck.wait()
+        ck.close()
+        row["ckpt_write_s"] = round(time.perf_counter() - t, 3)
+        row["ckpt_gb"] = round(sum(
+            os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp)
+            for f in fs) / 1e9, 3)
+        t = time.perf_counter()
+        on_cpu, got_step = restore(tmp, target=tree, shardings="cpu")
+        row["restore_cpu_s"] = round(time.perf_counter() - t, 3)
+        # and back onto the card, leaf by leaf, against the trained tree
+        check(got_step == TRAIN_FULL_STEPS and all(
+            a.device.type == "cpu" and a.dtype == b.dtype
+            and torch.equal(a.to(dev), b) for a, b in zip(
+                lm_leaves(on_cpu), lm_leaves(tree))),
+            "phase 15 (b): the checkpoint restored on the CPU differs")
+        del on_cpu
+    del params, opt, tree
+    torch.cuda.empty_cache()
+    print(f"  (b) {row['arch']} ({n_params / 1e9:.3f}B params; {smi}): "
+          f"selection kept {row['selected']} of {TRAIN_POOL} examples "
+          f"(launches {json.dumps(n_sel)}, by kernel {json.dumps(by_sel)}); "
+          f"steps of {TRAIN_FULL_B} x {TRAIN_FULL_L} tokens {walls} s "
+          f"({row['tokens_per_s']} tokens/s), losses "
+          f"{[round(x, 4) for x in losses]}, peak {row['peak_gib']:.2f} GiB; "
+          f"checkpoint {row['ckpt_gb']} GB written in "
+          f"{row['ckpt_write_s']} s (snapshot {row['ckpt_snapshot_s']} s), "
+          f"restored on the CPU in {row['restore_cpu_s']} s, bit-equal back "
+          f"on the card")
+    return row
+
+
+def serve_full(seed, dev, smi, digests, get=None):
+    """Phase 15 (c): the slot engine on llama3-8b whole, f32 params and
+    activations: its outputs equal ``generate``'s per request (up to a
+    near tie of generate's logits, SERVE_NEAR_TIE)."""
+    from repro_torch import configs
+    from repro_torch.models import forward, init_params, make_positions
+    from repro_torch.serve import Engine, Request, generate
+    cfg = lm_exactify((get or configs.get)("llama3_8b"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), cfg,
+                         dev)
+    rng = np.random.default_rng(seed + 2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+               for n in rng.integers(24, 65, SERVE_REQUESTS)]
+    eng = Engine(params, cfg, n_slots=SERVE_SLOTS,
+                 max_len=max(map(len, prompts)) + SERVE_NEW)
+    n_steps = [0]
+    engine_step = eng.step
+
+    def counted_step():
+        n_steps[0] += 1
+        engine_step()
+
+    eng.step = counted_step
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    done = eng.run([Request(prompt=p, max_new=SERVE_NEW) for p in prompts])
+    engine_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = [generate(params, cfg, torch.from_numpy(p[None]).to(dev),
+                     SERVE_NEW)[0].cpu().numpy() for p in prompts]
+    generate_s = time.perf_counter() - t
+    flips = 0
+    for r, w in zip(done, want):
+        diff = np.nonzero(r.out != w)[0]
+        check(len(r.out) == len(w), "phase 15 (c): output lengths differ")
+        if len(diff):
+            seq = torch.from_numpy(w[None]).to(dev)
+            with torch.inference_mode():
+                logits, _, _ = forward(params, seq, make_positions(seq, cfg),
+                                       cfg)
+            top = torch.topk(logits[0, diff[0] - 1, :cfg.vocab_size], 2)
+            gap = float(top.values[0] - top.values[1])
+            scale = float(logits.abs().max())
+            check(gap <= SERVE_NEAR_TIE * scale, f"phase 15 (c): the engine "
+                  f"differs from generate at {diff[0]}, gap {gap / scale}")
+            flips += 1
+    digests["serve[llama3_8b engine tokens]"] = digest(*(
+        torch.from_numpy(r.out) for r in done))
+    row = {"arch": "llama3_8b", "slots": SERVE_SLOTS,
+           "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW,
+           "prompt_tokens": [len(p) for p in prompts],
+           "engine_s": round(engine_s, 3), "engine_steps": n_steps[0],
+           "engine_ms_per_step": round(1e3 * engine_s / n_steps[0], 3),
+           "engine_tokens_per_s": round(
+               SERVE_REQUESTS * SERVE_NEW / engine_s, 1),
+           "generate_s": round(generate_s, 3),
+           "generate_tokens_per_s": round(
+               SERVE_REQUESTS * SERVE_NEW / generate_s, 1),
+           "requests_at_a_near_tie": flips,
+           "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
+    del params, eng
+    torch.cuda.empty_cache()
+    print(f"  (c) llama3-8b whole, f32 ({smi}): Engine {SERVE_SLOTS} slots, "
+          f"{SERVE_REQUESTS} requests x {SERVE_NEW} new tokens in "
+          f"{row['engine_s']} s ({row['engine_steps']} steps, "
+          f"{row['engine_ms_per_step']} ms/step, "
+          f"{row['engine_tokens_per_s']} tokens/s); generate per request "
+          f"{row['generate_s']} s ({row['generate_tokens_per_s']} tokens/s); "
+          f"outputs equal ({flips} at a near tie); peak "
+          f"{row['peak_gib']:.2f} GiB")
+    return row
+
+
+def train_ssd(seed, dev, smi, digests, get=None):
+    """Phase 15 (d): mamba2-370m whole (48 SSD layers): the f32 loss and
+    gradients held card against CPU (TRAIN_SSD_LOSS_RTOL,
+    TRAIN_SSD_GRAD_RTOL), then TRAIN_SSD_STEPS steps of bigram batches in
+    the default bf16, whose loss must fall."""
+    from repro_torch import configs
+    from repro_torch.data import BigramLM
+    from repro_torch.train import TrainConfig, init_state, make_train_step
+    cfg = (get or configs.get)("mamba2_370m")
+    kw = dict(remat="full", loss_chunk=32)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    (loss, grads), (wloss, wgrads) = [
+        train_step_once(c32, TrainConfig(**kw), where, seed, 1,
+                        TRAIN_SSD_CHECK_L, step=False)
+        for where in (dev, "cpu")]
+    worst = {"loss": abs(loss - wloss) / abs(wloss)}
+    check(math.isfinite(loss) and worst["loss"] <= TRAIN_SSD_LOSS_RTOL,
+          f"phase 15 (d) mamba2_370m: loss {loss} against {wloss}")
+    worst["grad"] = worst_grad("phase 15 (d) mamba2_370m", grads, wgrads,
+                               TRAIN_SSD_GRAD_RTOL)
+    digests["train[mamba2_370m f32 loss and gradients]"] = digest(
+        torch.tensor([loss]), *grads)
+    del grads, wgrads
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init_state(torch.Generator(device=dev).manual_seed(seed),
+                             cfg, device=dev)
+    step = make_train_step(cfg, TrainConfig(
+        remat="full", loss_chunk=256, warmup_steps=0, peak_lr=1e-3,
+        total_steps=TRAIN_SSD_STEPS))
+    data = BigramLM(cfg.vocab_size, device=dev)
+    walls, losses = [], []
+    for s in range(TRAIN_SSD_STEPS):
+        b = data.batch(s, TRAIN_SSD_B, TRAIN_SSD_L)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b, s)
+        losses.append(float(m["loss"]))
+        walls.append(round(time.perf_counter() - t, 4))
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"phase 15 (d): the loss did not fall: {losses}")
+    row = {"arch": "mamba2_370m", "params": sum(
+        x.numel() for x in lm_leaves(params)), "held_step": worst,
+        "batch": TRAIN_SSD_B, "seq": TRAIN_SSD_L, "step_s": walls,
+        "losses": losses,
+        "tokens_per_s": [round(TRAIN_SSD_B * TRAIN_SSD_L / w, 1)
+                         for w in walls],
+        "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
+    del params, opt
+    torch.cuda.empty_cache()
+    print(f"  (d) mamba2-370m whole ({row['params'] / 1e6:.1f}M params; "
+          f"{smi}): the f32 loss and gradients of 1 x {TRAIN_SSD_CHECK_L} "
+          f"tokens against the CPU {json.dumps(worst)}; {TRAIN_SSD_STEPS} "
+          f"steps of "
+          f"{TRAIN_SSD_B} x {TRAIN_SSD_L} tokens {walls} s, losses "
+          f"{[round(x, 4) for x in losses]}, peak {row['peak_gib']:.2f} GiB")
+    return row
+
+
+def phase15(seed, dev, smi, counts, digests, checks, get=None):
+    """Training and LM serving (``repro_torch.train``, ``optim``,
+    ``checkpoint``, ``serve.engine``, ``data.BigramLM``): (a) the reduced
+    configs, CUDA against the CPU; (b) llama3-8b at its published widths,
+    8 layers, trained on a coreset-selected set, its checkpoint restored
+    bit-equal; (c) the slot engine on llama3-8b whole; (d) mamba2-370m
+    whole. ``checks`` are phase 2's kernel checks (``main``'s dict).
+    ``get`` replaces ``configs.get`` (a CPU rehearsal passes the reduced
+    configs). Returns each kernel's launches in (b)'s selection."""
+    t_phase = time.perf_counter()
+    print(f"phase 15: training and LM serving ({smi})")
+    worst = train_reduced(seed, dev, digests)
+    for label, errs in worst.items():
+        print(f"  (a) {label}: card against cpu {json.dumps(errs)}")
+    t_a = time.perf_counter() - t_phase
+    total = {}
+    out = {"card": smi, "reduced_s": round(t_a, 2),
+           "train": train_full(seed, dev, smi, counts, total, checks,
+                               get),
+           "serve": serve_full(seed, dev, smi, digests, get),
+           "train_ssd": train_ssd(seed, dev, smi, digests, get),
+           "wall_s": round(time.perf_counter() - t_phase, 2)}
+    print(f"phase 15: {json.dumps(out)}")
+    return total
 
 
 def weiszfeld_scale(p, c, w, am):
@@ -3698,16 +4196,28 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase14(args.seed, dev, smi, digests)
     lap("phase 14")
+
+    # -- phase 15: training and LM serving ----------------------------------
+    torch.cuda.empty_cache()
+    new_paths["phase 15"] = phase15(args.seed, dev, smi,
+                                    (reset_counts, counts, route_counts),
+                                    digests, checks)
+    lap("phase 15")
     for phase, got in new_paths.items():
         for name in ("distance_argmin", "lloyd_stats", "weiszfeld_stats",
                      da.ONE_CENTER.name):
             if phase == "phase 10" and name == "weiszfeld_stats":
                 continue
+            # the training path's selection at d = 4,096: two-pass sums
+            if phase == "phase 15" and name in ("lloyd_stats",
+                                                "weiszfeld_stats"):
+                continue
             check(got.get(name, 0) > 0, f"{phase}: {name} never launched")
     check(new_paths["phase 10"].get("distance_argmin_batched", 0) > 0,
           "phase 10: distance_argmin_batched never launched")
-    check(new_paths["phase 12"].get("lloyd_reduce", 0) > 0,
-          "phase 12: lloyd_reduce never launched")
+    for phase in ("phase 12", "phase 15"):
+        check(new_paths[phase].get("lloyd_reduce", 0) > 0,
+              f"{phase}: lloyd_reduce never launched")
 
     print(f"phase walls (s): {json.dumps(walls)}")
     print(f"digests (sha256, first 16 hex digits): {json.dumps(digests)}")
@@ -3764,9 +4274,9 @@ def main(argv=None) -> int:
          **wr_row},
     ]
     # each kernel's launches on the staged (phase 9), streaming (phase 10),
-    # SPMD (phase 11: rank 0 of W = 4, k-means and k-median) and WAN and
-    # selection (phase 12) paths, counted from zero around every run of
-    # those phases
+    # SPMD (phase 11: rank 0 of W = 4, k-means and k-median), WAN and
+    # selection (phase 12) and training-set selection (phase 15) paths,
+    # counted from zero around every run of those phases
     for entry, name in zip(kernels, (da.ONE_CENTER.name, "distance_argmin",
                                      "lloyd_stats", "weiszfeld_stats",
                                      "distance_argmin_batched",

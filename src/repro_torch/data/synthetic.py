@@ -1,6 +1,12 @@
-"""Deterministic synthetic data (numpy only; the port's copy of
-``repro.data.synthetic``'s ``paper_dataset``, ``drifting_mixture_stream``
-and ``contaminated_stream``, bit-equal to it for the same seed).
+"""Deterministic synthetic data (the port of ``repro.data.synthetic``).
+
+* :class:`BigramLM` -- token streams from a fixed random bigram chain over a
+  restricted vocabulary slice: a learnable distribution, so the training
+  examples show real loss reduction. It draws with
+  :mod:`repro_torch.core.prng`, the JAX package's ``jax.random`` draws.
+* ``paper_dataset``, ``drifting_mixture_stream`` and
+  ``contaminated_stream`` (numpy only) are bit-equal to the JAX package's
+  for the same seed.
 
 :func:`paper_dataset` makes Gaussian-mixture stand-ins shape-matched to the
 paper's evaluation datasets (the UCI files are unavailable offline; see
@@ -9,9 +15,64 @@ setup: k=5 centers ~ N(0, I_10), 20k points per center.
 """
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+import dataclasses
+from typing import Dict, Iterator, Tuple, Union
 
 import numpy as np
+import torch
+
+from repro_torch.core import prng
+
+# elements of the (steps, batch, active_vocab) Gumbel block that one pass
+# of BigramLM.batch draws at a time
+_GUMBEL_CHUNK = 2 ** 22
+
+
+@dataclasses.dataclass
+class BigramLM:
+    """Fixed random bigram transition matrix over ``active_vocab`` ids, on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+
+    vocab_size: int
+    active_vocab: int = 256
+    seed: int = 0
+    temperature: float = 0.7
+    device: Union[str, torch.device, None] = None
+
+    def __post_init__(self):
+        from repro_torch.core.backend import resolve_device
+        self.device = resolve_device(self.device)
+        self.active_vocab = min(self.active_vocab, self.vocab_size)
+        key = prng.PRNGKey(self.seed, device=self.device)
+        self._logits = (prng.normal(key, (self.active_vocab,
+                                          self.active_vocab))
+                        / self.temperature)
+
+    def batch(self, step: int, batch_size: int, seq_len: int
+              ) -> Dict[str, torch.Tensor]:
+        """Returns {"tokens": (B, L) i32, "labels": (B, L) i32}; labels are
+        the next-token targets. The key is the JAX package's, a hash of
+        ``("bigram", seed, step)``: Python salts the hash of a string per
+        process (PYTHONHASHSEED), so within one process the port draws the
+        JAX package's batches, and another process draws others."""
+        key = prng.PRNGKey(hash(("bigram", self.seed, step)) % (2**31),
+                           device=self.device)
+        k0, k1 = prng.split(key, 2)
+        first = prng.randint(k0, (batch_size,), 0, self.active_vocab)
+        keys = prng.split(k1, seq_len)
+        # each step is jax.random.categorical under its own key: the argmax
+        # of Gumbel noise of the (B, active_vocab) logits' shape plus them
+        per = max(1, _GUMBEL_CHUNK // max(1, batch_size * self.active_vocab))
+        seq, tok = [first.long()], first.long()
+        for s in range(0, seq_len, per):
+            noise = prng.gumbel(keys[s:s + per],
+                                (batch_size, self.active_vocab))
+            for g in noise:
+                tok = torch.argmax(g + self._logits[tok], dim=-1)
+                seq.append(tok)
+        seq = torch.stack(seq, dim=0).T.to(torch.int32)   # (B, L+1)
+        return {"tokens": seq[:, :-1].contiguous(),
+                "labels": seq[:, 1:].contiguous()}
 
 _PAPER_SHAPES = {
     # name: (n_points, dim, k, n_true_clusters, noise)

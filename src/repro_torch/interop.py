@@ -16,7 +16,8 @@ the port's next stage on it:
   ``init_params`` / ``init_cache`` / ``forward`` outputs) become the
   port's, whose layers are a list in depth order where the JAX package
   stacks them by period and run (:func:`model_params`,
-  :func:`model_cache`).
+  :func:`model_cache`), and its AdamW state the port's
+  (:func:`opt_state`).
 
 It imports no JAX: callers convert with ``np.asarray`` first.
 """
@@ -128,3 +129,17 @@ def model_cache(ref_cache, cfg: ModelConfig, device: DeviceLike = None):
     """The JAX package's LM cache (``init_cache`` or a ``forward``'s cache,
     as numpy) as the port's list of per-layer caches."""
     return _tensors(_unstack_layers(ref_cache, cfg), resolve_device(device))
+
+
+def opt_state(ref_opt, cfg: ModelConfig, device: DeviceLike = None):
+    """The JAX package's AdamW state (``optim.adamw.init``'s or
+    ``update``'s pytree as numpy) as the port's: the moments ``m`` and
+    ``v`` (and the f32 ``master`` copy where present) with their layers
+    unstacked as :func:`model_params` unstacks params, the step an int32
+    scalar."""
+    dev = resolve_device(device)
+    out = {name: model_params(ref_opt[name], cfg, dev)
+           for name in ("m", "v", "master") if name in ref_opt}
+    out["step"] = torch.tensor(int(np.asarray(ref_opt["step"])),
+                               dtype=torch.int32, device=dev)
+    return out

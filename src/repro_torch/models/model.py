@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree as tree_mod
 from repro_torch.models import sharding
 from repro_torch.models.blocks import (block_apply, block_cache_init,
                                        block_init)
@@ -47,14 +48,6 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     return tuple(cfg.pattern[i % cfg.period] for i in range(cfg.n_layers))
 
 
-def _to(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
-
-
 def init_params(key: KeyLike, cfg: ModelConfig,
                 device: DeviceLike = None) -> Params:
     """Random parameters: dense weights ``normal / sqrt(d_in)``, embeddings
@@ -74,7 +67,7 @@ def init_params(key: KeyLike, cfg: ModelConfig,
         params["lm_head"] = embedding_init(gen, cfg)
     params["layers"] = [block_init(gen, cfg, kind)
                         for kind in layer_kinds(cfg)]
-    return _to(params, dev)
+    return tree_mod.map(lambda x: x.to(dev), params)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -30,7 +30,9 @@ PACKAGE_MODULES = ("wan.faults", "wan.schedules", "wan.runtime",
                    "wan.quiesce", "data.selection", "models.sharding",
                    "models.layers", "models.moe", "models.ssd",
                    "models.rglru", "models.blocks", "models.model",
-                   "train.loss")
+                   "train.loss", "train.train_step", "train.pipeline",
+                   "optim.adamw", "optim.compression", "optim.schedule",
+                   "checkpoint.manager", "serve.engine")
 
 
 def _path(mod):
@@ -89,6 +91,19 @@ def test_the_clustering_names_are_all_held():
             ("models.rglru", "rglru_apply"), ("models.blocks", "block_apply"),
             ("models.sharding", "param_specs"), ("train.loss", "lm_loss"),
             ("train.loss", "chunked_lm_loss")} <= set(SHARED)
+    assert {("train.train_step", "loss_fn"),
+            ("train.train_step", "make_train_step"),
+            ("train.train_step", "init_state"),
+            ("train.pipeline", "pipeline_forward"),
+            ("optim.adamw", "update"), ("optim.adamw", "init"),
+            ("optim.adamw", "clip_by_global_norm"),
+            ("optim.compression", "compressed_psum"),
+            ("optim.compression", "compress_with_feedback"),
+            ("optim.schedule", "warmup_cosine"),
+            ("checkpoint.manager", "restore"), ("checkpoint.manager", "save"),
+            ("serve.engine", "generate"),
+            ("serve.engine", "make_serve_steps"),
+            ("serve.engine", "sample_token")} <= set(SHARED)
 
 
 @pytest.mark.parametrize("mod,name", SHARED,

@@ -1336,3 +1336,163 @@ def test_cuda_flash_matches_the_cpu(cuda, dtype):
             else (2 ** -7,) * 4)
     for a, b, tol in zip(res[1], res[0], tols):
         torch.testing.assert_close(a, b, rtol=tol, atol=tol)
+
+
+# -- training and LM serving ---------------------------------------------------
+
+from _train_rules import (CARD_GRAD_RTOL, LOSS_RTOL,    # noqa: E402
+                          assert_first_step, assert_grads)
+from repro_torch import tree as lm_tree                  # noqa: E402
+from repro_torch.checkpoint import (AsyncCheckpointer,   # noqa: E402
+                                    restore as ck_restore)
+from repro_torch.core import prng as lm_prng             # noqa: E402
+from repro_torch.data import BigramLM                    # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw         # noqa: E402
+from repro_torch.serve import Engine, Request, generate  # noqa: E402
+from repro_torch.train import (TrainConfig,              # noqa: E402
+                               make_train_step)
+from repro_torch.train import train_step as lm_train_step  # noqa: E402
+
+
+def _train_case(arch, where):
+    import dataclasses
+    tc = dataclasses.replace(lm_configs.get_reduced(arch), dtype="float32")
+    params = lm_init_params(torch.Generator().manual_seed(0), tc, where)
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, tc.vocab_size, (LM_B, LM_L)).astype(np.int32)).to(where)
+        for k in ("tokens", "labels")}
+    return tc, params, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_cuda_train_step_matches_the_cpu(cuda, arch):
+    """f32, remat "full", the chunked loss, the same params: the loss within
+    the CPU tests' tolerance and every gradient leaf within CARD_GRAD_RTOL,
+    then one train step's metrics and params under the first-step rule
+    (the CPU run's gradients as the reference)."""
+    kw = dict(remat="full", loss_chunk=8, warmup_steps=0, peak_lr=1e-3)
+    runs = {}
+    for where in ("cpu", cuda):
+        tc, params, batch = _train_case(arch, where)
+        (loss, _), grads = lm_train_step.value_and_grad(
+            params, batch["tokens"], batch["labels"], tc, TrainConfig(**kw))
+        p0 = [p.cpu().clone() for p in lm_tree.leaves(params)]
+        opt = adamw.init(params)
+        _, _, m = make_train_step(tc, TrainConfig(**kw))(params, opt, batch,
+                                                         0)
+        runs[str(where)] = (float(loss), [g.cpu() for g in grads], p0,
+                            [p.cpu() for p in lm_tree.leaves(params)],
+                            {k: float(v) for k, v in m.items()})
+    cpu, gpu = runs["cpu"], runs[str(cuda)]
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=LOSS_RTOL)
+    assert_grads(gpu[1], cpu[1], arch, CARD_GRAD_RTOL)
+    for k, v in gpu[4].items():
+        np.testing.assert_allclose(v, cpu[4][k], rtol=LOSS_RTOL, atol=1e-7,
+                                   err_msg=k)
+    assert all(torch.equal(a, b) for a, b in zip(gpu[2], cpu[2]))
+    assert_first_step(cpu[2], gpu[3], cpu[3], cpu[1], cpu[4]["lr"],
+                      min(1.0, 1.0 / cpu[4]["grad_norm"]), arch,
+                      CARD_GRAD_RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_adamw_matches_the_cpu(cuda):
+    """Ten updates (no clipping) from the same state and gradients on both
+    devices, in place: both round each op once, so the moments are
+    bit-equal; the bias corrections' pow may differ in its last place, so
+    the params agree to a few ulps of |p| + lr."""
+    rng = np.random.default_rng(0)
+    draw = lambda f: {"w": f((64, 33)), "b": f((33,)),
+                      "layers": [{"k": f((5, 7, 3))}]}
+    p_np = draw(lambda s: rng.standard_normal(s).astype(np.float32))
+    where = ("cpu", cuda)
+    params = [lm_tree.map(lambda a: torch.tensor(a, device=w), p_np)
+              for w in where]
+    state = [adamw.init(p) for p in params]
+    eps = float(np.finfo(np.float32).eps)
+    for step in range(10):
+        g_np = draw(lambda s: (rng.standard_normal(s) * 10.0 ** rng.integers(
+            -6, 2, s)).astype(np.float32))
+        for w, p, st in zip(where, params, state):
+            g = lm_tree.map(lambda a: torch.tensor(a, device=w), g_np)
+            adamw.update(g, st, p, torch.tensor(1e-3, device=w),
+                         AdamWConfig(grad_clip_norm=0.0))
+        for name in ("m", "v"):
+            for x, y in zip(lm_tree.leaves(state[1][name]),
+                            lm_tree.leaves(state[0][name])):
+                assert torch.equal(x.cpu(), y), (step, name)
+        for x, y in zip(lm_tree.leaves(params[1]), lm_tree.leaves(params[0])):
+            tol = 8 * eps * (y.abs() + 1e-3)
+            assert bool(((x.cpu() - y).abs() <= tol).all()), step
+        assert int(state[1]["step"]) == step + 1
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_restores_on_the_cpu_and_back(cuda, tmp_path):
+    """A train state on the card (bf16 params, f32 master and moments, the
+    int32 step) saved through ``AsyncCheckpointer``: restored onto the CPU
+    and onto the card, bit for bit, each leaf on its target's device."""
+    tc = lm_configs.get_reduced("qwen2_vl_2b")
+    params, opt = lm_train_step.init_state(0, tc, TrainConfig(
+        bf16_params=True), device=cuda)
+    tree = {"params": params, "opt": opt}
+    saved = lm_tree.map(lambda x: x.clone(), tree)
+    ck = AsyncCheckpointer(str(tmp_path))
+    ck.save(3, tree)
+    lm_tree.leaves(params)[0].add_(1)       # after the snapshot
+    ck.wait()
+    ck.close()
+    on_cpu = lm_tree.map(lambda x: torch.empty_like(x, device="cpu"), tree)
+    got, step = ck_restore(str(tmp_path), target=on_cpu)
+    back, _ = ck_restore(str(tmp_path), target=tree)
+    assert step == 3
+    for a, b, c in zip(lm_tree.leaves(got), lm_tree.leaves(back),
+                       lm_tree.leaves(saved)):
+        assert a.device.type == "cpu" and b.device.type == "cuda"
+        assert a.dtype == c.dtype and b.dtype == c.dtype
+        bits = {2: torch.int16, 4: torch.int32}
+        view = (lambda t: t.view(bits[t.element_size()])
+                if t.is_floating_point() else t)
+        assert torch.equal(view(a), view(c.cpu()))
+        assert torch.equal(view(b), view(c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_8b", "mamba2_370m",
+                                  "recurrentgemma_2b", "gemma3_27b"])
+def test_cuda_engine_matches_generate(cuda, arch):
+    """On the card, f32: the slot engine's output equals ``generate`` per
+    request, with more requests than slots."""
+    import dataclasses
+    tc = dataclasses.replace(lm_configs.get_reduced(arch), dtype="float32")
+    params = lm_init_params(torch.Generator().manual_seed(0), tc, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tc.vocab_size, size=6).astype(np.int32)
+               for _ in range(5)]
+    want = [generate(params, tc, torch.from_numpy(p[None]).to(cuda),
+                     6)[0].cpu().numpy() for p in prompts]
+    done = Engine(params, tc, n_slots=2, max_len=12).run(
+        [Request(prompt=p, max_new=6) for p in prompts])
+    for r, w in zip(done, want):
+        np.testing.assert_array_equal(r.out, w)
+
+
+@pytest.mark.cuda
+def test_cuda_bigram_and_draws_match_the_cpu(cuda):
+    """``randint`` bit for bit, ``normal`` to a few ulps, and BigramLM's
+    batches equal on the card and on the CPU in one process."""
+    for seed in (0, 5):
+        a = lm_prng.randint(lm_prng.PRNGKey(seed, cuda), (64, 3), 0, 128_256)
+        b = lm_prng.randint(lm_prng.PRNGKey(seed), (64, 3), 0, 128_256)
+        assert torch.equal(a.cpu(), b)
+        x = lm_prng.normal(lm_prng.PRNGKey(seed, cuda), (200, 200)).cpu()
+        y = lm_prng.normal(lm_prng.PRNGKey(seed), (200, 200))
+        torch.testing.assert_close(x, y, rtol=8 * 2.0 ** -23, atol=0)
+    gpu = BigramLM(128_256, device=cuda)
+    cpu = BigramLM(128_256, device="cpu")
+    for step in (0, 9):
+        got, want = gpu.batch(step, 8, 64), cpu.batch(step, 8, 64)
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (step, k)

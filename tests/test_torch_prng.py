@@ -1,5 +1,7 @@
 """The port's threefry2x32 against ``jax.random``: the same keys give the
-same bits, so the port samples what the JAX package samples."""
+same bits, so the port samples what the JAX package samples; ``randint``
+bit for bit, ``normal`` to a few ulps (XLA's erf_inv formula, its FMAs
+and log apart), and ``BigramLM``'s batches equal to the reference's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -7,8 +9,10 @@ import pytest
 import torch
 
 from repro.core import strategy as jstrategy
+from repro.data import BigramLM as JBigramLM
 from repro_torch import interop
 from repro_torch.core import prng, strategy
+from repro_torch.data import BigramLM
 
 # torch runs single-threaded in these tests: with JAX's CPU runtime in the
 # same process, the two thread pools contend and torch's ops run 10-40x
@@ -101,3 +105,67 @@ def test_categorical_draws_equal_except_one_ulp_ties(seed):
         g = np.asarray(jax.random.gumbel(jks[row], (3000,))) + logits[row]
         a, b = g[j_idx[row]], g[t_idx[row]]
         assert abs(a - b) <= 8 * 2.0**-23 * (1 + abs(a))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_is_bit_equal(seed):
+    """int32 draws in the reference's uint32 arithmetic, spans that wrap
+    its multiplier (2**16 squared) included."""
+    for lo, hi, shape in ((0, 256, (64,)), (0, 100_000, (50,)),
+                          (-5, 70_000, (3, 4)), (0, 128_256, (2, 9)),
+                          (3, 3, (5,)), (7, 2, (4,)),
+                          (-2**31, 2**31 - 1, (20,))):
+        got = prng.randint(prng.PRNGKey(seed), shape, lo, hi)
+        want = jax.random.randint(jax.random.PRNGKey(seed), shape, lo, hi)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# normal: XLA's CPU code contracts products and sums into FMAs and has its
+# own log, so about 5% of values differ in their last bits (observed
+# relative difference <= 2.4e-7)
+NORMAL_RTOL = 8 * 2.0**-23
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_normal_agrees_to_a_few_ulps(seed):
+    got = prng.normal(prng.PRNGKey(seed), (300, 300)).numpy()
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed),
+                                        (300, 300)))
+    np.testing.assert_allclose(got, want, rtol=NORMAL_RTOL, atol=0)
+    assert (got == want).mean() > 0.9
+
+
+@pytest.mark.parametrize("vocab,active", [(515, 256), (64, 256),
+                                          (1000, 100)])
+def test_bigram_batches_are_the_references(vocab, active):
+    """The transition logits to a few ulps, and the token streams equal:
+    each step is a Gumbel-max pick whose best two scores stand further
+    apart than the logits' difference (a flip would need a near tie; none
+    occurs at these sizes). Within one process both hash the same
+    (PYTHONHASHSEED salts per process, not per call)."""
+    ref = JBigramLM(vocab, active, seed=3)
+    port = BigramLM(vocab, active, seed=3, device="cpu")
+    assert port.active_vocab == ref.active_vocab == min(vocab, active)
+    np.testing.assert_allclose(port._logits.numpy(), np.asarray(ref._logits),
+                               rtol=NORMAL_RTOL, atol=0)
+    for step in (0, 1, 17):
+        got, want = port.batch(step, 4, 32), ref.batch(step, 4, 32)
+        for k in ("tokens", "labels"):
+            assert got[k].dtype == torch.int32 and got[k].shape == (4, 32)
+            np.testing.assert_array_equal(got[k].numpy(),
+                                          np.asarray(want[k]))
+        np.testing.assert_array_equal(got["tokens"][:, 1:].numpy(),
+                                      got["labels"][:, :-1].numpy())
+
+
+def test_bigram_chunks_its_gumbel_draws_without_changing_them(monkeypatch):
+    """The Gumbel block is drawn a few steps at a time: any chunk gives
+    the same stream."""
+    from repro_torch.data import synthetic
+    port = BigramLM(300, 200, seed=1, device="cpu")
+    whole = port.batch(5, 3, 40)
+    monkeypatch.setattr(synthetic, "_GUMBEL_CHUNK", 3 * 200 * 7)
+    chunked = port.batch(5, 3, 40)
+    for k in whole:
+        assert torch.equal(whole[k], chunked[k])
