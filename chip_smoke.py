@@ -5,10 +5,11 @@ GPU. It needs a CUDA device and the CUDA toolkit (nvcc), and no network.
     python3 chip_smoke.py [--seed 0] [--argmin-digests]
 
 ``--argmin-digests`` prints only phase 2's digests of distance_argmin (at
-the shapes of ``argmin_inputs``) after the build and exits; it calls only
-entry points every version of the port has, so a copy of this file put in
-the root of an unpacked ``git archive`` of another commit digests that
-commit's kernels on the same inputs.
+the shapes of ``argmin_inputs``) and of the streamed tile and the
+two-pass sums (at the shapes of ``two_pass_inputs``) after the build and
+exits; it calls only entry points every version of the port has, so a
+copy of this file put in the root of an unpacked ``git archive`` of
+another commit digests that commit's kernels on the same inputs.
 
 Phases (any failed check raises, and the script exits non-zero):
 
@@ -42,11 +43,16 @@ Phases (any failed check raises, and the script exits non-zero):
    sites' shape; weiszfeld_reduce at data selection's shape (8 x 2,048 x
    4,096, k = 8) and the sites' with k = 320, first held there through
    weiszfeld_stats (two launches, no plain version) and timed only within
-   SUM_RTOL of the plain reduction. A sha256 digest of
-   distance_argmin's outputs at those
-   seven shapes and 30 small ones, of lloyd_stats' and weiszfeld_stats'
-   outputs at the sites' and the coresets' shapes, and of each route's
-   centres, lets two trees be compared bit for bit.
+   SUM_RTOL of the plain reduction; distance_argmin's streamed tile (the
+   routed entry's kernel above the resident limit) equal to the general
+   tile bit for bit at selection's shape, phase 15's and a d that is not a
+   multiple of 4, and timed at selection's beside the general tile, the
+   plain version, the library call and the bound. A sha256 digest of
+   distance_argmin's outputs at those shapes and 30 small ones, of
+   lloyd_stats' and weiszfeld_stats' outputs at the sites' and the
+   coresets' shapes, of lloyd_reduce's and weiszfeld_reduce's at
+   selection's and the sites' with k = 320, and of each route's centres,
+   lets two trees be compared bit for bit.
 3. The main path at full size -- ``graph_distributed_kmeans`` on the
    yearpredictionmsd stand-in (515,345 x 90, k=50), 100 sites on a 10x10
    grid, t = 3 k n = 15,000, flood and BFS-tree routes -- with the cost
@@ -150,7 +156,7 @@ Phases (any failed check raises, and the script exits non-zero):
    128,256 x 4,096 table, 8 sites x 2,048 examples x 512 tokens, k = 8, t
    = a quarter of the pool): sum t_i = t, the pool's mass, indices in
    range, a bit-identical rerun, ``gather_selected``'s shapes, and the d =
-   4,096 routes (one-centre kernel, general tile, lloyd_stats' and
+   4,096 routes (one-centre kernel, streamed tile, lloyd_stats' and
    weiszfeld_stats' two-pass forms through the lloyd_reduce and
    weiszfeld_reduce kernels) held to their plain versions, and
    lloyd_reduce timed there beside its plain version, the library's
@@ -197,7 +203,7 @@ Phases (any failed check raises, and the script exits non-zero):
    (2.80B params; whole it needs 128 GB of f32 state): a bigram pool of
    512 examples of 2,048 tokens embedded with its table and selected by
    ``select_coreset`` (k = 8, t = 0.25 of the pool: the one-centre kernel,
-   the general tile at d = 4,096 and ``lloyd_reduce`` launch here), 3
+   the streamed tile at d = 4,096 and ``lloyd_reduce`` launch here), 3
    steps of 2 x 2,048 tokens (walls, tokens/s, losses, peak memory), its
    params saved through ``AsyncCheckpointer``, restored onto the CPU and
    moved back to the card bit for bit; (c) the slot engine on llama3-8b whole
@@ -312,6 +318,51 @@ def argmin_digests(cases, ops):
     return out
 
 
+# the streamed tile's shapes besides data selection's: phase 15's 2 sites
+# x 256 embeddings, and a d that is not a multiple of 4 (4-byte copies, a
+# ragged last chunk) at 65 centres (passes of 16 slots); the CUDA tests
+# take more
+STREAM_SHAPES = (("training selection", 2, 256, 8, 4096),
+                 ("d=4095 k=65", 2, 777, 65, 4095))
+
+
+def two_pass_inputs(dev, seed, sp, sm):
+    """The inputs at which phase 2 holds, times and digests the streamed
+    tile and the two-pass form's sums, made from ``seed``: data
+    selection's shape (8 sites x 2,048 rows x 4,096 features, k = 8, the
+    centres rows of the points, signed weights), the sites ``sp`` with 320
+    of their rows as centres and the mask ``sm`` as weights (past the fused
+    kernels' limit at d = 90), and :data:`STREAM_SHAPES` (no weights).
+    label -> (points, centres, weights or None)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 25)
+    p_sel = torch.randn((8, 2048, 4096), generator=gen, device=dev)
+    w_sel = torch.rand((8, 2048), generator=gen, device=dev) * 2.0 - 1.0
+    pick = torch.randint(0, sp.shape[1], (320,), generator=gen, device=dev)
+    cases = {"selection": (p_sel, p_sel[:, :8].clone(), w_sel),
+             "sites, k = 320": (sp, sp[:, pick].contiguous(), sm.float())}
+    for label, S1, M1, k1, d1 in STREAM_SHAPES:
+        p = torch.randn((S1, M1, d1), generator=gen, device=dev)
+        cases[label] = (p, p[:, :k1].clone(), None)
+    return cases
+
+
+def two_pass_digests(cases, ops):
+    """Digests of ``ops.min_dist_argmin`` at each of
+    :func:`two_pass_inputs`' shapes and, where they carry weights, of
+    ``ops.weiszfeld_reduce`` and ``ops.lloyd_reduce`` given its assignment
+    and min d2: entry points every version of the port has."""
+    out = {}
+    for label, (p, c, w) in cases.items():
+        md, am = ops.min_dist_argmin(p, c)
+        out[f"distance_argmin[{label}]"] = digest(md, am)
+        if w is not None:
+            out[f"weiszfeld_reduce[{label}]"] = digest(
+                *ops.weiszfeld_reduce(p, c, w, am))
+            out[f"lloyd_reduce[{label}]"] = digest(
+                *ops.lloyd_reduce(p, c.shape[-2], w.abs(), md, am))
+    return out
+
+
 def check(ok, what):
     if not bool(ok):
         raise CheckFailed(what)
@@ -346,7 +397,7 @@ def expect_launches(label, got, by_kernel, *, argmin_one_center=0,
     check(got == want, f"{label}: launches {got}, expected {want}")
     want_by = {"distance_one_center": argmin_one_center,
                "distance_argmin_resident": argmin_resident,
-               "distance_argmin_tile": 0}
+               "distance_argmin_tile": 0, "distance_argmin_stream": 0}
     check(by_kernel == want_by,
           f"{label}: distance_argmin launches by kernel {by_kernel}, "
           f"expected {want_by}")
@@ -1516,7 +1567,8 @@ def phase11(seed, dev, pts, sp, sm, k, t, base_km, base_md, libraries,
                  else 0, "distance_argmin_batched": 0, "lloyd_reduce": 0,
                  "weiszfeld_reduce": 0},
                 {"distance_one_center": 2 * k,
-                 "distance_argmin_resident": 1, "distance_argmin_tile": 0})
+                 "distance_argmin_resident": 1, "distance_argmin_tile": 0,
+                 "distance_argmin_stream": 0})
 
     total = {}
     with tempfile.TemporaryDirectory(prefix="phase11-") as tmp:
@@ -1677,7 +1729,7 @@ def phase12(seed, dev, k, sites25, stream25, counts, digests, checks, hw):
     128,256 x 4,096 made from ``seed``, 8 x 2,048 examples of 512 tokens,
     ``embed_examples`` in 2 GB chunks, ``select_coreset`` with k = 8 and t
     = 0.25 of the pool, ``gather_selected``; the d = 4,096 routes (the
-    one-centre kernel, the general tile, lloyd_stats' two-pass form through
+    one-centre kernel, the streamed tile, lloyd_stats' two-pass form through
     lloyd_reduce) held to their plain versions, and lloyd_reduce timed
     (:func:`time_reduce`) on the card ``hw``. ``counts`` as in
     :func:`phase7`; adds digests; any failed check raises. Returns the
@@ -1773,7 +1825,7 @@ def phase12(seed, dev, k, sites25, stream25, counts, digests, checks, hw):
         want.update(distance_argmin=2 * k + 1, distance_argmin_batched=0,
                     lloyd_reduce=0, weiszfeld_reduce=0)
         want_by = {da.ONE_CENTER.name: 2 * k, da.RESIDENT.name: 1,
-                   da.TILE.name: 0}
+                   da.TILE.name: 0, da.STREAM.name: 0}
         check(asy[2] == ex[2] == want and asy[3] == ex[3] == want_by,
               f"phase 12 {objective} async full: launches {asy[2]} "
               f"{asy[3]}, exec {ex[2]} {ex[3]}, expected {want} {want_by}")
@@ -1987,7 +2039,7 @@ def check_selection(label, sel, n_sel, by_sel, t_sel, per_site):
     t_i is ``t_sel``, the weights' mass is the pool's size (within 1e-3),
     every index lies in its site, and the kernels launched as the
     selection calls them -- k seeding launches of the one-centre kernel,
-    one assignment on the general tile per Lloyd step (5) and one for the
+    one assignment on the streamed tile per Lloyd step (5) and one for the
     nearest-example search, each step's sums through lloyd_reduce.
     Returns the mass."""
     from repro_torch.kernels import distance_argmin as da
@@ -2003,7 +2055,7 @@ def check_selection(label, sel, n_sel, by_sel, t_sel, per_site):
             "weiszfeld_stats": 0, "distance_argmin_batched": 0,
             "lloyd_reduce": 5, "weiszfeld_reduce": 0}
     want_by = {da.ONE_CENTER.name: SELECT_K, da.RESIDENT.name: 0,
-               da.TILE.name: 5 + 1}
+               da.TILE.name: 0, da.STREAM.name: 5 + 1}
     check(n_sel == want and by_sel == want_by,
           f"{label} select_coreset: launches {n_sel} {by_sel}, expected "
           f"{want} {want_by}")
@@ -2720,7 +2772,7 @@ def train_full(seed, dev, smi, counts, total, checks, get=None):
         backend="cuda", device=dev))
     mass = check_selection("phase 15 (b)", sel, n_sel, by_sel, t_sel, per)
     # the selection's kernels at its own shape: the one-centre kernel, the
-    # general tile and lloyd_reduce against their plain versions
+    # streamed tile and lloyd_reduce against their plain versions
     checks["distance"]("phase 15 selection seeding (one centre)", emb,
                        checks["rows"](emb, 1))
     c8 = checks["rows"](emb, SELECT_K)
@@ -3043,7 +3095,8 @@ def main(argv=None) -> int:
                     help="after phase 7, repeat Figure 2 and the trimmed "
                     "route on N more keys and with the plain backend")
     ap.add_argument("--argmin-digests", action="store_true",
-                    help="print only distance_argmin's digests and exit; "
+                    help="print only the digests of distance_argmin and "
+                    "the two-pass sums and exit; "
                     "a copy of this file in the root of another checkout "
                     "digests that checkout's kernels")
     args = ap.parse_args(argv)
@@ -3124,7 +3177,7 @@ def main(argv=None) -> int:
 
     def route_counts():
         """Launches of both distance_argmin entries by the kernel that
-        served them (one-centre, resident tile, general tile)."""
+        served them (one-centre, resident, general or streamed tile)."""
         return {kern.name: kern.launches for kern in da.ROUTES}
 
     def counts():
@@ -3152,6 +3205,8 @@ def main(argv=None) -> int:
     if args.argmin_digests:
         print(f"argmin digests: "
               f"{json.dumps(argmin_digests(argmin_cases, ops))}")
+        two = two_pass_inputs(dev, args.seed, sp, sm)
+        print(f"two-pass digests: {json.dumps(two_pass_digests(two, ops))}")
         return 0
     gen = torch.Generator(device="cpu").manual_seed(args.seed)
 
@@ -3677,25 +3732,76 @@ def main(argv=None) -> int:
               f"{cuda_ms(lib[1]):.4f}, bound {b_ms:.4f} ({b_by}); kernel at "
               f"{b_ms / ms:.3f} of the bound")
 
-    # weiszfeld_reduce (weiszfeld_stats' two-pass form) at data selection's
+    def check_stream(label, p, c, timed=False):
+        """The streamed tile at a shape above the resident limit: the
+        routed entry with ``live = k`` (as ops calls it) launches it
+        (counted under it), its output, the streamed tile's own entry's
+        over every row and the general tile's are equal bit for bit, and
+        within D2_RTOL of the plain version (check_distance); ``timed``:
+        the kernel (the routed entry on the padded centres, live = k),
+        the general tile, the plain version and the library call timed
+        beside the bound; returns the kernels-line fields."""
+        c_pad = ops.pad_centers(c)
+        S1, M1, d1 = p.shape
+        check(da.route(M1, c_pad.shape[1], d1) is da.STREAM,
+              f"stream [{label}]: route() is not the streamed tile")
+        k1 = c.shape[-2]
+        before = route_counts()
+        md, am = da.distance_argmin(p, c_pad, live=k1)
+        torch.cuda.synchronize()
+        moved = {name: n_ - before[name] for name, n_ in
+                 route_counts().items()}
+        check(moved == {kern.name: int(kern is da.STREAM)
+                        for kern in da.ROUTES},
+              f"stream [{label}]: launches by kernel {moved}")
+        ms_, as_ = da.distance_argmin_stream(p, c_pad)
+        mt, at = da.distance_argmin_tile(p, c_pad)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in
+                  ((md, mt), (am, at), (ms_, mt), (as_, at))),
+              f"stream [{label}]: differs from the general tile")
+        _, _, _, err = check_distance(f"stream, {label}", p, c)
+        print(f"  distance_argmin[stream, {label}] {tuple(p.shape)} k_pad="
+              f"{c_pad.shape[1]}: the routed entry launched "
+              f"{da.STREAM.name}, equal bit for bit to the general tile")
+        if not timed:
+            return None
+        t = (cuda_ms(lambda: da.distance_argmin(p, c_pad, live=k1)),
+             cuda_ms(lambda: da.distance_argmin_tile(p, c_pad)),
+             cuda_ms(lambda: ref.min_dist_argmin_ref(p, c), reps=5),
+             cuda_ms(lambda: torch.cdist(p, c).min(-1)))
+        dev_ms = device_ms(lambda: da.distance_argmin(p, c_pad, live=k1))
+        b_ms, b_by = bound(*rwork.min_dist_argmin(S1, M1, k1, d1))
+        print(f"    streamed tile {tuple(p.shape)} k={k1} (ms, mean of 20): "
+              f"kernel {t[0]:.4f} (device {json.dumps(dev_ms)}), general "
+              f"tile {t[1]:.4f}, plain {t[2]:.4f}, library (cdist + min) "
+              f"{t[3]:.4f}, bound {b_ms:.4f} ({b_by}); kernel at "
+              f"{b_ms / t[0]:.3f} of the bound")
+        return {"max_abs_err": err, "ms": t[0], "plain_ms": t[2],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": t[3],
+                "tile_ms": t[1]}
+
+    # the streamed tile and the two-pass form's sums at data selection's
     # shape (8 sites x 2,048 rows x 4,096 features, k = 8) and at the sites'
-    # with k = 320, past the fused kernel's limit at d = 90, each checked
-    # through weiszfeld_stats and then timed; drawn from a generator of
-    # their own, so the later phases draw what they drew
-    gen_wr = torch.Generator(device=dev).manual_seed(args.seed + 25)
-    p_sel = torch.randn((8, 2048, 4096), generator=gen_wr, device=dev)
-    w_sel = torch.rand((8, 2048), generator=gen_wr, device=dev) * 2.0 - 1.0
-    c_sel = p_sel[:, :8].clone()
+    # with k = 320, past the fused kernels' limit at d = 90: weiszfeld_reduce
+    # held through weiszfeld_stats and timed, the streamed tile held to the
+    # general tile and timed, at the streamed tile's other shapes held too;
+    # every output digested. Drawn from a generator of their own, so the
+    # later phases draw what they drew
+    two = two_pass_inputs(dev, args.seed, sp, sm)
+    p_sel, c_sel, w_sel = two["selection"]
     check(not wz.fits(8, 4096), "k = 8 at d = 4,096 fits weiszfeld_stats")
     check_weiszfeld("selection's shape", p_sel, c_sel, w_sel)
     wr_row = time_reduce(dev, "weiszfeld_reduce", p_sel, c_sel, w_sel, hw)
-    del p_sel, w_sel, c_sel
+    stream_row = check_stream("selection", p_sel, c_sel, timed=True)
+    for label, *_ in STREAM_SHAPES:
+        check_stream(label, *two[label][:2])
     check(not wz.fits(320, d), "k = 320 at d = 90 fits weiszfeld_stats")
-    pick = torch.randint(0, M, (320,), generator=gen_wr, device=dev)
-    c_pick = sp[:, pick].contiguous()
+    c_pick = two["sites, k = 320"][1]
     check_weiszfeld("sites, k = 320", sp, c_pick, w_sites)
     time_reduce(dev, "weiszfeld_reduce", sp, c_pick, w_sites, hw)
-    del c_pick
+    digests.update(two_pass_digests(two, ops))
+    del two, p_sel, c_sel, w_sel, c_pick
 
     # -- phase 3: the main path at full size ----------------------------------
     lap("data + phase 2")
@@ -3792,7 +3898,7 @@ def main(argv=None) -> int:
         # all but the sensitivities' launch take the one-centre kernel, and
         # that one (k = 50 at d = 90) the resident tile
         check(by_kernel == {da.ONE_CENTER.name: 2 * k, da.RESIDENT.name: 1,
-                            da.TILE.name: 0},
+                            da.TILE.name: 0, da.STREAM.name: 0},
               f"{routing}: distance_argmin launches by kernel {by_kernel}")
         if routing == "flood":
             oc_launches = one_center_launches
@@ -3945,7 +4051,8 @@ def main(argv=None) -> int:
               f"k-median {routing}: launches {md_launches[routing]}, "
               f"expected {expect}")
         check(md_by_kernel == {da.ONE_CENTER.name: 2 * k,
-                               da.RESIDENT.name: 1, da.TILE.name: 0},
+                               da.RESIDENT.name: 1, da.TILE.name: 0,
+                               da.STREAM.name: 0},
               f"k-median {routing}: distance_argmin launches by kernel "
               f"{md_by_kernel}")
     check(torch.equal(md_results["flood"].centers,
@@ -4039,7 +4146,7 @@ def main(argv=None) -> int:
                  if shape[1] <= 8)
     check(srv_by_kernel == {da.ONE_CENTER.name: 0,
                             da.RESIDENT.name: st.n_dispatches - narrow,
-                            da.TILE.name: narrow},
+                            da.TILE.name: narrow, da.STREAM.name: 0},
           f"serving: distance_argmin launches by kernel {srv_by_kernel}")
     big = [tk for _, q, tk in tickets if q.shape[0] == BIG]
     check(len(big) == 1 and big[0].n_padded == 5 * 1024 - BIG,
@@ -4216,8 +4323,9 @@ def main(argv=None) -> int:
     check(new_paths["phase 10"].get("distance_argmin_batched", 0) > 0,
           "phase 10: distance_argmin_batched never launched")
     for phase in ("phase 12", "phase 15"):
-        check(new_paths[phase].get("lloyd_reduce", 0) > 0,
-              f"{phase}: lloyd_reduce never launched")
+        for name in ("lloyd_reduce", da.STREAM.name):
+            check(new_paths[phase].get(name, 0) > 0,
+                  f"{phase}: {name} never launched")
 
     print(f"phase walls (s): {json.dumps(walls)}")
     print(f"digests (sha256, first 16 hex digits): {json.dumps(digests)}")
@@ -4272,6 +4380,14 @@ def main(argv=None) -> int:
                           "embeddings (16,384 x 4,096, k = 8), not a route "
                           "of the reference",
          **wr_row},
+        # distance_argmin's streamed tile (blocks above the resident
+        # limit): its main path is data selection (phase 12), launches
+        # there; timed at its shape
+        {"name": da.STREAM.name, "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/distance_argmin.cu",
+         "replaces": "src/repro/kernels/distance_argmin.py:131",
+         "launches": new_paths["phase 12"].get(da.STREAM.name, 0),
+         **stream_row},
     ]
     # each kernel's launches on the staged (phase 9), streaming (phase 10),
     # SPMD (phase 11: rank 0 of W = 4, k-means and k-median), WAN and
@@ -4280,7 +4396,8 @@ def main(argv=None) -> int:
     for entry, name in zip(kernels, (da.ONE_CENTER.name, "distance_argmin",
                                      "lloyd_stats", "weiszfeld_stats",
                                      "distance_argmin_batched",
-                                     "lloyd_reduce", "weiszfeld_reduce")):
+                                     "lloyd_reduce", "weiszfeld_reduce",
+                                     da.STREAM.name)):
         entry["launches_new_paths"] = {
             phase: got.get(name, 0) for phase, got in new_paths.items()}
     print(json.dumps({"kernels": kernels}))

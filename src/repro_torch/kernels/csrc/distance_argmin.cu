@@ -10,22 +10,26 @@
 // the fp32 CUDA-core ridge (67 TFLOP/s over 3.35 TB/s, ~20), so it is bound
 // by operations. With one centre (D^2 seeding, k launches in a row) it reads
 // 4 d bytes for 3 d flops and is bound by bytes: 0.234 ms for the 100 x
-// 21,280 x 90 sites.
+// 21,280 x 90 sites; so is data selection's k = 8 at d = 4,096 (0.0805 ms
+// for 8 sites x 2,048 rows).
 // Design, by shape (route() below; every entry reports the kernel it
 // launched, which distance_argmin.ROUTES counts):
 // * k_pad == 1: a kernel of its own streams the points once, coalesced,
 //   through shared memory (distance_one_center_kernel).
-// * k_pad > 1 and more than kNarrowRows rows per site where the block fits
-//   shared memory: the resident tile (distance_argmin_resident_kernel), on
-//   the core of the resident statistics kernels (resident_tile.cuh): the
-//   site's centres and their norms stay in shared memory for the block's
-//   life, and each 64-row point tile is copied once with cp.async and
-//   assigned from that copy.
-// * otherwise the general tile (distance_argmin_kernel, from
-//   argmin_tile.cuh), which stages points and centres 32 features at a
-//   time: larger k_pad x d, and sites of up to 8 rows (serving's smallest
-//   bucket), where its 8-point shape does an eighth of the resident tile's
-//   64-row work.
+// * up to kNarrowRows rows per site: the general tile (distance_argmin_kernel,
+//   from argmin_tile.cuh), whose 8-point shape does an eighth of the
+//   resident tile's 64-row work at serving's smallest bucket.
+// * more rows where the block fits shared memory: the resident tile
+//   (distance_argmin_resident_kernel), on the core of the resident
+//   statistics kernels (resident_tile.cuh): the site's centres and their
+//   norms stay in shared memory for the block's life, and each 64-row point
+//   tile is copied once with cp.async and assigned from that copy.
+// * more rows where it does not (every k at d = 4,096): the streamed tile
+//   (distance_argmin_stream_kernel, below), which drops the sentinel rows,
+//   holds one point row and every live centre of a pass in one thread's
+//   registers, and streams the features through a cp.async ring.
+// The general tile, which stages points and all k_pad centres 32 features
+// at a time, stays as the exported tile entry that every route is held to.
 // Every route gives each (point, centre) pair the same chain of roundings
 // and reduces with the same order (argmin_tile.cuh's note on tile shapes),
 // so the output does not depend on the route. fp32 FMAs on the CUDA cores,
@@ -459,9 +463,307 @@ int launch_one_center(const float* P, const float* C, float* out_min,
                                      kOneCenterThreads, stream);
 }
 
+// ---- streamed tile (k_pad > 1, blocks above the resident limit) -----------
+//
+// Where the resident block does not fit shared memory (every k at d = 4,096:
+// data selection's embeddings) the work per point is a stream: 4 d bytes
+// read for 2 k d flops, with k small, so the bound is the points' bytes.
+// The kernel reads each point row from device memory once per pass and
+// spends nothing on padding:
+// * Live centres only. ops.min_dist_argmin pads k centres to k_pad rows
+//   with the sentinel and passes k as `live`: rows live .. k_pad - 1 are
+//   then equal bit for bit, so they give equal distances bit for bit and,
+//   the lowest index winning among equal distances, none of them but row
+//   `live` can win. The kernel takes rows 0 .. live (k + 1 at k = 8, not
+//   64; all k_pad where live = k_pad) and its output is the general tile's
+//   over all k_pad rows.
+// * Two threads per point row, each with half of a pass's centre slots in
+//   registers. A block of 128 threads owns 64 rows; it walks the features
+//   in chunks of kStreamDepth (352 contiguous bytes of each row), each
+//   chunk of its rows and of the pass's TN centre rows copied into a ring
+//   of kStreamStages stages with cp.async (a stage sized to TN), so that
+//   three chunks of every block are in flight while one is summed. Two
+//   blocks share an SM at 8 sites x 2,048 rows x 4,096 features (the grid
+//   in one wave): eight warps that overlap each other's waits. A block of
+//   128 rows, one thread a row, reading 128 bytes of each row per chunk
+//   streamed at half this rate on an H100 (PERF.md). A thread reads its
+//   row 16 bytes at a time (row stride 92 floats: 8 rows hit 8 bank
+//   groups) and each centre as a 16-byte broadcast.
+// * Both norms in the same pass: p2 from the row by its first thread
+//   (first pass), c2 by the second half's first warp, lane s for slot s.
+// * More than kStreamSlots centres take several passes over the points,
+//   each of up to kStreamSlots slots (a template on the slot count: 4, 8,
+//   10, 12 or 16, the smallest that holds the rows).
+// The chain of roundings of each pair is tile_argmin's (argmin_tile.cuh):
+// p2, c2 and p.c as fmaf chains over j = 0..d-1 from 0.f (features past d
+// staged as zeros add fmaf(0, 0, acc) = acc), then (p2 + c2) - 2 p.c
+// rounded as written and clamped at 0. Each thread walks its slots in
+// ascending row order with a strict `<` from (+inf, 0), and the two halves
+// merge in (value, index) order, which gives the least value and, among
+// equal values, the lowest index, as the general tile's lanes and tiles
+// do. A row whose every d2 is NaN or +inf keeps (+inf, 0).
+constexpr int kStreamRows = 64;      // point rows per block
+constexpr int kStreamHalves = 2;     // threads per row, each half the slots
+constexpr int kStreamThreads = kStreamRows * kStreamHalves;
+constexpr int kStreamDepth = 88;     // features per chunk
+constexpr int kStreamStages = 4;     // chunks in the ring
+constexpr int kStreamSlots = 16;     // most centres per pass over the points
+constexpr int kStreamStride = kStreamDepth + 4;  // floats a row; /4 odd
+static_assert(kStreamDepth % 4 == 0 && (kStreamStride / 4) % 2 == 1,
+              "16-byte rows, conflict-free");
+static_assert(kStreamRows % 32 == 0 && kStreamSlots <= 32,
+              "whole warps per half; one lane per slot's c2");
+
+// Floats of one stage for TN centre slots: the block's rows, then the
+// slots, each kStreamStride floats.
+__host__ __device__ constexpr int stream_stage_floats(int TN) {
+  return (kStreamRows + TN) * kStreamStride;
+}
+
+// The streamed tile's shared memory for TN slots: the ring, the slots' c2
+// and the second halves' (min, argmin) of each row.
+__host__ __device__ constexpr int stream_smem(int TN) {
+  return (int)sizeof(float) * (kStreamStages * stream_stage_floats(TN) +
+                               kStreamSlots + 2 * kStreamRows);
+}
+
+// The slot count (a template argument) for n centre rows: the fewest of
+// an even count that hold them in one pass, else passes of kStreamSlots.
+__host__ __device__ constexpr int stream_slots(int n) {
+  return n <= 4 ? 4 : n <= 8 ? 8 : n <= 10 ? 10 : n <= 12 ? 12 : kStreamSlots;
+}
+
+// Start the copies of one chunk: features [d0, d0 + kStreamDepth) of the
+// block's `rows` point rows from row0, and of centre rows c0 .. c0 + ns - 1
+// into the TN slots after them; rows, slots and features past their ends
+// are staged as zeros. kVec: 16-byte copies (d % 4 == 0 and 16-byte-aligned
+// arrays).
+template <int TN, bool kVec>
+__device__ __forceinline__ void stream_copy(float* stage,
+                                            const float* __restrict__ Pb,
+                                            const float* __restrict__ Cb,
+                                            int row0, int rows, int c0,
+                                            int ns, int d, int d0) {
+  constexpr int W = kVec ? 4 : 1;  // floats a copy
+  constexpr int Q = kStreamDepth / W;
+  for (int e = threadIdx.x; e < (kStreamRows + TN) * Q;
+       e += kStreamThreads) {
+    const int r = e / Q, j = W * (e - r * Q);
+    float* dst = stage + r * kStreamStride + j;
+    const bool point = r < kStreamRows;
+    const bool live = (point ? r < rows : r - kStreamRows < ns) &&
+                      d0 + j < d;
+    if (live) {
+      const float* src =
+          (point ? Pb + (size_t)(row0 + r) * d
+                 : Cb + (size_t)(c0 + r - kStreamRows) * d) +
+          d0 + j;
+      if (kVec)
+        cp_async16(dst, src);
+      else
+        cp_async4(dst, src);
+    } else if (kVec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      *dst = 0.f;
+    }
+  }
+}
+
+// The block's rows against centre rows 0 .. n - 1 of its site, TN slots a
+// pass; thread (half h, row r) takes slots h TN / 2 .. (h + 1) TN / 2 - 1
+// of each pass, and the second half's (min, argmin) merges into the
+// first's in (value, index) order. Writes each row's min d2 and argmin.
+template <int TN, bool kVec>
+__global__ void __launch_bounds__(kStreamThreads)
+    distance_argmin_stream_kernel(const float* __restrict__ P,
+                                  const float* __restrict__ C,
+                                  float* __restrict__ out_min,
+                                  int* __restrict__ out_arg, int M, int k_pad,
+                                  int n, int d) {
+  static_assert(TN % kStreamHalves == 0, "whole slots per half");
+  constexpr int TH = TN / kStreamHalves;  // slots per thread
+  constexpr int kStage = stream_stage_floats(TN);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* c2s = smem + kStreamStages * kStage;   // [kStreamSlots]
+  float* mins2 = c2s + kStreamSlots;            // [kStreamRows]
+  int* args2 = reinterpret_cast<int*>(mins2 + kStreamRows);
+  const int tid = threadIdx.x;
+  const int row = tid % kStreamRows;
+  const int half = tid / kStreamRows;
+  // the last half's first warp computes c2: lane s for slot s
+  const bool c2_lane = tid >= kStreamThreads - kStreamRows && row < TN;
+  const int b = blockIdx.y;
+  const float* Pb = P + (size_t)b * M * d;
+  const float* Cb = C + (size_t)b * k_pad * d;
+  const int row0 = blockIdx.x * kStreamRows;
+  const int rows = min(kStreamRows, M - row0);
+  const int chunks = (d + kStreamDepth - 1) / kStreamDepth;
+  const int steps = (n + TN - 1) / TN * chunks;
+
+  // step t: pass t / chunks over the points, chunk t % chunks
+  auto issue = [&](int t) {
+    if (t < steps) {
+      const int pass = t / chunks;
+      stream_copy<TN, kVec>(smem + (t % kStreamStages) * kStage, Pb, Cb,
+                            row0, rows, pass * TN, min(TN, n - pass * TN), d,
+                            (t - pass * chunks) * kStreamDepth);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+#pragma unroll
+  for (int t = 0; t < kStreamStages - 1; ++t) issue(t);
+
+  float best = INFINITY;
+  int arg = 0;
+  float p2 = 0.f, c2 = 0.f;
+  float acc[TH];
+#pragma unroll
+  for (int s = 0; s < TH; ++s) acc[s] = 0.f;
+  for (int t = 0; t < steps; ++t) {
+    const int pass = t / chunks;
+    cp_async_wait<kStreamStages - 2>();
+    __syncthreads();  // step t has landed; step t - 1's stage is free
+    issue(t + kStreamStages - 1);
+    const float* Ps = smem + (t % kStreamStages) * kStage;
+    const float* Cs = Ps + (kStreamRows + half * TH) * kStreamStride;
+    const float* x = Ps + row * kStreamStride;
+#pragma unroll 4
+    for (int q = 0; q < kStreamDepth; q += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(x + q);
+      if (pass == 0 && half == 0) {
+        p2 = fmaf(v.x, v.x, p2);
+        p2 = fmaf(v.y, v.y, p2);
+        p2 = fmaf(v.z, v.z, p2);
+        p2 = fmaf(v.w, v.w, p2);
+      }
+#pragma unroll
+      for (int s = 0; s < TH; ++s) {
+        const float4 c =
+            *reinterpret_cast<const float4*>(Cs + s * kStreamStride + q);
+        acc[s] = fmaf(v.x, c.x, acc[s]);
+        acc[s] = fmaf(v.y, c.y, acc[s]);
+        acc[s] = fmaf(v.z, c.z, acc[s]);
+        acc[s] = fmaf(v.w, c.w, acc[s]);
+      }
+      if (c2_lane) {
+        const float4 c = *reinterpret_cast<const float4*>(
+            Ps + (kStreamRows + row) * kStreamStride + q);
+        c2 = fmaf(c.x, c.x, c2);
+        c2 = fmaf(c.y, c.y, c2);
+        c2 = fmaf(c.z, c.z, c2);
+        c2 = fmaf(c.w, c.w, c2);
+      }
+    }
+    if (t - pass * chunks == chunks - 1) {  // the pass's distances
+      if (c2_lane) c2s[row] = c2;
+      if (pass == 0 && half == 0) mins2[row] = p2;  // the row's p2, kept
+      __syncthreads();                               // there to the end
+      const float pp = half == 0 ? p2 : mins2[row];
+      const int ns = min(TN, n - pass * TN);
+#pragma unroll
+      for (int s = 0; s < TH; ++s) {
+        const int slot = half * TH + s;
+        if (slot < ns) {
+          // explicit roundings: (p2 + c2) - 2 p.c, as tile_argmin
+          float v = __fsub_rn(__fadd_rn(pp, c2s[slot]),
+                              __fmul_rn(2.f, acc[s]));
+          v = v < 0.f ? 0.f : v;  // NaN stays NaN and never wins
+          if (v < best) {
+            best = v;
+            arg = pass * TN + slot;
+          }
+        }
+        acc[s] = 0.f;
+      }
+      c2 = 0.f;
+    }
+  }
+  // the halves' results in (value, index) order: the least value and,
+  // among equal values, the lowest index, as one walk over every slot
+  __syncthreads();  // mins2 is free again
+  if (half == 1) {
+    mins2[row] = best;
+    args2[row] = arg;
+  }
+  __syncthreads();
+  if (half == 0 && row < rows) {
+    const float ob = mins2[row];
+    const int oa = args2[row];
+    if (ob < best || (ob == best && oa < arg)) {
+      best = ob;
+      arg = oa;
+    }
+    out_min[(size_t)b * M + row0 + row] = best;
+    out_arg[(size_t)b * M + row0 + row] = arg;
+  }
+}
+
+template <int TN, bool kVec>
+int launch_stream_as(const float* P, const float* C, float* out_min,
+                     int* out_arg, int S, int M, int k_pad, int n, int d,
+                     cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> raised[kMaxDevices];  // 0: not yet on the device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (raised[dev].load(std::memory_order_relaxed) == 0) {
+    err = cudaFuncSetAttribute(distance_argmin_stream_kernel<TN, kVec>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               stream_smem(TN));
+    if (err != cudaSuccess) return (int)err;
+    raised[dev].store(1, std::memory_order_relaxed);
+  }
+  const dim3 grid((M + kStreamRows - 1) / kStreamRows, S);
+  distance_argmin_stream_kernel<TN, kVec>
+      <<<grid, kStreamThreads, stream_smem(TN), stream>>>(
+          P, C, out_min, out_arg, M, k_pad, n, d);
+  return (int)cudaGetLastError();
+}
+
+template <bool kVec>
+int launch_stream_vec(const float* P, const float* C, float* out_min,
+                      int* out_arg, int S, int M, int k_pad, int n, int d,
+                      cudaStream_t stream) {
+  switch (stream_slots(n)) {
+    case 4:
+      return launch_stream_as<4, kVec>(P, C, out_min, out_arg, S, M, k_pad,
+                                       n, d, stream);
+    case 8:
+      return launch_stream_as<8, kVec>(P, C, out_min, out_arg, S, M, k_pad,
+                                       n, d, stream);
+    case 10:
+      return launch_stream_as<10, kVec>(P, C, out_min, out_arg, S, M, k_pad,
+                                        n, d, stream);
+    case 12:
+      return launch_stream_as<12, kVec>(P, C, out_min, out_arg, S, M, k_pad,
+                                        n, d, stream);
+    default:
+      return launch_stream_as<kStreamSlots, kVec>(P, C, out_min, out_arg, S,
+                                                  M, k_pad, n, d, stream);
+  }
+}
+
+// The streamed tile over centre rows 0 .. live of each site.
+int launch_stream(const float* P, const float* C, float* out_min,
+                  int* out_arg, int S, int M, int k_pad, int live, int d,
+                  cudaStream_t stream) {
+  const bool vec = d % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(P) |
+                     reinterpret_cast<uintptr_t>(C)) & 15) == 0;
+  const int n = std::min(live + 1, k_pad);
+  return vec ? launch_stream_vec<true>(P, C, out_min, out_arg, S, M, k_pad, n,
+                                       d, stream)
+             : launch_stream_vec<false>(P, C, out_min, out_arg, S, M, k_pad,
+                                        n, d, stream);
+}
+
 // Which kernel serves a launch; the codes are the order of
 // distance_argmin.ROUTES.
-enum Route { kOneCenter = 0, kResident = 1, kTile = 2 };
+enum Route { kOneCenter = 0, kResident = 1, kTile = 2, kStream = 3 };
 
 // Up to this many rows per site take the general tile (its 8-point shape)
 // even where the resident block fits: at 8 rows the 8-point tile measured
@@ -482,7 +784,8 @@ cudaError_t resident_block(int k_pad, int d, bool* fits, int* bytes) {
 }
 
 // The kernel for M rows per site and k_pad centres of d features, and the
-// resident block's bytes of shared memory.
+// resident block's bytes of shared memory (distance_argmin.route counts the
+// same).
 cudaError_t route(int M, int k_pad, int d, int* which, int* bytes) {
   if (k_pad == 1) {
     *which = kOneCenter;
@@ -490,17 +793,18 @@ cudaError_t route(int M, int k_pad, int d, int* which, int* bytes) {
   }
   bool fits = false;
   const cudaError_t err = resident_block(k_pad, d, &fits, bytes);
-  *which = fits && M > kNarrowRows ? kResident : kTile;
+  *which = M <= kNarrowRows ? kTile : fits ? kResident : kStream;
   return err;
 }
 
 // Both entries: points (S, M, d), centres (S, k_pad, d) with k_pad 1 or a
-// multiple of 64, outputs (S, M); all contiguous. *served is the Route of
-// the kernel launched.
+// multiple of 64, outputs (S, M); all contiguous; rows live .. k_pad - 1 of
+// the centres equal bit for bit (the streamed tile takes rows 0 .. live).
+// *served is the Route of the kernel launched.
 int launch_routed(const float* P, const float* C, float* out_min,
-                  int* out_arg, int S, int M, int k_pad, int d,
+                  int* out_arg, int S, int M, int k_pad, int live, int d,
                   cudaStream_t stream, int* served) {
-  if (S < 1 || M < 1 || d < 1 || k_pad < 1 ||
+  if (S < 1 || M < 1 || d < 1 || k_pad < 1 || live < 1 || live > k_pad ||
       (k_pad > 1 && k_pad % kCenterTile != 0))
     return (int)cudaErrorInvalidValue;
   int which = kTile, bytes = 0;
@@ -513,6 +817,9 @@ int launch_routed(const float* P, const float* C, float* out_min,
     case kResident:
       return launch_resident_argmin(P, C, out_min, out_arg, S, M, k_pad, d,
                                     bytes, stream);
+    case kStream:
+      return launch_stream(P, C, out_min, out_arg, S, M, k_pad, live, d,
+                           stream);
     default:
       return launch_tile(P, C, out_min, out_arg, S, M, k_pad, d, stream);
   }
@@ -520,14 +827,16 @@ int launch_routed(const float* P, const float* C, float* out_min,
 
 }  // namespace
 
-// points (S, M, d), centres (S, k_pad, d), outputs (S, M); all contiguous.
-// Every entry returns the CUDA error of the launch (0 on success) and
-// writes the Route of the kernel it launched to *served (a host int).
+// points (S, M, d), centres (S, k_pad, d), outputs (S, M); all contiguous;
+// `live`: centre rows live .. k_pad - 1 are equal bit for bit (padding at
+// the sentinel; k_pad where there is none). Every entry returns the CUDA
+// error of the launch (0 on success) and writes the Route of the kernel it
+// launched to *served (a host int).
 extern "C" int distance_argmin_launch(const float* P, const float* C,
                                       float* out_min, int* out_arg, int S,
-                                      int M, int k_pad, int d, void* stream,
-                                      int* served) {
-  return launch_routed(P, C, out_min, out_arg, S, M, k_pad, d,
+                                      int M, int k_pad, int live, int d,
+                                      void* stream, int* served) {
+  return launch_routed(P, C, out_min, out_arg, S, M, k_pad, live, d,
                        static_cast<cudaStream_t>(stream), served);
 }
 
@@ -541,18 +850,21 @@ extern "C" int distance_argmin_launch(const float* P, const float* C,
 // dispatch equals a loop of single-tenant launches bit for bit.
 extern "C" int distance_argmin_batched_launch(const float* P, const float* C,
                                               float* out_min, int* out_arg,
-                                              int T, int m, int k_pad, int d,
-                                              void* stream, int* served) {
-  return launch_routed(P, C, out_min, out_arg, T, m, k_pad, d,
+                                              int T, int m, int k_pad,
+                                              int live, int d, void* stream,
+                                              int* served) {
+  return launch_routed(P, C, out_min, out_arg, T, m, k_pad, live, d,
                        static_cast<cudaStream_t>(stream), served);
 }
 
-// The general tile alone, whatever the shape (k_pad a multiple of 64), so
-// the resident tile can be held against it bit for bit.
+// The general tile alone, whatever the shape (k_pad a multiple of 64; every
+// row taken, whatever `live`), so every other route can be held against it
+// bit for bit.
 extern "C" int distance_argmin_tile_launch(const float* P, const float* C,
                                            float* out_min, int* out_arg,
-                                           int S, int M, int k_pad, int d,
-                                           void* stream, int* served) {
+                                           int S, int M, int k_pad, int live,
+                                           int d, void* stream,
+                                           int* served) {
   if (S < 1 || M < 1 || d < 1 || k_pad < 1) return (int)cudaErrorInvalidValue;
   *served = kTile;
   return launch_tile(P, C, out_min, out_arg, S, M, k_pad, d,
@@ -560,12 +872,14 @@ extern "C" int distance_argmin_tile_launch(const float* P, const float* C,
 }
 
 // The resident tile alone at any row count (k_pad a multiple of 64 whose
-// block fits shared memory, else cudaErrorInvalidValue), so it can be held
-// against the general tile where the entries route to that.
+// block fits shared memory, else cudaErrorInvalidValue; every row taken,
+// whatever `live`), so it can be held against the general tile where the
+// entries route to that.
 extern "C" int distance_argmin_resident_launch(const float* P, const float* C,
                                                float* out_min, int* out_arg,
-                                               int S, int M, int k_pad, int d,
-                                               void* stream, int* served) {
+                                               int S, int M, int k_pad,
+                                               int live, int d, void* stream,
+                                               int* served) {
   if (S < 1 || M < 1 || d < 1 || k_pad < 2 || k_pad % kCenterTile != 0)
     return (int)cudaErrorInvalidValue;
   bool fits = false;
@@ -576,4 +890,19 @@ extern "C" int distance_argmin_resident_launch(const float* P, const float* C,
   *served = kResident;
   return launch_resident_argmin(P, C, out_min, out_arg, S, M, k_pad, d,
                                 bytes, static_cast<cudaStream_t>(stream));
+}
+
+// The streamed tile alone at any shape (k_pad > 1 a multiple of 64), so it
+// can be held against the general tile where the entries route elsewhere.
+extern "C" int distance_argmin_stream_launch(const float* P, const float* C,
+                                             float* out_min, int* out_arg,
+                                             int S, int M, int k_pad,
+                                             int live, int d, void* stream,
+                                             int* served) {
+  if (S < 1 || M < 1 || d < 1 || k_pad < 2 || k_pad % kCenterTile != 0 ||
+      live < 1 || live > k_pad)
+    return (int)cudaErrorInvalidValue;
+  *served = kStream;
+  return launch_stream(P, C, out_min, out_arg, S, M, k_pad, live, d,
+                       static_cast<cudaStream_t>(stream));
 }

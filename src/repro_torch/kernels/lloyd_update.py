@@ -38,6 +38,12 @@ KERNEL = Kernel("lloyd_stats", "lloyd_stats_launch", STATS_ARGS)
 # block, stream
 REDUCE = Kernel("lloyd_reduce", "lloyd_reduce_launch",
                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+# the same with the most centres' accumulators a block before the stream:
+# the column walk's centre groups at any k, so the tests can hold them to
+# the fused kernel bit for bit
+REDUCE_GROUPED = Kernel("lloyd_reduce_grouped", "lloyd_reduce_grouped_launch",
+                        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                        library="lloyd_reduce")
 
 # rows each block owns: sets the number of partials of a site
 # (ceil(M / ROWS_PER_BLOCK)), and so the order of the final sum
@@ -65,16 +71,35 @@ def lloyd_reduce(points: torch.Tensor, weights: torch.Tensor,
     points ``(S, M, d)``, weights and min d2 ``(S, M)`` f32, assignment
     ``(S, M)`` i32 -> ``(sums (S, k, d), counts (S, k), cost (S,))``. A row
     assigned outside ``[0, k)`` adds to the cost only."""
+    return _reduce(REDUCE, points, weights, min_d2, assign, k)
+
+
+def lloyd_reduce_grouped(points: torch.Tensor, weights: torch.Tensor,
+                         min_d2: torch.Tensor, assign: torch.Tensor, k: int,
+                         group: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`lloyd_reduce` with the accumulators of at most ``group``
+    centres a block: the centre groups the column walk takes where one
+    block cannot hold all ``k`` (above 355 centres at d = 4,096), at any
+    shape, to hold them against the fused kernel where that runs too."""
+    if group < 1:
+        raise ValueError(f"group {group}: a block holds at least one centre")
+    return _reduce(REDUCE_GROUPED, points, weights, min_d2, assign, k, group)
+
+
+def _reduce(kernel: Kernel, points: torch.Tensor, weights: torch.Tensor,
+            min_d2: torch.Tensor, assign: torch.Tensor, k: int, *group: int
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     partials, out = reduce_buffers(points, weights, assign, k,
                                    min_d2=min_d2)
     S, M, d = points.shape
     with torch.cuda.device(points.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = REDUCE.fn()(points.data_ptr(), weights.data_ptr(),
+        rc = kernel.fn()(points.data_ptr(), weights.data_ptr(),
                          min_d2.data_ptr(), assign.data_ptr(),
                          partials.data_ptr(), out.data_ptr(), S, M, k, d,
-                         ROWS_PER_BLOCK, stream)
-    return reduce_result(REDUCE, rc, out, k, d)
+                         ROWS_PER_BLOCK, *group, stream)
+    return reduce_result(kernel, rc, out, k, d)
 
 
 def reduce_buffers(points: torch.Tensor, weights: torch.Tensor,

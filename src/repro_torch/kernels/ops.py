@@ -31,7 +31,8 @@ with ``(S, k, d)`` centres -- and then serves all sites in ONE launch, as
   ``launches`` counter (the batched argmin is an entry of the
   ``distance_argmin`` library with a counter of its own);
   ``distance_argmin.ROUTES`` counts the same entries' launches again by
-  the kernel that served them (one-centre, resident tile, general tile).
+  the kernel that served them (one-centre, resident, general and streamed
+  tile).
 * **Query buckets.** :func:`query_bucket`, :func:`pad_queries` and
   :func:`chunk_queries` bound the shapes serving dispatches to powers of
   two (DESIGN.md Sec. 9); :func:`site_bucket_lengths` does the same for
@@ -141,7 +142,8 @@ def min_dist_argmin(points: torch.Tensor, centers: torch.Tensor
     if not points.is_cuda:
         return ref.min_dist_argmin_ref(points, centers)
     p, c, squeeze = _sites(points, centers)
-    md, am = _da.distance_argmin(p.contiguous(), pad_centers(c))
+    md, am = _da.distance_argmin(p.contiguous(), pad_centers(c),
+                                 live=c.shape[1])
     return (md[0], am[0]) if squeeze else (md, am)
 
 
@@ -157,7 +159,8 @@ def min_dist_argmin_batched(queries: torch.Tensor, centers: torch.Tensor
         raise ValueError(f"queries {tuple(queries.shape)} and centers "
                          f"{tuple(centers.shape)} must both be 3-D")
     return _da.distance_argmin_batched(queries.contiguous(),
-                                       pad_centers(centers))
+                                       pad_centers(centers),
+                                       live=centers.shape[1])
 
 
 def _fused_stats(kernel_fn, plain_fn, reduce_fn, fits, points, centers,

@@ -195,6 +195,97 @@ def test_cuda_weiszfeld_two_pass_runs_no_plain_product(cuda, monkeypatch):
                      "lloyd_reduce": 0, "weiszfeld_reduce": 1}, moved
 
 
+# many centres, past the fused kernels' limit: one block of the column
+# walk holds every centre's accumulators at d = 90 up to k = 505 (320, 453,
+# 454) and at d = 4,096 up to 355; so two groups at d = 90 with k = 1,000,
+# and at d = 4,096 two at k = 453 and 454, three at 1,000
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lloyd_reduce", "weiszfeld_reduce"])
+@pytest.mark.parametrize("k", [320, 453, 454, 1000])
+@pytest.mark.parametrize("d", [90, 4096])
+def test_cuda_reduce_at_many_centres(cuda, name, k, d):
+    """lloyd_reduce and weiszfeld_reduce where the fused kernels do not
+    fit, on an assignment that spreads the rows over every centre (and a
+    few outside [0, k)): within 1e-4 of the plain reduction's sums of
+    |terms|, one launch a call, a rerun bit-identical."""
+    S, M = (2, 3000) if d == 90 else (1, 2048)
+    rng = np.random.default_rng(k + d)
+    p = torch.tensor(rng.standard_normal((S, M, d)), dtype=torch.float32,
+                     device=cuda)
+    c = torch.tensor(rng.standard_normal((S, k, d)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.standard_normal((S, M)), dtype=torch.float32,
+                     device=cuda)
+    am = torch.tensor(rng.integers(-1, k + 1, (S, M)), dtype=torch.int32,
+                      device=cuda)
+    inside = (am >= 0) & (am < k)
+    kern = lu_mod.REDUCE if name == "lloyd_reduce" else wz_mod.REDUCE
+    before = kern.launches
+    if name == "lloyd_reduce":
+        md = torch.tensor(rng.random((S, M)), dtype=torch.float32,
+                          device=cuda)
+        args = (p, k, w.abs(), md, am)
+        out, again = ops.lloyd_reduce(*args), ops.lloyd_reduce(*args)
+        amc = am.clamp(0, k - 1)
+        plain = ref.lloyd_reduce(p, k, w.abs() * inside, md, amc)
+        scale = ref.lloyd_reduce(p.abs(), k, w.abs() * inside, md, amc)
+        plain = (plain[0], plain[1], (w.abs() * md).sum(-1))
+        scale = (scale[0], scale[1], plain[2])
+    else:
+        out = ops.weiszfeld_reduce(p, c, w, am)
+        again = ops.weiszfeld_reduce(p, c, w, am)
+        amc = am.clamp(0, k - 1)
+        wi = torch.where(inside, w, 0.0)
+        plain = ref.weiszfeld_reduce(p, c, wi, amc)
+        na, ca = _weiszfeld_scale(p, c, wi, amc)
+        scale = (na, plain[1], ca)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    for a, b, sc in zip(out, plain, scale):
+        assert bool(((a - b).abs() <= 1e-4 * sc + 1e-4).all())
+
+
+# the column walk's centre groups, which k past what one block holds takes
+# (k > 355 at d = 4,096): groups of 1, 7 and 64 centres at shapes where
+# the fused kernel runs too (k = 256 at d = 90 is its largest); the walk is
+# weiszfeld_reduce's too, with other row values
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 7, 64])
+@pytest.mark.parametrize("S,n,k,d", [(1, 8, 3, 5), (3, 1001, 50, 90),
+                                     (2, 2500, 70, 33), (2, 3000, 256, 90)])
+def test_cuda_lloyd_reduce_groups_equal_fused_lloyd_stats(cuda, S, n, k, d,
+                                                          group):
+    """lloyd_reduce with the accumulators of at most ``group`` centres a
+    block equals lloyd_reduce (all k in one block) and the fused
+    lloyd_stats kernel bit for bit on distance_argmin's assignment, and
+    with a row assigned past k (to the cost only) equals lloyd_reduce; each
+    call counted under its own entry."""
+    rng = np.random.default_rng(n + d + group)
+    p = torch.tensor(rng.standard_normal((S, n, d)), dtype=torch.float32,
+                     device=cuda)
+    c = torch.tensor(rng.standard_normal((S, k, d)), dtype=torch.float32,
+                     device=cuda)
+    w = torch.tensor(rng.random((S, n)), dtype=torch.float32, device=cuda)
+    assert lu_mod.fits(k, d)
+    md, am = ops.min_dist_argmin(p, c)
+    am_out = am.clone()
+    am_out[0, 0] = k
+    before = (lu_mod.REDUCE.launches, lu_mod.REDUCE_GROUPED.launches)
+    out = lu_mod.lloyd_reduce_grouped(p, w, md, am, k, group)
+    out_off = lu_mod.lloyd_reduce_grouped(p, w, md, am_out, k, group)
+    whole = ops.lloyd_reduce(p, k, w, md, am)
+    whole_off = ops.lloyd_reduce(p, k, w, md, am_out)
+    fused = ops.lloyd_stats(p, c, w)
+    torch.cuda.synchronize()
+    assert (lu_mod.REDUCE.launches, lu_mod.REDUCE_GROUPED.launches) == (
+        before[0] + 2, before[1] + 2)
+    for a, b, f in zip(out, whole, fused):
+        assert torch.equal(a, b) and torch.equal(a, f)
+    for a, b in zip(out_off, whole_off):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 def test_cuda_ties_pick_the_lowest_index(cuda):
     p = torch.randn(3000, 12, device=cuda)
@@ -459,8 +550,9 @@ def test_cuda_weiszfeld_reruns_bit_identical_at_sites_shape(cuda, name):
 def test_cuda_batched_argmin_equals_per_tenant_loop(cuda, T, m, k, d):
     """The stacked-tenant entry against a loop of single-tenant launches
     over the same stacked buffers, bit for bit (DESIGN.md Sec. 13), and
-    against the resident and the general tile on the same stacked buffers,
-    bit for bit; and against the plain version within float32 tolerance;
+    against the resident, the general and the streamed tile on the same
+    stacked buffers (each tenant's own sentinel rows), bit for bit; and
+    against the plain version within float32 tolerance;
     masked rows (sentinel) never win. The launch is counted under the
     kernel the library reports it launched: one centre the one-centre
     kernel, else the general tile's 8-point shape up to 8 rows and the
@@ -487,7 +579,8 @@ def test_cuda_batched_argmin_equals_per_tenant_loop(cuda, T, m, k, d):
         md_t, am_t = ops.min_dist_argmin(q[t], c[t])
         assert torch.equal(md[t], md_t) and torch.equal(am[t], am_t)
     for entry in (da_mod.distance_argmin_tile,
-                  da_mod.distance_argmin_resident):
+                  da_mod.distance_argmin_resident,
+                  da_mod.distance_argmin_stream):
         md_g, am_g = entry(q, _padded_to_tile(c))
         assert torch.equal(md, md_g) and torch.equal(am, am_g)
     assert bool((am < k_real[:, None]).all())
@@ -592,7 +685,7 @@ def _route_counts():
 
 
 # k = 320 is the two-pass form of the statistics kernels at d = 90; at
-# d = 256 the blocks of k = 256 and 320 do not fit and take the general
+# d = 256 the blocks of k = 256 and 320 do not fit and take the streamed
 # tile. M = 40 lies below one 64-row tile; 1001 is not a multiple of 64.
 @pytest.mark.cuda
 @pytest.mark.parametrize("offset", ["0", "row"])
@@ -601,7 +694,7 @@ def _route_counts():
 @pytest.mark.parametrize("d", [1, 3, 33, 90, 256])
 def test_cuda_resident_tile_equals_general_tile(cuda, d, k, M, offset):
     """Both entries at k_pad > 1 take the resident tile where its block
-    fits shared memory, else the general tile (the counters, which count
+    fits shared memory, else the streamed tile (the counters, which count
     the kernel the library reports, show which) and give the
     general tile's output bit for bit, on 3 sites with points as a view
     from row 1 (off a 16-byte boundary unless 4 divides d) and a NaN row,
@@ -614,7 +707,8 @@ def test_cuda_resident_tile_equals_general_tile(cuda, d, k, M, offset):
                      device=cuda)
     c_pad = _padded_to_tile(c)
     served = (da_mod.RESIDENT if da_mod.resident_fits(c_pad.shape[1], d)
-              else da_mod.TILE)
+              else da_mod.STREAM)
+    assert da_mod.route(M, c_pad.shape[1], d) is served
     before = _route_counts()
     md, am = da_mod.distance_argmin(p, c_pad)
     again = da_mod.distance_argmin(p, c_pad)
@@ -648,23 +742,24 @@ def test_cuda_resident_tile_equals_general_tile(cuda, d, k, M, offset):
                                       (64, 444, True), (2, 445, False)])
 def test_cuda_at_and_beyond_the_resident_limit(cuda, k, d, fits):
     """At the limit the resident tile launches; beyond it both entries
-    take the general tile (the counters show it), and either way the
+    take the streamed tile (the counters show it), and either way the
     output is the general tile's bit for bit."""
     rng = np.random.default_rng(k + d)
     p = torch.tensor(rng.standard_normal((2, 300, d)), dtype=torch.float32,
                      device=cuda)
     c = _padded_to_tile(torch.tensor(rng.standard_normal((2, k, d)),
                                      dtype=torch.float32, device=cuda))
-    served = da_mod.RESIDENT if fits else da_mod.TILE
+    served = da_mod.RESIDENT if fits else da_mod.STREAM
     assert da_mod.resident_fits(c.shape[1], d) is fits
     before = _route_counts()
     out = [da_mod.distance_argmin(p, c), da_mod.distance_argmin_batched(p, c)]
     md_t, am_t = da_mod.distance_argmin_tile(p, c)
     torch.cuda.synchronize()
     moved = {name: n - before[name] for name, n in _route_counts().items()}
-    assert moved[served.name] == (2 if fits else 3)
-    assert moved[da_mod.ONE_CENTER.name] == 0
-    assert moved[da_mod.RESIDENT.name] == (2 if fits else 0)
+    expect = {kern.name: 0 for kern in da_mod.ROUTES}
+    expect[da_mod.TILE.name] += 1
+    expect[served.name] += 2
+    assert moved == expect
     for md, am in out:
         assert torch.equal(md, md_t) and torch.equal(am, am_t)
     md_r, _ = ref.min_dist_argmin_ref(p, c)
@@ -700,6 +795,93 @@ def test_cuda_entries_report_the_kernel_they_launched(cuda, k, d, rows):
         md_o, am_o = other(p, c)
         torch.cuda.synchronize()
         assert torch.equal(md, md_o) and torch.equal(am, am_o)
+
+
+# the streamed tile: widths above the resident limit at any k (d = 4,095 is
+# not a multiple of 4: the copies go 4 bytes at a time, as at an odd
+# storage offset); k = 2 and 8 take one pass of 4 and 10 slots, 64 and 65
+# four and five passes of 16, 320 twenty; M = 40 is one ragged block
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("M", [40, 1001, 2048])
+@pytest.mark.parametrize("k", [2, 8, 64, 65, 320])
+@pytest.mark.parametrize("d", [1000, 4095, 4096])
+def test_cuda_stream_tile_equals_general_tile(cuda, d, k, M, offset):
+    """Both entries take the streamed tile above the resident limit (the
+    counters move under the kernel route() names) and give the general
+    tile's output bit for bit, with ``live = k`` (rows past k skipped but
+    the first) as ops passes it and with every row taken, as does the
+    streamed tile's own entry, on 2 sites with points at a storage offset
+    of ``offset`` floats, a forced tie (centre k // 2 a copy of centre 0:
+    the lower index wins) and a NaN row (+inf at index 0); a rerun is
+    bit-identical; within float32 tolerance of the plain version off the
+    NaN row."""
+    S = 2
+    rng = np.random.default_rng(10 * d + k + M + offset)
+    p = _points_at_offset(rng, S, M, d, offset, cuda)
+    c = torch.tensor(rng.standard_normal((S, k, d)), dtype=torch.float32,
+                     device=cuda)
+    c[:, k // 2] = c[:, 0]
+    c_pad = _padded_to_tile(c)
+    assert da_mod.route(M, c_pad.shape[1], d) is da_mod.STREAM
+    before = _route_counts()
+    md, am = da_mod.distance_argmin(p, c_pad, live=k)
+    md_b, am_b = da_mod.distance_argmin_batched(p, c_pad, live=k)
+    md_o, am_o = ops.min_dist_argmin(p, c)
+    moved = {name: n - before[name] for name, n in _route_counts().items()}
+    md_s, am_s = da_mod.distance_argmin_stream(p, c_pad)
+    again = da_mod.distance_argmin(p, c_pad, live=k)
+    md_t, am_t = da_mod.distance_argmin_tile(p, c_pad)
+    torch.cuda.synchronize()
+    assert moved == {kern.name: 3 * (kern is da_mod.STREAM)
+                     for kern in da_mod.ROUTES}
+    for x, y in ((md, md_t), (am, am_t), (md_b, md_t), (am_b, am_t),
+                 (md_o, md_t), (am_o, am_t), (md_s, md_t), (am_s, am_t),
+                 (again[0], md), (again[1], am)):
+        assert torch.equal(x, y)
+    assert not bool((am == k // 2).any()) or k // 2 == 0
+    assert float(md[S - 1, M // 2]) == float("inf")
+    assert int(am[S - 1, M // 2]) == 0
+    finite = torch.ones_like(md, dtype=torch.bool)
+    finite[S - 1, M // 2] = False
+    md_r, am_r = ref.min_dist_argmin_ref(p, c)
+    np.testing.assert_allclose(md[finite].cpu().numpy(),
+                               md_r[finite].cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+    _assert_argmins(md[finite].cpu(), am[finite].cpu(),
+                    md_r[finite].cpu(), am_r[finite].cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_stream_tile_takes_rows_up_to_live(cuda):
+    """The streamed tile takes centre rows 0 .. live: the first padding
+    row still competes, so points so far out that the sentinel row is
+    their nearest get its index (k), as from the general tile; at every
+    ``live`` from 1 to k_pad over rows that equal row ``live`` from there
+    on, the output is the general tile's; ``live`` outside [1, k_pad]
+    raises."""
+    rng = np.random.default_rng(5)
+    S, M, d, k = 2, 300, 1000, 10
+    p = torch.tensor(rng.standard_normal((S, M, d)), dtype=torch.float32,
+                     device=cuda)
+    p[1, :50] = 0.9 * ref.CENTER_SENTINEL
+    c = _padded_to_tile(torch.tensor(rng.standard_normal((S, k, d)),
+                                     dtype=torch.float32, device=cuda))
+    md_t, am_t = da_mod.distance_argmin_tile(p, c)
+    md, am = da_mod.distance_argmin(p, c, live=k)
+    torch.cuda.synchronize()
+    assert torch.equal(md, md_t) and torch.equal(am, am_t)
+    assert bool((am[1, :50] == k).all())
+    for live in (1, 3, 64):
+        cl = c.clone()
+        cl[:, live:] = cl[:, live:live + 1]
+        md_t, am_t = da_mod.distance_argmin_tile(p, cl)
+        md_s, am_s = da_mod.distance_argmin_stream(p, cl, live=live)
+        torch.cuda.synchronize()
+        assert torch.equal(md_s, md_t) and torch.equal(am_s, am_t)
+    for live in (0, 65):
+        with pytest.raises(ValueError):
+            da_mod.distance_argmin(p, c, live=live)
 
 
 # blocks that own several 64-row tiles and a ragged last one: one site of
@@ -1071,7 +1253,7 @@ def test_cuda_select_coreset_matches_the_cpu(cuda, monkeypatch, d):
     exact, the weight-0 pattern and the live slots' indices equal but for
     draws one index off (at most 1%: the masses differ in the last bits),
     the mass the pool's, a rerun bit-identical; at d = 4,096 distance_argmin
-    runs the general tile and lloyd_stats the two-pass form (lloyd_reduce
+    runs the streamed tile and lloyd_stats the two-pass form (lloyd_reduce
     after it). embed_examples
     agrees with the CPU to 1e-6 and chunks alike."""
     from repro_torch.core import prng
@@ -1097,9 +1279,11 @@ def test_cuda_select_coreset_matches_the_cpu(cuda, monkeypatch, d):
             lu_mod.REDUCE.launches - lloyd_before[1]) == (
                 (5, 0) if fused else (0, 5))
     assert by[da_mod.ONE_CENTER.name] == 4
-    general = by[da_mod.TILE.name] + by[da_mod.RESIDENT.name]
+    general = (by[da_mod.TILE.name] + by[da_mod.RESIDENT.name]
+               + by[da_mod.STREAM.name])
     assert general == (1 if fused else 6)
-    assert (by[da_mod.TILE.name] > 0) == (d == 4096)
+    assert by[da_mod.TILE.name] == 0
+    assert (by[da_mod.STREAM.name] > 0) == (d == 4096)
     again = select_coreset(prng.PRNGKey(0, device=cuda), emb_g, mask, 4, 64,
                            backend="cuda", device=cuda)
     for f in ("indices", "weights", "t_i", "local_costs"):

@@ -7,6 +7,8 @@ shapes, to the Pallas kernels in interpret mode. The CUDA kernels
 themselves are held to the plain versions by the ``cuda``-marked tests in
 ``tests/test_torch_cuda.py``, which run on a GPU machine only.
 """
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -201,17 +203,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     plain version through it (only ops dispatches by device)."""
     p = torch.zeros(1, 8, 3)
     c = torch.zeros(1, 64, 3)
-    before = (da_mod.KERNEL.launches, lu_mod.KERNEL.launches,
-              lu_mod.REDUCE.launches)
+    kernels = (da_mod.KERNEL, da_mod.STREAM, lu_mod.KERNEL, lu_mod.REDUCE,
+               lu_mod.REDUCE_GROUPED)
+    before = [kern.launches for kern in kernels]
     with pytest.raises(ValueError, match="CUDA device"):
         da_mod.distance_argmin(p, c)
+    with pytest.raises(ValueError, match="CUDA device"):
+        da_mod.distance_argmin_stream(p, c)
     with pytest.raises(ValueError, match="CUDA device"):
         lu_mod.lloyd_stats(p, c, torch.ones(1, 8), 2)
     with pytest.raises(ValueError, match="CUDA device"):
         lu_mod.lloyd_reduce(p, torch.ones(1, 8), torch.zeros(1, 8),
                             torch.zeros(1, 8, dtype=torch.int32), 2)
-    assert (da_mod.KERNEL.launches, lu_mod.KERNEL.launches,
-            lu_mod.REDUCE.launches) == before
+    with pytest.raises(ValueError, match="CUDA device"):
+        lu_mod.lloyd_reduce_grouped(p, torch.ones(1, 8), torch.zeros(1, 8),
+                                    torch.zeros(1, 8, dtype=torch.int32), 2,
+                                    1)
+    assert [kern.launches for kern in kernels] == before
 
 
 @pytest.mark.parametrize("n,k,d", SHAPES)
@@ -297,7 +305,7 @@ def _argmin_layout_floats(k_pad, d):
 def test_resident_fits_at_the_layout_boundary(k_pad, d, fits):
     """distance_argmin.resident_fits is the header's layout count against
     the shared memory a block may use on Hopper (227 KiB); where it is
-    false the entries take the general tile."""
+    false the entries take the streamed tile (above 8 rows per site)."""
     assert da_mod.RESIDENT_FLOATS * 4 == 227 * 1024
     assert (_argmin_layout_floats(k_pad, d) <= 227 * 1024 // 4) is fits
     assert da_mod.resident_fits(k_pad, d) is fits
@@ -309,17 +317,19 @@ def test_route_counters_are_kernels_of_the_distance_argmin_library():
     """Every launch of either entry is counted under one of the kernels it
     routes to, in the order of the C side's route codes; each counter names
     the library its kernel is built into."""
-    assert da_mod.ROUTES == (da_mod.ONE_CENTER, da_mod.RESIDENT, da_mod.TILE)
+    assert da_mod.ROUTES == (da_mod.ONE_CENTER, da_mod.RESIDENT, da_mod.TILE,
+                             da_mod.STREAM)
     assert {k.library for k in da_mod.ROUTES} == {"distance_argmin"}
     assert da_mod.TILE.function == "distance_argmin_tile_launch"
     assert da_mod.RESIDENT.function == "distance_argmin_resident_launch"
-    assert len({k.name for k in (*ops.KERNELS, *da_mod.ROUTES)}) == 9
+    assert da_mod.STREAM.function == "distance_argmin_stream_launch"
+    assert len({k.name for k in (*ops.KERNELS, *da_mod.ROUTES)}) == 10
 
 
 @pytest.mark.parametrize("entry,served", [
-    ("KERNEL", 0), ("KERNEL", 1), ("KERNEL", 2), ("KERNEL_BATCHED", 0),
-    ("KERNEL_BATCHED", 1), ("KERNEL_BATCHED", 2), ("RESIDENT", 1),
-    ("TILE", 2)])
+    ("KERNEL", 0), ("KERNEL", 1), ("KERNEL", 2), ("KERNEL", 3),
+    ("KERNEL_BATCHED", 0), ("KERNEL_BATCHED", 1), ("KERNEL_BATCHED", 2),
+    ("KERNEL_BATCHED", 3), ("RESIDENT", 1), ("TILE", 2), ("STREAM", 3)])
 def test_count_launch_counts_the_entry_and_the_kernel_reported(entry,
                                                                served):
     """A launch counts once under its entry and once under the kernel the
@@ -336,7 +346,7 @@ def test_count_launch_counts_the_entry_and_the_kernel_reported(entry,
     assert sum(moved) == (1 if kern is da_mod.ROUTES[served] else 2)
 
 
-@pytest.mark.parametrize("served", [-1, 3])
+@pytest.mark.parametrize("served", [-1, 4])
 def test_count_launch_refuses_an_unknown_kernel_code(served):
     """A code outside ROUTES (a library that reported nothing) raises and
     counts nothing."""
@@ -344,3 +354,80 @@ def test_count_launch_refuses_an_unknown_kernel_code(served):
     with pytest.raises(RuntimeError):
         da_mod.count_launch(da_mod.KERNEL, served)
     assert [c.launches for c in (da_mod.KERNEL, *da_mod.ROUTES)] == before
+
+
+# (M, k_pad, d): one centre; up to 8 rows per site; the resident block's
+# limit at d = 90 (k_pad 512 fits, 576 does not) and at 64 centres (d 444
+# fits, 445 does not); data selection's shape (d = 4,096 never fits)
+@pytest.mark.parametrize("M,k_pad,d,kernel", [
+    (2048, 1, 4096, "ONE_CENTER"), (1, 64, 90, "TILE"), (8, 64, 4096, "TILE"),
+    (8, 576, 90, "TILE"), (9, 64, 90, "RESIDENT"), (9, 64, 4096, "STREAM"),
+    (300, 512, 90, "RESIDENT"), (300, 576, 90, "STREAM"),
+    (300, 64, 444, "RESIDENT"), (300, 64, 445, "STREAM"),
+    (21280, 64, 90, "RESIDENT"), (2048, 64, 4096, "STREAM"),
+    (40, 320, 1000, "STREAM"), (1001, 1024, 4095, "STREAM")])
+def test_route_is_the_librarys_rule(M, k_pad, d, kernel):
+    """distance_argmin.route names the kernel ``route`` in
+    csrc/distance_argmin.cu picks: kNarrowRows = 8 rows, then the resident
+    block's fit."""
+    assert da_mod.NARROW_ROWS == 8
+    assert da_mod.route(M, k_pad, d) is getattr(da_mod, kernel)
+
+
+@pytest.mark.parametrize("group", [0, -1])
+def test_lloyd_reduce_grouped_refuses_groups_below_one(group):
+    """The column walk's grouped entry takes at least one centre a block
+    (the C entry refuses less too); the wrapper raises before it looks at
+    the tensors, and counts no launch."""
+    p = torch.zeros(1, 8, 3)
+    before = lu_mod.REDUCE_GROUPED.launches
+    with pytest.raises(ValueError, match="at least one centre"):
+        lu_mod.lloyd_reduce_grouped(p, torch.ones(1, 8), torch.zeros(1, 8),
+                                    torch.zeros(1, 8, dtype=torch.int32), 2,
+                                    group)
+    assert lu_mod.REDUCE_GROUPED.launches == before
+
+
+def test_lloyd_reduce_grouped_is_an_entry_of_the_lloyd_reduce_library():
+    """The grouped entry is built into lloyd_reduce's library and counts
+    apart from lloyd_reduce, with one argument (the group) more."""
+    assert lu_mod.REDUCE_GROUPED.library == lu_mod.REDUCE.library
+    assert lu_mod.REDUCE_GROUPED.function == "lloyd_reduce_grouped_launch"
+    assert lu_mod.REDUCE_GROUPED.name != lu_mod.REDUCE.name
+    assert lu_mod.REDUCE_GROUPED not in ops.KERNELS
+    assert (lu_mod.REDUCE_GROUPED.argtypes[:-1]
+            == lu_mod.REDUCE.argtypes[:-1] + [ctypes.c_int])
+    assert lu_mod.REDUCE_GROUPED.argtypes[-1] == lu_mod.REDUCE.argtypes[-1]
+
+
+@pytest.mark.parametrize("k", [1, 2, 8, 64, 65])
+def test_ops_pass_the_rows_before_the_padding_as_live(monkeypatch, k):
+    """ops.min_dist_argmin and ops.min_dist_argmin_batched hand the kernel
+    the centres padded to the centre tile and ``live = k``: every row from
+    ``live`` on is the sentinel row, so those rows are equal bit for bit
+    and the streamed tile may take rows 0 .. live alone (what the CUDA
+    tests hold to the general tile bit for bit)."""
+    calls = []
+
+    def record(points, centers, live=None):
+        calls.append((centers.clone(), live))
+        S, M = points.shape[:2]
+        return torch.zeros(S, M), torch.zeros(S, M, dtype=torch.int32)
+
+    monkeypatch.setattr(da_mod, "distance_argmin", record)
+    monkeypatch.setattr(da_mod, "distance_argmin_batched", record)
+    # the wrappers' CUDA branch, on CPU tensors
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    rng = np.random.default_rng(k)
+    c = torch.from_numpy(rng.standard_normal((2, k, 5)).astype(np.float32))
+    p = torch.from_numpy(rng.standard_normal((2, 7, 5)).astype(np.float32))
+    ops.min_dist_argmin(p, c)
+    ops.min_dist_argmin(p[0], c[0])
+    ops.min_dist_argmin_batched(p, c)
+    assert len(calls) == 3
+    for padded, live in calls:
+        assert live == k
+        assert padded.shape[1] == -(-k // da_mod.center_tile(k)) * \
+            da_mod.center_tile(k)
+        assert torch.equal(padded[:, :k], c[:padded.shape[0]])
+        assert bool((padded[:, k:] == ref.CENTER_SENTINEL).all())
