@@ -199,8 +199,8 @@ Phases (any failed check raises, and the script exits non-zero):
    gradient leaf (to 1e-4 of its largest) and the params after the step
    under the CPU tests' rules -- and for llama3-8b reduced ``microbatches=2`` and 30 steps with bf16
    params and an f32 master (the loss falls, per-step losses within 2e-2
-   of the CPU's); (b) llama3-8b at its published widths cut to 8 layers
-   (2.80B params; whole it needs 128 GB of f32 state): a bigram pool of
+   of the CPU's); (b) llama3-8b at its published widths cut to 4 layers
+   (1.92B params; whole it needs 128 GB of f32 state): a bigram pool of
    512 examples of 2,048 tokens embedded with its table and selected by
    ``select_coreset`` (k = 8, t = 0.25 of the pool: the one-centre kernel,
    the streamed tile at d = 4,096 and ``lloyd_reduce`` launch here), 3
@@ -212,9 +212,27 @@ Phases (any failed check raises, and the script exits non-zero):
    loss and gradients held against the CPU (to 1e-5 and 1e-2: its SSD's
    f32 exponents at these widths), then 5 bf16 steps whose loss falls.
 
+16. The launchers (``repro_torch.launch``): (a) ``launch.train.main`` as a
+   user calls it -- llama3-8b at its published widths cut to 2 layers,
+   2 steps of 2 x 2,048 tokens on the set its ``--data-selection
+   coreset`` keeps (the selection's launches held as phase 15 (b)'s, and
+   the one-centre kernel, the streamed tile and ``lloyd_reduce`` held
+   against their plain versions on its embeddings at d = 4,096; step
+   walls, tokens/s, losses); (b) the trainer on mamba2-370m reduced as
+   its own process under ``ft.Supervisor``, crashing at
+   ``REPRO_FAIL_AT_STEP``, restarted, resumed from its checkpoint, its
+   final checkpoint bit-equal to an uninterrupted run's; (c) ``--mesh
+   2x1``, two gloo ranks sharing the card, against one process with two
+   microbatches on the same global batch; (d) ``launch.serve.main``; (e)
+   ``launch.dryrun.run_cell`` for llama3-8b's three cells on the
+   single-pod mesh and gemma3-27b's ``long_500k`` (meta tensors, a host
+   process of its own started before phase 14): bytes, terms and fits
+   against the card's figures.
+
 Every bound is ``repro_torch.roofline.work``'s on the card's data-sheet
 figures (``roofline.report.detect``). It prints a ``{"kernels": [...]}``
-line (each entry also with its launches on phases 9, 10, 11, 12 and 15), the
+line (each entry also with its launches on phases 9, 10, 11, 12, 15 and
+16), the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2560,11 +2578,11 @@ TRAIN_BF16_STEPS = 30
 TRAIN_BF16_LOSS_RTOL = 2e-2
 # (b) llama3-8b at its published widths cut to TRAIN_FULL_LAYERS layers
 # (8.03B params x 16 bytes of f32 params, gradients and AdamW moments is
-# 128 GB; 8 layers are 2.80B params, 44.7 GB), B x L tokens a step, remat
+# 128 GB; 4 layers are 1.92B params, 30.8 GB), B x L tokens a step, remat
 # "full" and the chunked loss; the launcher's selection of its training
 # set (src/repro/launch/train.py:157-193): a bigram pool of 512 examples
 # on max(data axis, 2) = 2 sites, k = 8, t = 0.25 of the pool
-TRAIN_FULL_LAYERS = 8
+TRAIN_FULL_LAYERS = 4
 TRAIN_FULL_B, TRAIN_FULL_L, TRAIN_FULL_STEPS = 2, 2048, 3
 TRAIN_LOSS_CHUNK = 512
 TRAIN_POOL, TRAIN_SITES = 512, 2
@@ -2989,7 +3007,7 @@ def phase15(seed, dev, smi, counts, digests, checks, get=None):
     """Training and LM serving (``repro_torch.train``, ``optim``,
     ``checkpoint``, ``serve.engine``, ``data.BigramLM``): (a) the reduced
     configs, CUDA against the CPU; (b) llama3-8b at its published widths,
-    8 layers, trained on a coreset-selected set, its checkpoint restored
+    4 layers, trained on a coreset-selected set, its checkpoint restored
     bit-equal; (c) the slot engine on llama3-8b whole; (d) mamba2-370m
     whole. ``checks`` are phase 2's kernel checks (``main``'s dict).
     ``get`` replaces ``configs.get`` (a CPU rehearsal passes the reduced
@@ -3008,6 +3026,364 @@ def phase15(seed, dev, smi, counts, digests, checks, get=None):
            "train_ssd": train_ssd(seed, dev, smi, digests, get),
            "wall_s": round(time.perf_counter() - t_phase, 2)}
     print(f"phase 15: {json.dumps(out)}")
+    return total
+
+
+# -- phase 16: the launchers ---------------------------------------------------
+# (a) the training launcher as a user calls it: llama3-8b at its published
+# widths with the depth cut to 2 layers (1.49B params), 2 steps of 2 x
+# 2,048 tokens on the set its own coreset selection keeps (a bigram pool
+# of 512 examples on 2 sites, k = 8, t = 0.25 of the pool)
+LAUNCH_TRAIN_ARGV = ["--arch", "llama3_8b", "--layers", "2", "--batch", "2",
+                     "--seq", "2048", "--steps", "2",
+                     "--data-selection", "coreset"]
+# (b) a reduced config under ft.Supervisor: the first process crashes at
+# step FT_FAIL_AT, the restart resumes from the checkpoint of step 3
+FT_ARGV = ["--arch", "mamba2_370m", "--reduced", "--steps", "8",
+           "--batch", "4", "--seq", "64", "--ckpt-every", "3",
+           "--log-every", "1"]
+FT_FAIL_AT = 5
+# (c) two gloo ranks sharing the card against one process with two
+# microbatches on the same global batch
+MESH_ARGV = ["--arch", "llama3_8b", "--reduced", "--steps", "4",
+             "--batch", "4", "--seq", "64", "--log-every", "1"]
+# (e) the dry run's cells: llama3-8b's three on the single-pod mesh and
+# one long-context decode
+DRYRUN_CELLS = (("llama3_8b", "train_4k"), ("llama3_8b", "prefill_32k"),
+                ("llama3_8b", "decode_32k"), ("gemma3_27b", "long_500k"))
+# the dry run runs on the host (meta tensors, nothing on the card): a
+# process of its own started before phase 14, read in phase 16
+DRYRUN_CHILD = """
+import json, sys
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun
+from repro_torch.roofline.report import Hardware
+hw = Hardware(**json.loads(sys.argv[1]))
+out = {}
+for arch, shape in json.loads(sys.argv[2]):
+    out[f"{arch} {shape}"] = dryrun.run_cell(arch, shape, "single", "",
+                                             verbose=False, hardware=hw)
+with open(sys.argv[3], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def launcher_env(**extra):
+    """A launcher process's environment: the checkout's ``src`` on its
+    path and one PYTHONHASHSEED (``BigramLM`` hashes a string, which
+    Python salts per process)."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    return {**os.environ, "PYTHONPATH": src, "PYTHONHASHSEED": "0",
+            **extra}
+
+
+class FailOnce(dict):
+    """An environment whose REPRO_FAIL_AT_STEP reaches only the first
+    process started with it (``subprocess`` reads ``env.items()`` once
+    per start): the restarted trainer runs clean, as after a node
+    failure."""
+
+    def items(self):
+        out = list(super().items())
+        self.pop("REPRO_FAIL_AT_STEP", None)
+        return out
+
+
+def dryrun_start(hw, tmp):
+    """Start the dry run of DRYRUN_CELLS for the card ``hw``; returns
+    (process, the file it writes)."""
+    path = os.path.join(tmp, "dryrun.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD,
+         json.dumps(dataclasses.asdict(hw)), json.dumps(DRYRUN_CELLS), path],
+        env=launcher_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, path
+
+
+def final_checkpoint(ckpt, cfg):
+    """The last checkpoint of a launcher run (params and AdamW state),
+    restored onto the CPU: (step, leaves)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.checkpoint import restore
+    from repro_torch.models import param_spec
+    from repro_torch.optim import adamw
+    shapes = param_spec(cfg)
+    tree, step = restore(ckpt, target=(shapes, adamw.init(shapes)),
+                         shardings="cpu")
+    return step, tree_mod.leaves(tree)
+
+
+def launch_train_full(dev, smi, counts, total, checks):
+    """Phase 16 (a): ``launch.train.main`` at llama3-8b's widths, 2
+    layers, with --data-selection coreset. The selection's launches are
+    held as phase 15 (b)'s, and the one-centre kernel, the streamed tile
+    and lloyd_reduce against their plain versions on its embeddings; the
+    losses are finite. Returns the numbers it prints."""
+    from repro_torch.launch import train as launch_train
+    seen, walls = {}, []
+    real = {k: getattr(launch_train, k) for k in
+            ("select_coreset", "embed_examples", "make_train_step")}
+
+    def select(*a, **kw):
+        seen["sel"], seen["t"] = real["select_coreset"](*a, **kw), kw["t"]
+        return seen["sel"]
+
+    def embed(*a, **kw):
+        seen["emb"] = real["embed_examples"](*a, **kw)
+        return seen["emb"]
+
+    def timed(cfg, tc, grad_sync=None):
+        step = real["make_train_step"](cfg, tc, grad_sync)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            walls.append(round(time.perf_counter() - t, 4))
+            return out
+        return run
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launch_train.select_coreset, launch_train.embed_examples = select, embed
+    launch_train.make_train_step = timed
+    t0 = time.perf_counter()
+    try:
+        log, n_sel, by_sel = _launched(counts, total, lambda: launch_train.main(
+            LAUNCH_TRAIN_ARGV + ["--device", str(dev)]))
+    finally:
+        for k, v in real.items():
+            setattr(launch_train, k, v)
+    wall = time.perf_counter() - t0
+    emb = seen["emb"]
+    mask = torch.ones(emb.shape[:2], dtype=torch.bool, device=emb.device)
+    mass = check_selection("phase 16 (a)", seen["sel"], n_sel, by_sel,
+                           seen["t"], emb.shape[1])
+    checks["distance"]("phase 16 selection seeding (one centre)", emb,
+                       checks["rows"](emb, 1))
+    c8 = checks["rows"](emb, SELECT_K)
+    checks["distance"]("phase 16 selection", emb, c8)
+    checks["lloyd"]("phase 16 selection", emb, c8, mask.float())
+    losses = [m["loss"] for m in log]
+    check(len(log) == 2 and all(math.isfinite(x) for x in losses)
+          and all(math.isfinite(m["grad_norm"]) for m in log),
+          f"phase 16 (a): metrics {log}")
+    tokens = int(LAUNCH_TRAIN_ARGV[LAUNCH_TRAIN_ARGV.index("--batch") + 1]) \
+        * int(LAUNCH_TRAIN_ARGV[LAUNCH_TRAIN_ARGV.index("--seq") + 1])
+    row = {"argv": " ".join(LAUNCH_TRAIN_ARGV), "embeddings":
+           list(emb.shape), "t": seen["t"], "mass": mass,
+           "selection_launches": n_sel, "selection_by_kernel": by_sel,
+           "step_s": walls, "tokens_per_s": [round(tokens / w, 1)
+                                             for w in walls],
+           "losses": losses, "wall_s": round(wall, 3),
+           "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3)}
+    del seen, emb, mask, c8
+    torch.cuda.empty_cache()
+    print(f"  (a) launch.train {row['argv']} ({smi}): selection "
+          f"{json.dumps(n_sel)}, by kernel {json.dumps(by_sel)}, kernels "
+          f"held against their plain versions on its {row['embeddings']} "
+          f"embeddings; steps {walls} s ({row['tokens_per_s']} tokens/s), "
+          f"losses {[round(x, 4) for x in losses]}, wall {row['wall_s']} s, "
+          f"peak {row['peak_gib']:.2f} GiB")
+    return row
+
+
+def launch_ft_and_mesh(dev, smi, get=None):
+    """Phase 16 (b) and (c): the supervised crash and resume, its final
+    checkpoint bit-equal to an uninterrupted run's (each its own
+    process); ``--mesh 2x1`` as two gloo ranks sharing the card against
+    one process with ``--microbatches 2`` on the same global batch. The
+    uninterrupted and the microbatched runs go alongside."""
+    import tempfile
+    import threading
+    from repro_torch import configs
+    from repro_torch.launch import ft
+    from repro_torch.launch import train as launch_train
+    rules = train_rules()
+    get = get or configs.get_reduced
+    cmd = [sys.executable, "-m", "repro_torch.launch.train"]
+    row = {}
+    with tempfile.TemporaryDirectory(prefix="phase16-") as tmp:
+        ft_argv = cmd + FT_ARGV + ["--device", str(dev)]
+        alongside = {
+            "whole": subprocess.Popen(
+                ft_argv + ["--ckpt-dir", f"{tmp}/whole", "--metrics-out",
+                           f"{tmp}/whole.json"], env=launcher_env(),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            "mb2": subprocess.Popen(
+                cmd + MESH_ARGV + ["--device", str(dev), "--microbatches",
+                                   "2", "--ckpt-dir", f"{tmp}/mb2",
+                                   "--metrics-out", f"{tmp}/mb2.json"],
+                env=launcher_env(), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)}
+        sup = ft.Supervisor(
+            ft_argv + ["--ckpt-dir", f"{tmp}/sup", "--heartbeat",
+                       f"{tmp}/hb.json", "--metrics-out", f"{tmp}/sup.json"],
+            ft.SupervisorConfig(heartbeat_path=f"{tmp}/hb.json",
+                                heartbeat_timeout_s=300.0, backoff_s=0.5),
+            env=FailOnce(launcher_env(REPRO_FAIL_AT_STEP=str(FT_FAIL_AT))))
+        supervised = {}
+
+        def supervise():
+            t = time.perf_counter()
+            supervised["ret"] = sup.run()
+            row["supervised_s"] = round(time.perf_counter() - t, 3)
+
+        # the supervisor waits on its processes: a thread of its own while
+        # this one drives the two ranks
+        thread = threading.Thread(target=supervise)
+        thread.start()
+        try:
+            t = time.perf_counter()
+            two = launch_train.main(MESH_ARGV + [
+                "--device", str(dev), "--mesh", "2x1", "--ckpt-dir",
+                f"{tmp}/two"])
+            row["mesh_2x1_s"] = round(time.perf_counter() - t, 3)
+            thread.join(timeout=900)
+            check(not thread.is_alive() and supervised.get("ret") == 0
+                  and sup.restarts == 1
+                  and sup.events == ["restart-1(ret=42)", "clean-exit"],
+                  f"phase 16 (b): supervisor {supervised}, events "
+                  f"{sup.events}")
+            for name, p in alongside.items():
+                out, _ = p.communicate(timeout=900)
+                check(p.returncode == 0, f"phase 16: the {name} run failed "
+                      f"({p.returncode}):\n{out[-3000:]}")
+        finally:
+            thread.join(timeout=900)
+            for p in alongside.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        steps = int(FT_ARGV[FT_ARGV.index("--steps") + 1])
+        with open(f"{tmp}/sup.json") as f:
+            resumed = json.load(f)
+        with open(f"{tmp}/whole.json") as f:
+            whole = {m["step"]: m for m in json.load(f)}
+        with open(f"{tmp}/hb.json") as f:
+            beat = json.load(f)["step"]
+        cfg = get("mamba2_370m")
+        (s1, got), (s2, want) = (final_checkpoint(f"{tmp}/sup", cfg),
+                                 final_checkpoint(f"{tmp}/whole", cfg))
+        check(s1 == s2 == steps and beat == steps - 1
+              and resumed[0]["step"] == 3 and resumed[-1]["step"] == steps - 1
+              and all(m == whole[m["step"]] for m in resumed),
+              f"phase 16 (b): resumed at {resumed[0]['step']}, steps "
+              f"{s1} / {s2}, heartbeat {beat}")
+        check(len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want)),
+            "phase 16 (b): the resumed run's final checkpoint differs from "
+            "the uninterrupted run's")
+        row["resumed_from"] = resumed[0]["step"]
+        row["checkpoint_digest"] = digest(*got)
+        with open(f"{tmp}/mb2.json") as f:
+            mb2 = json.load(f)
+        worst = 0.0
+        for a, b in zip(two, mb2):
+            check(a.keys() == b.keys() and a["step"] == b["step"],
+                  f"phase 16 (c): {a} against {b}")
+            for k in a:
+                err = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                worst = max(worst, err)
+                check(err <= rules.LOSS_RTOL or abs(a[k] - b[k]) <= 1e-7,
+                      f"phase 16 (c) step {a['step']} {k}: 2x1 {a[k]}, "
+                      f"1x1 with 2 microbatches {b[k]}")
+        check(len(two) == len(mb2) == int(
+            MESH_ARGV[MESH_ARGV.index("--steps") + 1]),
+            f"phase 16 (c): {len(two)} and {len(mb2)} steps logged")
+        llama = get("llama3_8b")
+        (_, p2), (_, p1) = (final_checkpoint(f"{tmp}/two", llama),
+                            final_checkpoint(f"{tmp}/mb2", llama))
+        gap = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(p2, p1))
+        row.update(mesh_worst_metric_rtol=worst, mesh_params_max_diff=gap,
+                   mesh_bit_equal=gap == 0.0 and worst == 0.0)
+    print(f"  (b) launch.train under ft.Supervisor ({smi}): crashed at step "
+          f"{FT_FAIL_AT}, restarted, resumed from step {row['resumed_from']}"
+          f", finished in {row['supervised_s']} s; final checkpoint bit-equal"
+          f" to the uninterrupted run's ({row['checkpoint_digest']})")
+    print(f"  (c) --mesh 2x1, two gloo ranks on the card, against 1x1 with "
+          f"2 microbatches: metrics worst rtol {worst:.3g}, params max |diff|"
+          f" {gap:.3g} (bit-equal {row['mesh_bit_equal']}), "
+          f"{row['mesh_2x1_s']} s")
+    return row
+
+
+def launch_serve_main(dev, smi):
+    """Phase 16 (d): ``launch.serve.main`` on the card: the reference's
+    request count and output lengths, tokens in the vocabulary."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+    t = time.perf_counter()
+    done = launch_serve.main(["--device", str(dev)])
+    wall = time.perf_counter() - t
+    vocab = configs.get_reduced("llama3_8b").vocab_size
+    check(len(done) == 6 and all(len(r.out) == 8 + 16 for r in done)
+          and all(0 <= int(r.out.min()) and int(r.out.max()) < vocab
+                  for r in done),
+          f"phase 16 (d): {[len(r.out) for r in done]}")
+    print(f"  (d) launch.serve.main ({smi}): 6 requests x 16 new tokens, "
+          f"wall {wall:.3f} s")
+    return {"requests": len(done), "wall_s": round(wall, 3)}
+
+
+def launch_dryrun_read(proc, path, hw, smi):
+    """Phase 16 (e): the dry run's cells (started before phase 14): each
+    reports, its bytes and terms printed, fits taken against ``hw``."""
+    out, _ = proc.communicate(timeout=1200)
+    check(proc.returncode == 0, f"phase 16 (e): the dry run failed "
+          f"({proc.returncode}):\n{out[-3000:]}")
+    with open(path) as f:
+        cells = json.load(f)
+    check(list(cells) == [f"{a} {s}" for a, s in DRYRUN_CELLS],
+          f"phase 16 (e): cells {list(cells)}")
+    rows = {}
+    for name, r in cells.items():
+        peak = (r["temp_bytes"] + r["arg_bytes"] + r["out_bytes"]
+                - r["alias_bytes"])
+        check(r["status"] == "ok" and r["hlo_dot_flops"] > 0
+              and r["arg_bytes"] > 0 and r["hardware"] == hw.name
+              and r["fits_hbm"] == (peak <= hw.memory_bytes),
+              f"phase 16 (e) {name}: {r}")
+        rows[name] = {k: r[k] for k in (
+            "arg_bytes", "out_bytes", "temp_bytes", "alias_bytes",
+            "peak_memory_bytes", "fits_hbm", "hlo_dot_flops", "ici_bytes",
+            "compute_s", "memory_s", "collective_s", "bottleneck",
+            "lower_s", "compile_s")}
+        print(f"  (e) dry run {name} on the single-pod mesh: per device "
+              f"args {r['arg_bytes'] / 1e9:.3f} GB, out "
+              f"{r['out_bytes'] / 1e9:.3f} GB, temp "
+              f"{r['temp_bytes'] / 1e9:.3f} GB, aliased "
+              f"{r['alias_bytes'] / 1e9:.3f} GB, fits {r['fits_hbm']} "
+              f"({hw.name}, {smi}); compute {r['compute_s']:.4g} s, memory "
+              f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s "
+              f"-> {r['bottleneck']}; {r['lower_s'] + r['compile_s']:.1f} s "
+              f"on the host")
+    return rows
+
+
+def phase16(seed, dev, smi, counts, checks, dry, hw, get=None):
+    """The launchers (``repro_torch.launch``): (a) the trainer at
+    llama3-8b's widths with its coreset selection, (b) the supervised
+    crash and resume, (c) two ranks, (d) the serving launcher, (e) the dry
+    run (``dry``: :func:`dryrun_start`'s process and file). ``get``
+    replaces ``configs.get_reduced`` where (b) and (c) restore their
+    checkpoints. Returns each kernel's launches in (a)."""
+    t_phase = time.perf_counter()
+    print(f"phase 16: the launchers ({smi})")
+    total = {}
+    out = {"card": smi,
+           "train": launch_train_full(dev, smi, counts, total, checks),
+           "ft_mesh": launch_ft_and_mesh(dev, smi, get),
+           "serve": launch_serve_main(dev, smi),
+           "dryrun": launch_dryrun_read(*dry, hw, smi),
+           "wall_s": round(time.perf_counter() - t_phase, 2)}
+    print(f"phase 16: {json.dumps(out)}")
     return total
 
 
@@ -4299,30 +4675,47 @@ def main(argv=None) -> int:
     del emb, sel_mask, eng13
     lap("phase 13")
 
-    # -- phase 14: the language-model stack ---------------------------------
-    torch.cuda.empty_cache()
-    phase14(args.seed, dev, smi, digests)
-    lap("phase 14")
+    # phase 16's dry run runs on the host, alongside phases 14 to 16
+    import tempfile
+    dry_tmp = tempfile.mkdtemp(prefix="phase16-dryrun-")
+    dry = dryrun_start(hw, dry_tmp)
+    try:
+        # -- phase 14: the language-model stack -----------------------------
+        torch.cuda.empty_cache()
+        phase14(args.seed, dev, smi, digests)
+        lap("phase 14")
 
-    # -- phase 15: training and LM serving ----------------------------------
-    torch.cuda.empty_cache()
-    new_paths["phase 15"] = phase15(args.seed, dev, smi,
-                                    (reset_counts, counts, route_counts),
-                                    digests, checks)
-    lap("phase 15")
+        # -- phase 15: training and LM serving ------------------------------
+        torch.cuda.empty_cache()
+        new_paths["phase 15"] = phase15(args.seed, dev, smi,
+                                        (reset_counts, counts, route_counts),
+                                        digests, checks)
+        lap("phase 15")
+
+        # -- phase 16: the launchers ----------------------------------------
+        torch.cuda.empty_cache()
+        new_paths["phase 16"] = phase16(args.seed, dev, smi,
+                                        (reset_counts, counts, route_counts),
+                                        checks, dry, hw)
+        lap("phase 16")
+    finally:
+        if dry[0].poll() is None:
+            dry[0].kill()
+            dry[0].wait()
+        shutil.rmtree(dry_tmp, ignore_errors=True)
     for phase, got in new_paths.items():
         for name in ("distance_argmin", "lloyd_stats", "weiszfeld_stats",
                      da.ONE_CENTER.name):
             if phase == "phase 10" and name == "weiszfeld_stats":
                 continue
             # the training path's selection at d = 4,096: two-pass sums
-            if phase == "phase 15" and name in ("lloyd_stats",
-                                                "weiszfeld_stats"):
+            if phase in ("phase 15", "phase 16") and name in (
+                    "lloyd_stats", "weiszfeld_stats"):
                 continue
             check(got.get(name, 0) > 0, f"{phase}: {name} never launched")
     check(new_paths["phase 10"].get("distance_argmin_batched", 0) > 0,
           "phase 10: distance_argmin_batched never launched")
-    for phase in ("phase 12", "phase 15"):
+    for phase in ("phase 12", "phase 15", "phase 16"):
         for name in ("lloyd_reduce", da.STREAM.name):
             check(new_paths[phase].get(name, 0) > 0,
                   f"{phase}: {name} never launched")
@@ -4391,8 +4784,9 @@ def main(argv=None) -> int:
     ]
     # each kernel's launches on the staged (phase 9), streaming (phase 10),
     # SPMD (phase 11: rank 0 of W = 4, k-means and k-median), WAN and
-    # selection (phase 12) and training-set selection (phase 15) paths,
-    # counted from zero around every run of those phases
+    # selection (phase 12), training-set selection (phase 15) and
+    # training-launcher (phase 16) paths, counted from zero around every run
+    # of those phases
     for entry, name in zip(kernels, (da.ONE_CENTER.name, "distance_argmin",
                                      "lloyd_stats", "weiszfeld_stats",
                                      "distance_argmin_batched",

@@ -50,6 +50,8 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def normal(key: torch.Generator, shape, dtype) -> torch.Tensor:
+    if not isinstance(key, torch.Generator):    # shapes only: nothing drawn
+        return torch.empty(shape, device=key.device, dtype=dtype)
     return torch.randn(shape, generator=key, device=key.device, dtype=dtype)
 
 

@@ -48,6 +48,13 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     return tuple(cfg.pattern[i % cfg.period] for i in range(cfg.n_layers))
 
 
+class _Shapes:
+    """Stands in for a generator where only shapes are wanted
+    (:func:`param_spec`): every draw is an empty meta tensor."""
+
+    device = torch.device("meta")
+
+
 def init_params(key: KeyLike, cfg: ModelConfig,
                 device: DeviceLike = None) -> Params:
     """Random parameters: dense weights ``normal / sqrt(d_in)``, embeddings
@@ -57,7 +64,7 @@ def init_params(key: KeyLike, cfg: ModelConfig,
     one CPU generator gives the same params on every device."""
     cfg.validate()
     dev = _device(device)
-    gen = key if isinstance(key, torch.Generator) else \
+    gen = key if isinstance(key, (torch.Generator, _Shapes)) else \
         torch.Generator(device=dev).manual_seed(int(key))
     params: Params = {
         "embed": embedding_init(gen, cfg),
@@ -68,6 +75,12 @@ def init_params(key: KeyLike, cfg: ModelConfig,
     params["layers"] = [block_init(gen, cfg, kind)
                         for kind in layer_kinds(cfg)]
     return tree_mod.map(lambda x: x.to(dev), params)
+
+
+def param_spec(cfg: ModelConfig) -> Params:
+    """The params' shapes and dtypes, nothing drawn or allocated (meta
+    tensors): the counterpart of ``jax.eval_shape`` of ``init_params``."""
+    return init_params(_Shapes(), cfg, "meta")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

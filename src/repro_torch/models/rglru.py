@@ -36,7 +36,8 @@ def rglru_init(key: torch.Generator, cfg: ModelConfig) -> Params:
     pdt, dev = _pdtype(cfg), key.device
     # Lambda init so that a^c spans ~(0.9, 0.999) as in Griffin
     u = torch.empty((w,), dtype=pdt, device=dev).uniform_(
-        0.9 ** 2, 0.999 ** 2, generator=key)
+        0.9 ** 2, 0.999 ** 2,
+        generator=key if isinstance(key, torch.Generator) else None)
     lam = torch.log(torch.exp(-torch.log(u) / (2.0 * _C)) - 1.0)
     return {
         "w_gate": dense_init(key, d, w, cfg),        # GeLU branch

@@ -3,7 +3,10 @@ microbatched gradient accumulation, remat, global-norm clip, AdamW and the
 warmup-cosine schedule.
 
 ``make_train_step(cfg, tc)`` returns ``(params, opt_state, batch, step) ->
-(params, opt_state, metrics)``. Gradients come from ``torch.autograd``
+(params, opt_state, metrics)``. With ``grad_sync`` the step hands the
+gradients and the loss metrics to it before the clip and the update, and
+goes on with what it returns: ``launch.train`` averages them over the
+ranks of a data-parallel mesh there. Gradients come from ``torch.autograd``
 through the port's ``forward``; the step then updates the params and the
 optimizer state in place and returns the same objects -- the counterpart
 of the JAX package's ``donate_argnums=(0, 1)``, without which a second
@@ -76,7 +79,7 @@ def value_and_grad(params: PyTree, tokens: torch.Tensor,
     return (loss.detach(), metrics), grads
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, grad_sync=None):
     def train_step(params: PyTree, opt_state: PyTree,
                    batch: Dict[str, torch.Tensor], step
                    ) -> Tuple[PyTree, PyTree, Dict[str, torch.Tensor]]:
@@ -109,6 +112,8 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
             for acc in grads:
                 acc.div_(n_mb)
             metrics = {k: v / n_mb for k, v in metrics.items()}
+        if grad_sync is not None:
+            grads, metrics = grad_sync(grads, metrics)
 
         lr = schedule.warmup_cosine(step, tc.peak_lr, tc.warmup_steps,
                                     tc.total_steps, device=tokens.device)

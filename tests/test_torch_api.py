@@ -32,7 +32,9 @@ PACKAGE_MODULES = ("wan.faults", "wan.schedules", "wan.runtime",
                    "models.rglru", "models.blocks", "models.model",
                    "train.loss", "train.train_step", "train.pipeline",
                    "optim.adamw", "optim.compression", "optim.schedule",
-                   "checkpoint.manager", "serve.engine")
+                   "checkpoint.manager", "serve.engine", "launch.mesh",
+                   "launch.shapes", "launch.ft", "launch.train",
+                   "launch.serve", "launch.specs", "launch.dryrun")
 
 
 def _path(mod):
@@ -104,6 +106,16 @@ def test_the_clustering_names_are_all_held():
             ("serve.engine", "generate"),
             ("serve.engine", "make_serve_steps"),
             ("serve.engine", "sample_token")} <= set(SHARED)
+    assert {("launch.mesh", "make_mesh"),
+            ("launch.mesh", "make_production_mesh"),
+            ("launch.specs", "build_cell"), ("launch.specs", "input_specs"),
+            ("launch.specs", "default_microbatches"),
+            ("launch.dryrun", "run_cell"), ("launch.dryrun", "main"),
+            ("launch.ft", "detect_straggler"),
+            ("launch.shapes", "cells_for"), ("launch.shapes", "all_cells"),
+            ("launch.train", "main"), ("launch.train", "parse_args"),
+            ("launch.train", "build_cfg"),
+            ("launch.serve", "main")} <= set(SHARED)
 
 
 @pytest.mark.parametrize("mod,name", SHARED,
@@ -216,6 +228,39 @@ def test_stream_parameters_are_the_references_in_order(cls, name):
         getattr(getattr(jstream, cls), name)).parameters)
     assert ours[:len(theirs)] == theirs, (ours, theirs)
     assert set(ours[len(theirs):]) <= {"device"}, ours
+
+
+LAUNCH_CLASSES = (("ft", "Heartbeat"), ("ft", "Supervisor"),
+                  ("ft", "SupervisorConfig"), ("specs", "Cell"),
+                  ("shapes", "ShapeSpec"))
+
+
+def _launch_methods():
+    for mod, cls in LAUNCH_CLASSES:
+        port = getattr(importlib.import_module(f"repro_torch.launch.{mod}"),
+                       cls)
+        ref = getattr(importlib.import_module(f"repro.launch.{mod}"), cls)
+        yield mod, cls, "__init__"
+        for name, f in sorted(vars(ref).items()):
+            if not name.startswith("_") and inspect.isfunction(f):
+                assert inspect.isfunction(getattr(port, name, None)), name
+                yield mod, cls, name
+
+
+LAUNCH_METHODS = list(_launch_methods())
+
+
+@pytest.mark.parametrize("mod,cls,name", LAUNCH_METHODS,
+                         ids=[f"{c}.{n}" for _, c, n in LAUNCH_METHODS])
+def test_launch_classes_take_the_references_parameters(mod, cls, name):
+    """The launchers' classes (``Heartbeat``, ``Supervisor`` and its
+    config, ``Cell``, ``ShapeSpec``): constructors and public methods
+    take the reference's parameters as a prefix."""
+    port = getattr(importlib.import_module(f"repro_torch.launch.{mod}"), cls)
+    ref = getattr(importlib.import_module(f"repro.launch.{mod}"), cls)
+    ours = list(inspect.signature(getattr(port, name)).parameters)
+    theirs = list(inspect.signature(getattr(ref, name)).parameters)
+    assert ours[:len(theirs)] == theirs, (ours, theirs)
 
 
 # -- chunk= and the torch_chunked backend ------------------------------------

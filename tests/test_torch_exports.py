@@ -1,7 +1,7 @@
 """The port's package exports against the JAX package's: for ``core``,
 ``stream``, ``serve``, ``kernels``, ``data``, ``wan``, ``roofline``,
-``configs``, ``models``, ``train``, ``optim`` and ``checkpoint`` the port's
-``__all__`` covers the reference's
+``configs``, ``models``, ``train``, ``optim``, ``checkpoint`` and
+``launch`` the port's ``__all__`` covers the reference's
 (where the reference has no ``__all__``, the functions and constants its
 package defines), except the names still to be ported, each tagged with
 the ROADMAP item that ports it, and the names with a counterpart of
@@ -10,9 +10,7 @@ import importlib
 
 import pytest
 
-# reference exports not yet ported, by ROADMAP item; the reference's
-# ``launch`` package (ROADMAP A8c) has no counterpart yet and is not in
-# PACKAGES
+# reference exports not yet ported, by ROADMAP item
 PENDING = {}
 # reference name -> (the port's name, why it differs), per package
 COUNTERPARTS = {
@@ -21,7 +19,7 @@ COUNTERPARTS = {
                          "collectives by phase as the program runs")},
 }
 PACKAGES = ("core", "stream", "serve", "kernels", "data", "wan", "roofline",
-            "configs", "models", "train", "optim", "checkpoint")
+            "configs", "models", "train", "optim", "checkpoint", "launch")
 
 
 def _pending(package):
