@@ -227,7 +227,13 @@ Phases (any failed check raises, and the script exits non-zero):
    ``launch.dryrun.run_cell`` for llama3-8b's three cells on the
    single-pod mesh and gemma3-27b's ``long_500k`` (meta tensors, a host
    process of its own started before phase 14): bytes, terms and fits
-   against the card's figures.
+   against the card's figures; (f) the trainer of (a) on a 1x2 (data,
+   model) mesh, two gloo ranks sharing the card, tensor and sequence
+   parallel over ``model``, on (a)'s selected batches: losses against
+   (a)'s, leaves held by both ranks bit-equal, step walls, each rank's
+   peak memory, param and AdamW bytes against (a)'s, staged bytes; (g)
+   (c)'s reduced run on a 2x2 mesh, four ranks, twice: losses against
+   (c)'s microbatched run, the two runs' final checkpoints digested.
 
 Every bound is ``repro_torch.roofline.work``'s on the card's data-sheet
 figures (``roofline.report.detect``). It prints a ``{"kernels": [...]}``
@@ -3115,16 +3121,23 @@ def final_checkpoint(ckpt, cfg):
     return step, tree_mod.leaves(tree)
 
 
-def launch_train_full(dev, smi, counts, total, checks):
+def launch_train_full(dev, smi, counts, total, checks, keep):
     """Phase 16 (a): ``launch.train.main`` at llama3-8b's widths, 2
     layers, with --data-selection coreset. The selection's launches are
     held as phase 15 (b)'s, and the one-centre kernel, the streamed tile
     and lloyd_reduce against their plain versions on its embeddings; the
-    losses are finite. Returns the numbers it prints."""
+    losses are finite. Returns the numbers it prints; the batches the
+    selection kept go to ``keep["batches"]`` (on the host)."""
     from repro_torch.launch import train as launch_train
     seen, walls = {}, []
     real = {k: getattr(launch_train, k) for k in
-            ("select_coreset", "embed_examples", "make_train_step")}
+            ("select_coreset", "embed_examples", "make_train_step",
+             "_coreset_pool")}
+
+    def pool(*a, **kw):
+        out = real["_coreset_pool"](*a, **kw)
+        keep["batches"] = [{k: v.cpu() for k, v in b.items()} for b in out]
+        return out
 
     def select(*a, **kw):
         seen["sel"], seen["t"] = real["select_coreset"](*a, **kw), kw["t"]
@@ -3150,7 +3163,7 @@ def launch_train_full(dev, smi, counts, total, checks):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     launch_train.select_coreset, launch_train.embed_examples = select, embed
-    launch_train.make_train_step = timed
+    launch_train.make_train_step, launch_train._coreset_pool = timed, pool
     t0 = time.perf_counter()
     try:
         log, n_sel, by_sel = _launched(counts, total, lambda: launch_train.main(
@@ -3192,12 +3205,13 @@ def launch_train_full(dev, smi, counts, total, checks):
     return row
 
 
-def launch_ft_and_mesh(dev, smi, get=None):
+def launch_ft_and_mesh(dev, smi, keep, get=None):
     """Phase 16 (b) and (c): the supervised crash and resume, its final
     checkpoint bit-equal to an uninterrupted run's (each its own
     process); ``--mesh 2x1`` as two gloo ranks sharing the card against
     one process with ``--microbatches 2`` on the same global batch. The
-    uninterrupted and the microbatched runs go alongside."""
+    uninterrupted and the microbatched runs go alongside; the
+    microbatched run's log goes to ``keep["mb2"]``."""
     import tempfile
     import threading
     from repro_torch import configs
@@ -3282,7 +3296,7 @@ def launch_ft_and_mesh(dev, smi, get=None):
         row["resumed_from"] = resumed[0]["step"]
         row["checkpoint_digest"] = digest(*got)
         with open(f"{tmp}/mb2.json") as f:
-            mb2 = json.load(f)
+            mb2 = keep["mb2"] = json.load(f)
         worst = 0.0
         for a, b in zip(two, mb2):
             check(a.keys() == b.keys() and a["step"] == b["step"],
@@ -3367,22 +3381,255 @@ def launch_dryrun_read(proc, path, hw, smi):
     return rows
 
 
-def phase16(seed, dev, smi, counts, checks, dry, hw, get=None):
+# (f) (a)'s trainer on a 1x2 mesh: two gloo ranks sharing the card, tensor
+# and sequence parallel over "model", on (a)'s selected batches; each
+# step's loss within F_LOSS_RTOL of (a)'s (both steps run the initial
+# params: the schedule's learning rate is 0 at step 0). In bf16 the
+# row-parallel sums round once from f32 where one process's GEMM rounds
+# them in its own order; the few flipped values spread through the next
+# layer's attention, and over 24 batches at these widths the two losses
+# lay 7.6e-8 to 1.8e-5 apart (scripts/torch_tp_loss_spread.py)
+F_MESH = (1, 2)
+F_LOSS_RTOL = 5e-5
+# (g) (c)'s run on a 2x2 mesh, twice, each writing its final checkpoint.
+# Steps 0 and 1 run the initial params (lr 0 at step 0): their losses are
+# held to (c)'s microbatched run's within LOSS_RTOL. Steps 2 and 3 follow
+# two updates from gradients whose model-axis partial sums were rounded
+# to bf16 per rank (the activations' dtype) where one process rounds the
+# whole sum once -- gradient norms 3e-4 apart on the CPU -- and are held
+# within G_LOSS_RTOL
+G_MESH = (2, 2)
+G_LOSS_RTOL = 1e-4
+
+
+def phase16_rank(mesh, spec):
+    """One rank of phase 16 (f) or (g) (``core.mesh.launch``'s target, a
+    spawned process): ``launch.train``'s own rank entry (``_rank``) on
+    ``spec["argv"]``, once per entry of ``spec["runs"]`` (extra argv),
+    its ``mesh_train_step`` timed step by step (walls, staged bytes, the
+    digests of the leaves of params and moments some rank beside it holds
+    too), and with ``spec["batches"]`` in place of the selection's.
+    Returns host values: per run the log, walls, staged bytes and
+    digests; this rank's peak memory and the param and AdamW state bytes
+    it held."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import tree as tree_mod
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import sharding
+    from repro_torch.models.model import shard_specs
+    cuda = mesh.device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+
+    held, runs = {}, []
+    real = launch_train.mesh_train_step
+
+    def timed(cfg, tc, mesh_, layout="tp"):
+        step = real(cfg, tc, mesh_, layout)
+        # a leaf (of params, m, v) whose shard some other rank holds too:
+        # one not cut over every axis of more than one rank
+        cut = [sharding.cut_axes(s) for s in sharding.spec_leaves(
+            shard_specs(cfg, mesh_, layout))] * 3
+        shared = [any(mesh_.shape[a] > 1 and a not in c
+                      for a in mesh_.axis_names) for c in cut]
+
+        def run(params, opt, batch, i):
+            if not held:
+                held["params"] = sum(x.nbytes for x in
+                                     tree_mod.leaves(params))
+                held["state"] = sum(x.nbytes for x in tree_mod.leaves(opt))
+            sync()
+            staged, t = mesh.staged_bytes, time.perf_counter()
+            out = step(params, opt, batch, i)
+            sync()
+            cur = runs[-1]
+            cur["walls"].append(round(time.perf_counter() - t, 4))
+            cur["staged"].append(mesh.staged_bytes - staged)
+            leaves = tree_mod.leaves((out[0], out[1]["m"], out[1]["v"]))
+            cur["digests"].append([digest(x) if keep else None
+                                   for x, keep in zip(leaves, shared)])
+            return out
+        return run
+
+    launch_train.mesh_train_step = timed
+    if spec.get("batches"):
+        batches = [{k: v.to(mesh.device) for k, v in b.items()}
+                   for b in spec["batches"]]
+        launch_train._coreset_pool = lambda *a, **kw: batches
+    args = launch_train.parse_args(spec["argv"])
+    cfg = launch_train.build_cfg(args)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    for extra in spec["runs"]:
+        runs.append({"walls": [], "staged": [], "digests": []})
+        args = launch_train.parse_args(spec["argv"] + extra)
+        runs[-1]["log"] = launch_train._rank(mesh, vars(args), cfg, None)
+    return {"coords": mesh.coords, "runs": runs, "held": held,
+            "peak": (torch.cuda.max_memory_allocated(mesh.device)
+                     if cuda else 0)}
+
+
+def _shared_leaves_equal(label, ranks, run=0):
+    """Every leaf digested (one some other rank holds too) is the same
+    bits on every rank, after every step of run ``run``."""
+    for step in range(len(ranks[0]["runs"][run]["digests"])):
+        got = [r["runs"][run]["digests"][step] for r in ranks]
+        for j, ds in enumerate(zip(*got)):
+            check(ds[0] is None or len(set(ds)) == 1,
+                  f"{label}: leaf {j} differs across ranks after step "
+                  f"{step}: {ds}")
+
+
+def launch_train_mesh(dev, smi, batches, a_row, mb2, digests, get=None):
+    """Phase 16 (f) and (g): ``launch.train``'s ranks on (data, model)
+    meshes sharing the card (``phase16_rank``). (f) llama3-8b's widths,
+    2 layers, on (a)'s selected batches at F_MESH against (a)'s losses;
+    (g) (c)'s reduced run at G_MESH twice against (c)'s microbatched run,
+    its final checkpoints digested. (g) runs beside (f), its ranks
+    launched from a thread of their own: its walls are taken beside
+    (f)'s. Returns the numbers it prints."""
+    import tempfile
+    import threading
+    from repro_torch import configs
+    from repro_torch import tree as tree_mod
+    from repro_torch.core.mesh import launch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import param_spec
+    get = get or configs.get_reduced
+    row, got = {}, {}
+
+    def run_g(tmp):
+        try:
+            t = time.perf_counter()
+            got["g"] = launch(
+                "chip_smoke:phase16_rank", G_MESH[0] * G_MESH[1],
+                ({"argv": MESH_ARGV + ["--device", str(dev), "--mesh",
+                                       "x".join(map(str, G_MESH))],
+                  "runs": [["--ckpt-dir", f"{tmp}/g{i}"]
+                           for i in range(2)]},),
+                axis_name=("data", "model"), shape=G_MESH, device=dev,
+                timeout=600)
+            got["g_wall"] = time.perf_counter() - t
+        except Exception as e:     # raised below, in this thread
+            got["g"] = e
+
+    argv = LAUNCH_TRAIN_ARGV + ["--device", str(dev), "--mesh",
+                                "x".join(map(str, F_MESH))]
+    # the ranks draw their bigram batches under (c)'s hash seed
+    with tempfile.TemporaryDirectory(prefix="phase16g-") as tmp, \
+            launch_train._hash_seed():
+        thread = threading.Thread(target=run_g, args=(tmp,))
+        thread.start()
+        try:
+            t = time.perf_counter()
+            ranks = launch("chip_smoke:phase16_rank",
+                           F_MESH[0] * F_MESH[1],
+                           ({"argv": argv, "runs": [[]],
+                             "batches": batches},),
+                           axis_name=("data", "model"), shape=F_MESH,
+                           device=dev, timeout=600)
+            wall = time.perf_counter() - t
+        finally:
+            thread.join()
+        if isinstance(got["g"], Exception):
+            raise got["g"]
+        llama = get("llama3_8b")
+        finals = [final_checkpoint(f"{tmp}/g{i}", llama) for i in range(2)]
+    log = ranks[0]["runs"][0]["log"]
+    losses = [m["loss"] for m in log]
+    errs = [abs(x - y) / abs(y) for x, y in zip(losses, a_row["losses"])]
+    check(len(losses) == len(a_row["losses"]) and all(
+        e <= F_LOSS_RTOL for e in errs),
+        f"phase 16 (f): losses {losses} against (a)'s {a_row['losses']}")
+    _shared_leaves_equal("phase 16 (f)", ranks)
+    full = param_spec(launch_train.build_cfg(
+        launch_train.parse_args(LAUNCH_TRAIN_ARGV)))
+    whole = sum(x.numel() * x.element_size() for x in tree_mod.leaves(full))
+    row["f"] = {"mesh": "x".join(map(str, F_MESH)), "losses": losses,
+                "loss_rtol": errs, "step_s": ranks[0]["runs"][0]["walls"],
+                "peak_gib": [round(r["peak"] / 2**30, 3) for r in ranks],
+                "param_gb": [round(r["held"]["params"] / 1e9, 3)
+                             for r in ranks],
+                "state_gb": [round(r["held"]["state"] / 1e9, 3)
+                             for r in ranks],
+                "a_param_gb": round(whole / 1e9, 3),
+                "a_state_gb": round(2 * whole / 1e9, 3),
+                "a_peak_gib": a_row["peak_gib"],
+                "staged_mb_per_step": [
+                    [round(b / 1e6, 1) for b in r["runs"][0]["staged"]]
+                    for r in ranks],
+                "wall_s": round(wall, 3)}
+    f = row["f"]
+    print(f"  (f) launch.train --mesh {f['mesh']} at llama3-8b's widths, 2 "
+          f"layers, two gloo ranks on the card ({smi}), on (a)'s selected "
+          f"batches: losses {[round(x, 6) for x in losses]} (rtol "
+          f"{max(errs):.3g} against (a)'s), steps {f['step_s']} s, peak "
+          f"{f['peak_gib']} GiB a rank (a: {a_row['peak_gib']} GiB), params "
+          f"{f['param_gb']} GB and AdamW state {f['state_gb']} GB a rank "
+          f"(a: {f['a_param_gb']} and {f['a_state_gb']}), staged "
+          f"{f['staged_mb_per_step']} MB a step, wall {f['wall_s']} s")
+    ranks = got["g"]
+    logs = [ranks[0]["runs"][i]["log"] for i in range(2)]
+    check(logs[0] == logs[1], f"phase 16 (g): two runs' metrics differ: "
+          f"{logs}")
+    rules = train_rules()
+    errs = []
+    for m, want in zip(logs[0], mb2):
+        err = abs(m["loss"] - want["loss"]) / abs(want["loss"])
+        errs.append(err)
+        tol = rules.LOSS_RTOL if m["step"] < 2 else G_LOSS_RTOL
+        check(m["step"] == want["step"] and err <= tol,
+              f"phase 16 (g) step {m['step']}: loss {m['loss']} against "
+              f"(c)'s microbatched {want['loss']} (tolerance {tol})")
+    check(len(logs[0]) == len(mb2) == 4, f"phase 16 (g): {len(logs[0])} "
+          f"steps logged")
+    for i in range(2):
+        _shared_leaves_equal(f"phase 16 (g) run {i}", ranks, i)
+    (s0, p0), (s1, p1) = finals
+    d0, d1 = digest(*p0), digest(*p1)
+    check(s0 == s1 == 4 and d0 == d1,
+          f"phase 16 (g): final checkpoints {s0} {d0} and {s1} {d1}")
+    digests["launch.train 2x2 final state"] = d0
+    row["g"] = {"mesh": "x".join(map(str, G_MESH)),
+                "losses": [m["loss"] for m in logs[0]], "loss_rtol": errs,
+                "step_s": ranks[0]["runs"][1]["walls"],
+                "staged_mb_per_step": [round(b / 1e6, 3) for b in
+                                       ranks[0]["runs"][1]["staged"]],
+                "final_digest": d0, "wall_s": round(got["g_wall"], 3)}
+    g = row["g"]
+    print(f"  (g) launch.train --mesh {g['mesh']} on (c)'s reduced run, four "
+          f"gloo ranks on the card ({smi}), twice, beside (f): losses "
+          f"{[round(x, 6) for x in g['losses']]} (rtol "
+          f"{[float(f'{e:.3g}') for e in errs]} against (c)'s microbatched "
+          f"run), the two runs' metrics and final states equal "
+          f"({d0}), steps {g['step_s']} s, staged "
+          f"{g['staged_mb_per_step']} MB a step, wall {g['wall_s']} s")
+    return row
+
+
+def phase16(seed, dev, smi, counts, checks, dry, hw, digests, get=None):
     """The launchers (``repro_torch.launch``): (a) the trainer at
     llama3-8b's widths with its coreset selection, (b) the supervised
     crash and resume, (c) two ranks, (d) the serving launcher, (e) the dry
-    run (``dry``: :func:`dryrun_start`'s process and file). ``get``
-    replaces ``configs.get_reduced`` where (b) and (c) restore their
-    checkpoints. Returns each kernel's launches in (a)."""
+    run (``dry``: :func:`dryrun_start`'s process and file), (f) and (g)
+    the trainer on (data, model) meshes (:func:`launch_train_mesh`; adds
+    a digest). ``get`` replaces ``configs.get_reduced`` where (b), (c)
+    and (g) restore their checkpoints. Returns each kernel's launches in
+    (a)."""
     t_phase = time.perf_counter()
     print(f"phase 16: the launchers ({smi})")
-    total = {}
+    total, keep = {}, {}
     out = {"card": smi,
-           "train": launch_train_full(dev, smi, counts, total, checks),
-           "ft_mesh": launch_ft_and_mesh(dev, smi, get),
+           "train": launch_train_full(dev, smi, counts, total, checks, keep),
+           "ft_mesh": launch_ft_and_mesh(dev, smi, keep, get),
            "serve": launch_serve_main(dev, smi),
-           "dryrun": launch_dryrun_read(*dry, hw, smi),
-           "wall_s": round(time.perf_counter() - t_phase, 2)}
+           "dryrun": launch_dryrun_read(*dry, hw, smi)}
+    out["mesh"] = launch_train_mesh(dev, smi, keep["batches"], out["train"],
+                                    keep["mb2"], digests, get)
+    out["wall_s"] = round(time.perf_counter() - t_phase, 2)
     print(f"phase 16: {json.dumps(out)}")
     return total
 
@@ -4696,7 +4943,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         new_paths["phase 16"] = phase16(args.seed, dev, smi,
                                         (reset_counts, counts, route_counts),
-                                        checks, dry, hw)
+                                        checks, dry, hw, digests)
         lap("phase 16")
     finally:
         if dry[0].poll() is None:

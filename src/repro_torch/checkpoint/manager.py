@@ -19,6 +19,13 @@ restore its own bf16 leaves either, as ``jnp.asarray`` refuses void).
 target tree, or on the devices ``shardings`` names -- the port's elastic
 case: a tree saved from the card restores onto the CPU, and the other way
 round.
+
+On a mesh of ranks (``specs``, ``mesh``: a ``core.mesh.MeshGrid`` and the
+spec tree its shards follow, ``models.shard_specs``) the files stay the
+one-process layout: ``AsyncCheckpointer.save`` gathers every full leaf
+(each rank takes part, leaf by leaf through host memory) and rank 0
+writes them, and ``restore`` cuts each rank's shard from the full leaf.
+A run saved on one mesh resumes on any other.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_mod
+from repro_torch.models import sharding
 
 PyTree = Any
 
@@ -134,13 +142,16 @@ def _placements(target: PyTree, shardings) -> List[torch.device]:
 
 def restore(root: str, step: Optional[int] = None,
             target: Optional[PyTree] = None,
-            shardings: Optional[PyTree] = None) -> Tuple[PyTree, int]:
+            shardings: Optional[PyTree] = None, specs: Optional[PyTree] = None,
+            mesh=None) -> Tuple[PyTree, int]:
     """Restore a checkpoint. ``target`` (a tree of tensors, meta tensors
     included, with the same structure) rebuilds the tree, and each leaf
     must match its target's shape and dtype. Leaves go to their target's
     device, or with ``shardings`` (one device, or a tree of devices) where
     it says -- the devices may differ from the ones that saved (elastic
-    restart)."""
+    restart). With ``mesh`` each leaf is cut to this rank's shard under
+    ``specs`` (a spec tree of ``target``'s structure, lists for its
+    tuples) before it is placed, and ``target`` holds shards."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -158,10 +169,15 @@ def restore(root: str, step: Optional[int] = None,
                          f"leaves, the target {len(want)}")
     devs = _placements(target, shardings)
     names = meta.get("dtypes", [None] * len(want))
+    cuts = ([None] * len(want) if mesh is None
+            else sharding.spec_leaves(specs))
     leaves = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        for i, (name, dev, like) in enumerate(zip(names, devs, want)):
+        for i, (name, dev, like, cut) in enumerate(zip(names, devs, want,
+                                                       cuts)):
             t = _from_numpy(data[f"leaf_{i}"], name)
+            if cut is not None:
+                t = sharding.shard_leaf(t, cut, mesh).clone()
             if isinstance(like, torch.Tensor) and (
                     t.shape != like.shape or t.dtype != like.dtype):
                 raise ValueError(
@@ -190,11 +206,15 @@ def _host_copy(x) -> torch.Tensor:
 class AsyncCheckpointer:
     """Background-thread writer: ``save`` snapshots the tree to host memory
     synchronously and enqueues the disk write. ``wait()`` drains the
-    queue; errors surface on the next call."""
+    queue; errors surface on the next call. With ``mesh`` and ``specs``
+    every rank of the mesh holds one and calls ``save`` together: the
+    full leaves are gathered and rank 0 alone writes them."""
 
-    def __init__(self, root: str, keep_last: int = 3):
+    def __init__(self, root: str, keep_last: int = 3, mesh=None,
+                 specs: Optional[PyTree] = None):
         self.root = root
         self.keep_last = keep_last
+        self.mesh, self.specs = mesh, specs
         self._q: "queue.Queue" = queue.Queue()
         self._err: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -219,6 +239,10 @@ class AsyncCheckpointer:
         if self._err is not None:
             err, self._err = self._err, None
             raise err
+        if self.mesh is not None:
+            tree = sharding.unshard(tree, self.specs, self.mesh, to="cpu")
+            if self.mesh.rank != 0:
+                return
         self._q.put((step, tree_mod.map(_host_copy, tree)))
 
     def wait(self):

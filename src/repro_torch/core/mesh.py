@@ -1,5 +1,6 @@
 """SPMD meshes over ``torch.distributed``: the port's counterpart of
-``jax.make_mesh`` plus ``shard_map`` for one named axis.
+``jax.make_mesh`` plus ``shard_map`` for one named axis, and of a mesh of
+several named axes (:class:`MeshGrid`: the trainer's (data, model)).
 
 The JAX package runs its SPMD path (``spmd_distributed_kmeans`` and the
 ring / 2-D torus collectives of ``message_passing``) as one program over
@@ -18,6 +19,13 @@ one rank of a process group, and a :class:`Mesh` names that group's axis.
   staged bytes (:attr:`Mesh.staged_bytes`). Ranks that share one GPU run
   gloo; a ``nccl`` mesh whose ranks share a device raises, it never
   switches transport on its own.
+* :class:`MeshGrid` -- several named axes over the default group, ranks
+  laid out row-major as ``jax.make_mesh`` lays out its devices (rank
+  ``d * M + m`` on a (data, model) grid). Each axis is a :class:`Mesh`
+  over a sub-group of its own (one per row and per column,
+  ``torch.distributed.new_group``), and ``world`` is every rank in that
+  order (an axis pair such as ("data", "model") jointly). ``with grid:``
+  binds every axis.
 * :func:`launch` -- start ``world_size`` ranks with the ``spawn`` start
   method (a parent that has initialised CUDA cannot fork) and a
   ``file://`` store in a temporary directory (no TCP port to collide), run
@@ -34,6 +42,8 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import importlib
+import itertools
+import math
 import multiprocessing
 import os
 import queue as queue_mod
@@ -41,7 +51,7 @@ import tempfile
 import threading
 import time
 import traceback
-from typing import Any, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -54,8 +64,10 @@ _BOUND = threading.local()
 
 @dataclasses.dataclass
 class Mesh:
-    """One named axis over the default process group, as seen from one
-    rank. ``staged_bytes`` counts the bytes a gloo mesh on a CUDA device
+    """One named axis over a process group (the default one unless
+    ``group`` is given), as seen from one rank: ``rank`` is the rank's
+    index along the axis and ``ranks`` the group's global ranks in axis
+    order (default ``0 .. size - 1``). ``staged_bytes`` counts the bytes a gloo mesh on a CUDA device
     copied between the device and pinned host memory, both ways. Inside
     ``repro_torch.roofline.record()`` every collective issued (XLA's
     ``all-gather`` and ``collective-permute``) is appended to the ledger's
@@ -67,6 +79,12 @@ class Mesh:
     rank: int
     device: torch.device
     staged_bytes: int = 0
+    group: Any = None
+    ranks: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.ranks is None:
+            self.ranks = tuple(range(self.size))
 
     @property
     def shape(self) -> dict:
@@ -112,11 +130,14 @@ class Mesh:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``(size, *x.shape)``: every rank's ``x`` in rank order (one
-        collective)."""
+        collective; bf16, which gloo does not take, travels as its bits
+        viewed as float16: a gather copies bytes)."""
+        if x.dtype == torch.bfloat16:
+            return self.all_gather(x.view(torch.float16)).view(torch.bfloat16)
         send = self._wire(x)
         out = self._wire_empty((self.size,) + tuple(x.shape), x.dtype)
-        dist.all_gather(list(out.unbind(0)), send)
-        note_collective("all-gather", tuple(range(self.size)), out.nbytes)
+        dist.all_gather(list(out.unbind(0)), send, group=self.group)
+        note_collective("all-gather", self.ranks, out.nbytes)
         return self._unwire(out)
 
     def hop(self, buf: torch.Tensor, dst: int, src: int) -> torch.Tensor:
@@ -132,6 +153,91 @@ class Mesh:
             work.wait()
         note_collective("collective-permute", (self.rank, dst), recv.nbytes)
         return self._unwire(recv)
+
+
+@dataclasses.dataclass
+class MeshGrid:
+    """Several named axes over the default process group, as seen from
+    one rank (the counterpart of ``jax.make_mesh(shape, axis_names)``):
+    global rank ``r`` sits at the row-major coordinates of ``r`` in
+    ``sizes``. ``axes[name]`` is the :class:`Mesh` of the ranks that
+    differ from this one in ``name`` alone, ``world`` the :class:`Mesh` of
+    every rank in global order (the axes jointly, the first major).
+    Build it on every rank at once (:meth:`build`): each sub-group is a
+    collective ``new_group``."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    rank: int
+    device: torch.device
+    backend: str
+    axes: Dict[str, Mesh]
+    world: Mesh
+
+    @classmethod
+    def build(cls, axis_names: Sequence[str], sizes: Sequence[int],
+              backend: str, rank: int, device: torch.device) -> "MeshGrid":
+        names, sizes = tuple(axis_names), tuple(int(n) for n in sizes)
+        world = math.prod(sizes)
+        coords = dict(zip(names, _coords(rank, sizes)))
+        axes = {}
+        for i, name in enumerate(names):
+            others = [range(n) for j, n in enumerate(sizes) if j != i]
+            # every rank creates every group, in the same order
+            for rest in itertools.product(*others):
+                members = tuple(
+                    _flat(rest[:i] + (k,) + rest[i:], sizes)
+                    for k in range(sizes[i]))
+                group = dist.new_group(list(members), backend=backend)
+                if rank in members:
+                    axes[name] = Mesh(name, backend, sizes[i], coords[name],
+                                      device, group=group, ranks=members)
+        return cls(names, sizes, rank, device, backend, axes,
+                   Mesh(",".join(names), backend, world, rank, device))
+
+    @property
+    def shape(self) -> dict:
+        """``{axis_name: size}``, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return self.world.size
+
+    @property
+    def coords(self) -> dict:
+        """This rank's index along each axis."""
+        return {n: m.rank for n, m in self.axes.items()}
+
+    @property
+    def staged_bytes(self) -> int:
+        return self.world.staged_bytes + sum(m.staged_bytes
+                                             for m in self.axes.values())
+
+    def __enter__(self) -> "MeshGrid":
+        for m in self.axes.values():
+            m.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for m in reversed(list(self.axes.values())):
+            m.__exit__(*exc)
+        return False
+
+
+def _coords(rank: int, sizes: Sequence[int]) -> Tuple[int, ...]:
+    out = []
+    for n in reversed(sizes):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def _flat(coords: Sequence[int], sizes: Sequence[int]) -> int:
+    r = 0
+    for c, n in zip(coords, sizes):
+        r = r * n + c
+    return r
 
 
 def axis(axis_name: str) -> Mesh:
@@ -194,8 +300,12 @@ def _rank_main(rank: int, spec: dict, results) -> None:
             world_size=spec["world_size"], rank=rank,
             timeout=datetime.timedelta(seconds=spec["timeout"]))
         try:
-            mesh = Mesh(spec["axis_name"], spec["backend"],
-                        spec["world_size"], rank, device)
+            if spec["shape"] is None:
+                mesh = Mesh(spec["axis_name"], spec["backend"],
+                            spec["world_size"], rank, device)
+            else:
+                mesh = MeshGrid.build(spec["axis_name"], spec["shape"],
+                                      spec["backend"], rank, device)
             fn = _resolve(spec["target"])
             with mesh:
                 out = fn(mesh, *spec["args"])
@@ -208,11 +318,16 @@ def _rank_main(rank: int, spec: dict, results) -> None:
 
 
 def launch(target: str, world_size: int, args: Sequence = (), *,
-           axis_name: str = "sites", backend: str = "gloo",
-           device: DeviceLike = None, timeout: float = 600.0) -> List[Any]:
+           axis_name: Union[str, Sequence[str]] = "sites",
+           backend: str = "gloo", device: DeviceLike = None,
+           timeout: float = 600.0,
+           shape: Optional[Sequence[int]] = None) -> List[Any]:
     """Run ``target`` (``"module:function"``, importable in a fresh
     interpreter: a ``python -c`` body is not) on ``world_size`` spawned
     ranks as ``fn(mesh, *args)`` and return the results in rank order.
+    ``mesh`` is a :class:`Mesh` of one axis; with ``shape`` (one size per
+    name of ``axis_name``, their product ``world_size``) a
+    :class:`MeshGrid`.
 
     ``device``: every rank's device (default CUDA; ``"cpu"`` explicit), or
     one without an index for ``cuda:{rank % device_count}``. ``timeout``
@@ -220,12 +335,18 @@ def launch(target: str, world_size: int, args: Sequence = (), *,
     raises here with its traceback, ranks still running after a failure or
     the deadline are killed, and nothing is carried on. Results travel by
     pickle, so return host values (numpy arrays, CPU tensors)."""
+    if shape is not None:
+        shape, axis_name = tuple(shape), tuple(axis_name)
+        if len(shape) != len(axis_name) or math.prod(shape) != world_size:
+            raise ValueError(f"mesh shape {shape} over axes {axis_name} "
+                             f"does not hold {world_size} ranks")
     devices = _rank_devices(world_size, backend, device)
     ctx = multiprocessing.get_context("spawn")
     deadline = time.monotonic() + timeout
     with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:
         spec = {"target": target, "args": tuple(args),
                 "world_size": world_size, "axis_name": axis_name,
+                "shape": shape,
                 "backend": backend, "devices": devices, "timeout": timeout,
                 "init_method": "file://" + os.path.join(tmp, "store")}
         results = ctx.Queue()

@@ -5,23 +5,28 @@
         --reduced --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/run1 \\
         [--device cpu] [--mesh 2x1]
 
-Features: data parallelism over ``--mesh Dx1`` ranks, resume from the
+Features: an arbitrary (data, model) mesh of ranks, resume from the
 latest checkpoint, async checkpointing, heartbeat for the fault-tolerance
 supervisor, failure injection (REPRO_FAIL_AT_STEP), and coreset-based data
 selection (--data-selection coreset) -- the paper's technique in the
 training data plane, on the port's kernels.
 
-The mesh. ``1x1`` runs in this process. ``Dx1`` with D > 1 starts D ranks
-through ``repro_torch.core.mesh.launch`` (gloo on the CPU and where ranks
-share a card, nccl where each rank has its own). Each rank runs the whole
-model on its B / D rows of every batch, and the train step averages the
-gradients and the loss metrics over the ranks before the clip and the
-update (``make_train_step``'s ``grad_sync``: one all-gather per dtype,
-summed in rank order), so the D ranks compute what one process computes
-on the same global batch with D microbatches. Rank 0 alone writes
-checkpoints, the heartbeat and the metrics; a rank's failure makes
-``main`` raise (a non-zero exit, which the ``Supervisor`` restarts).
-``DxM`` with M > 1 raises: the port has no tensor parallelism.
+The mesh. ``1x1`` runs in this process. ``DxM`` with more than one rank
+starts D x M ranks through ``repro_torch.core.mesh.launch`` as a
+(data, model) ``MeshGrid`` (gloo on the CPU and where ranks share a card,
+nccl where each rank has its own) and runs the train step under the
+reference's default layout (``models.sharding``, "tp"): tensor and
+sequence parallelism over ``model``, FSDP over ``data``, the batch over
+``data`` (``train_step.mesh_train_step``). Every rank starts from
+``init_params(0, cfg)`` (or the caller's state, or the checkpoint) cut to
+its shards, so every mesh starts from the 1x1 run's bits; the ranks of a
+``model`` group share their data row's B / D rows of every batch. On
+``Dx1`` the D ranks compute what one process computes on the same global
+batch with D microbatches, bit for bit. Rank 0 alone writes checkpoints
+(full leaves, gathered), the heartbeat and the metrics; a rank's failure
+makes ``main`` raise (a non-zero exit, which the ``Supervisor``
+restarts). A model the layout cannot split (``sharding.check_model``:
+MoE, SSD and RG-LRU layers with M > 1) raises before any rank starts.
 
 Batches come from ``BigramLM``, whose key hashes a string as the JAX
 package's does, and Python salts that hash per process: runs in two
@@ -52,9 +57,11 @@ from repro_torch.data import (BigramLM, embed_examples, gather_selected,
                               select_coreset)
 from repro_torch.launch.ft import Heartbeat
 from repro_torch.launch.mesh import run_device, where
-from repro_torch.models import init_params
+from repro_torch.models import init_params, sharding
+from repro_torch.models.model import shard_specs
 from repro_torch.optim import adamw
 from repro_torch.train import TrainConfig, make_train_step
+from repro_torch.train.train_step import mesh_train_step
 
 
 def parse_args(argv=None):
@@ -71,8 +78,9 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--mesh", default="1x1",
-                    help="DATAxMODEL: Dx1 runs D data-parallel ranks; "
-                         "MODEL > 1 raises (no tensor parallelism)")
+                    help="DATAxMODEL, e.g. 2x2: that many ranks, FSDP "
+                         "over DATA, tensor and sequence parallel over "
+                         "MODEL")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--heartbeat", default="")
@@ -104,41 +112,38 @@ def build_cfg(args):
 
 
 def mesh_shape(spec: str):
-    """``DxM`` as (D, M); M > 1 raises."""
+    """``DxM`` as (D, M)."""
     try:
         data, model = (int(x) for x in spec.split("x"))
     except ValueError:
-        raise ValueError(f"--mesh {spec!r} is not DATAxMODEL, e.g. 2x1"
+        raise ValueError(f"--mesh {spec!r} is not DATAxMODEL, e.g. 2x2"
                          ) from None
     if data < 1 or model < 1:
         raise ValueError(f"--mesh {spec}: sizes must be positive")
-    if model > 1:
-        raise ValueError(
-            f"--mesh {spec}: the port has no tensor parallelism -- each "
-            f"rank runs the whole model (models/sharding.py) -- so the "
-            f"model axis must be 1; use --mesh {data * model}x1 for "
-            f"data parallelism")
     return data, model
 
 
 def main(argv=None, *, state=None):
     args = parse_args(argv)
-    data_ways, _ = mesh_shape(args.mesh)
+    data_ways, model_ways = mesh_shape(args.mesh)
+    ranks = data_ways * model_ways
     dev = run_device(args.device)
     cfg = build_cfg(args)
-    if data_ways == 1:
+    if ranks == 1:
         return _train(args, cfg, dev, state)
     if args.batch % data_ways:
         raise ValueError(f"--batch {args.batch} does not split over "
-                         f"{data_ways} ranks")
+                         f"{data_ways} data ranks")
+    sharding.check_model(cfg, model_ways, args.seq)
     from repro_torch.core.mesh import launch
     if state is not None:
         state = tree_mod.map(lambda x: x.detach().cpu(), state)
     own = dev.type == "cuda" and dev.index is None \
-        and torch.cuda.device_count() >= data_ways
+        and torch.cuda.device_count() >= ranks
     with _hash_seed():
-        out = launch("repro_torch.launch.train:_rank", data_ways,
-                     (vars(args), cfg, state), axis_name="data",
+        out = launch("repro_torch.launch.train:_rank", ranks,
+                     (vars(args), cfg, state), axis_name=("data", "model"),
+                     shape=(data_ways, model_ways),
                      backend="nccl" if own else "gloo",
                      device=None if own else dev, timeout=24 * 3600.0)
     return out[0]
@@ -157,72 +162,64 @@ def _hash_seed():
 
 
 def _rank(mesh, args: dict, cfg, state):
-    """One rank of a ``Dx1`` run (``core.mesh.launch``'s target), on the
+    """One rank of a ``DxM`` run (``core.mesh.launch``'s target), on the
     parent's config."""
     if state is not None:
         state = tree_mod.map(lambda x: x.to(mesh.device), state)
     return _train(argparse.Namespace(**args), cfg, mesh.device, state, mesh)
 
 
-def mean_over(mesh):
-    """``grad_sync`` of a data-parallel mesh: every rank's gradients and
-    loss metrics averaged, one all-gather per dtype summed in rank order,
-    so every rank gets the same bits."""
-    def average(tensors):
-        out = list(tensors)
-        for dtype in sorted({t.dtype for t in out}, key=str):
-            idx = [i for i, t in enumerate(out) if t.dtype == dtype]
-            flat = torch.cat([out[i].reshape(-1) for i in idx])
-            mean = mesh.all_gather(flat).sum(0) / mesh.size
-            for i, piece in zip(idx, mean.split([out[i].numel()
-                                                 for i in idx])):
-                out[i] = piece.reshape(out[i].shape)
-        return out
-
-    def sync(grads, metrics):
-        names = sorted(metrics)
-        got = average(list(grads) + [metrics[k] for k in names])
-        return got[:len(grads)], dict(zip(names, got[len(grads):]))
-
-    return sync
-
-
 def _train(args, cfg, dev, state=None, mesh=None):
     rank = 0 if mesh is None else mesh.rank
-    ways = 1 if mesh is None else mesh.size
     tc = TrainConfig(peak_lr=args.lr, total_steps=args.steps,
                      warmup_steps=max(args.steps // 20, 5),
                      microbatches=args.microbatches, remat="full")
 
-    if state is None:
-        params = init_params(0, cfg, dev)
+    params, opt_state = (init_params(0, cfg, dev), None) if state is None \
+        else state
+    specs = state_specs = None
+    if mesh is not None:
+        specs = shard_specs(cfg, mesh)
+        state_specs = [specs, {"m": specs, "v": specs, "step": ()}]
+        params = sharding.shard(params, specs, mesh)
+        if opt_state is not None:
+            opt_state = sharding.shard(opt_state, state_specs[1], mesh)
+    if opt_state is None:
         opt_state = adamw.init(params)
-    else:
-        params, opt_state = state
     start_step = 0
     ckpt = None
     if args.ckpt_dir:
-        if rank == 0:
-            ckpt = AsyncCheckpointer(args.ckpt_dir, keep_last=3)
+        if mesh is not None or rank == 0:
+            ckpt = AsyncCheckpointer(args.ckpt_dir, keep_last=3, mesh=mesh,
+                                     specs=state_specs)
         if latest_step(args.ckpt_dir) is not None:
             (params, opt_state), start_step = restore(
-                args.ckpt_dir, target=(params, opt_state))
+                args.ckpt_dir, target=(params, opt_state), specs=state_specs,
+                mesh=mesh)
             if rank == 0:
                 print(f"[train] resumed from step {start_step}")
 
-    step_fn = make_train_step(cfg, tc, None if mesh is None
-                              else mean_over(mesh))
+    step_fn = (make_train_step(cfg, tc) if mesh is None
+               else mesh_train_step(cfg, tc, mesh))
     data = BigramLM(cfg.vocab_size, device=dev)
     hb = Heartbeat(args.heartbeat) if args.heartbeat and rank == 0 else None
     fail_at = int(os.environ.get("REPRO_FAIL_AT_STEP", "-1"))
-    rows = slice(rank * args.batch // ways, (rank + 1) * args.batch // ways)
+    data_ways = 1 if mesh is None else mesh.shape["data"]
+    with sharding.set_mesh(mesh):
+        rows = sharding.batch_rows(args.batch)
 
     sel_batches = None
     if args.data_selection == "coreset":
-        sel_batches = _coreset_pool(args, cfg, params, ways, data, dev,
+        table = params["embed"]["table"]
+        if mesh is not None:
+            table = sharding.unshard_leaf(table, specs["embed"]["table"],
+                                          mesh)
+        sel_batches = _coreset_pool(args, cfg, table, data_ways, data, dev,
                                     verbose=rank == 0)
+        del table
 
     if rank == 0:
+        ways = 1 if mesh is None else mesh.size
         print(f"[train] {ways} rank(s) on {where(dev)}", flush=True)
     metrics_log = []
     t_last = time.time()
@@ -261,18 +258,17 @@ def _train(args, cfg, dev, state=None, mesh=None):
     return metrics_log
 
 
-def _coreset_pool(args, cfg, params, data_ways, data, dev, verbose=True):
+def _coreset_pool(args, cfg, table, data_ways, data, dev, verbose=True):
     """Build a coreset-selected training set from a candidate pool
     (Algorithm 1 over example embeddings on the port's kernels; see
-    repro_torch.data.selection). The labels are gathered by the selected
-    indices, beside the tokens."""
+    repro_torch.data.selection), the embedding ``table`` whole. The
+    labels are gathered by the selected indices, beside the tokens."""
     n_sites = max(data_ways, 2)
     pool = data.batch(10_000_019, args.selection_pool, args.seq)
     per = args.selection_pool // n_sites
     site = {k: v[:per * n_sites].reshape(n_sites, per, -1)
             for k, v in pool.items()}
-    emb = embed_examples(params["embed"]["table"], site["tokens"],
-                         device=dev)
+    emb = embed_examples(table, site["tokens"], device=dev)
     mask = torch.ones(emb.shape[:2], dtype=torch.bool, device=dev)
     t = max(int(args.selection_frac * per * n_sites), 8)
     sel = select_coreset(prng.PRNGKey(1, device=dev), emb, mask, k=8, t=t,

@@ -1,7 +1,13 @@
 """Residual blocks (the port of ``repro.models.blocks``): one sequence mixer
 ("attn" | "local" | "ssd" | "rglru") plus -- for attention and RG-LRU
 blocks -- a (dense or MoE) MLP, with pre-norms and, where the config asks,
-gemma-style sandwich post-norms."""
+gemma-style sandwich post-norms.
+
+Under tensor parallelism (``sharding.model_axis()``) the residual stream,
+the norms and the residual adds hold this rank's L / M tokens: the
+sequence is all-gathered after a pre-norm and the mixer's or the MLP's
+row-parallel partial sums are reduce-scattered back (in f32, rounded
+once to the stream's dtype) before the post-norm."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -58,7 +64,7 @@ def block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Returns (x, new_cache, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = rmsnorm_apply(p["ln1"], x, cfg.rms_eps)
+    h = sharding.seq_gather(rmsnorm_apply(p["ln1"], x, cfg.rms_eps))
     if kind in ("attn", "local"):
         h, new_cache = attention_apply(p["attn"], h, positions, cfg, kind,
                                        cache)
@@ -66,16 +72,18 @@ def block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
         h, new_cache = ssd_apply(p["ssd"], h, cfg, cache)
     else:  # rglru
         h, new_cache = rglru_apply(p["rec"], h, cfg, cache)
+    h = sharding.seq_scatter(h, x.dtype)
     if cfg.post_norms:
         h = rmsnorm_apply(p["post_ln1"], h, cfg.rms_eps)
     x = sharding.constrain(x + h, "batch", "model", None)
 
     if _has_mlp(cfg, kind):
-        h = rmsnorm_apply(p["ln2"], x, cfg.rms_eps)
+        h = sharding.seq_gather(rmsnorm_apply(p["ln2"], x, cfg.rms_eps))
         if "moe" in p:
             h, aux = moe_apply(p["moe"], h, cfg)
         else:
             h = mlp_apply(p["mlp"], h, cfg)
+        h = sharding.seq_scatter(h, x.dtype)
         if cfg.post_norms:
             h = rmsnorm_apply(p["post_ln2"], h, cfg.rms_eps)
         x = sharding.constrain(x + h, "batch", "model", None)

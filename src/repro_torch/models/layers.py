@@ -17,6 +17,25 @@ Conventions, as the JAX package's:
 
 A cache passed to :func:`attention_apply` is written in place (prefill and
 decode alike) and returned.
+
+Tensor parallelism (``sharding.model_axis()`` bound: layout "tp", M > 1
+ranks on ``model``; training and scoring, no cache). The layers run on
+this rank's slices of the weights, as ``param_specs`` cuts them:
+
+* ``wq`` / ``wk`` / ``wv``, ``w_gate`` / ``w_in`` are column-parallel (this
+  rank's heads, this rank's d_ff / M columns; a bias, replicated, is
+  sliced to the same columns) and ``wo`` / ``w_out`` row-parallel: their
+  partial sums come out in f32 (bf16 operands upcast, so each product is
+  exact) for the caller to reduce-scatter over ``model`` and round once;
+* where the kv heads do not split over M (MQA, or GQA with fewer kv heads
+  than ranks) ``param_specs`` still cuts ``wk`` / ``wv``'s columns in M,
+  inside a head: the rank computes its columns, all-gathers them over
+  ``model`` and holds K and V whole (the gradient comes back summed over
+  ``model``), then takes the kv heads of its own query heads;
+* RoPE, M-RoPE and the q / k norms act on the heads a rank holds;
+* the embedding is vocab-parallel: a lookup of this rank's vocab rows
+  masked to its tokens, summed over ``model`` by the caller, and the LM
+  head gives this rank's vocab slice of the logits.
 """
 from __future__ import annotations
 
@@ -27,6 +46,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, Any]
@@ -71,8 +91,38 @@ def dense_init(key: torch.Generator, d_in: int, d_out: int,
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     y = x @ p["w"].to(x.dtype)
     if "b" in p:
-        y = y + p["b"].to(x.dtype)
+        y = y + sharding.local_slice(p["b"], y.shape[-1]).to(x.dtype)
     return y
+
+
+class _RowPartial(torch.autograd.Function):
+    """``x @ w`` in f32 from operands in the activations' dtype (each
+    product exact, the sum f32), for the caller to reduce-scatter and
+    round once; the backward is the one :func:`dense_apply`'s product has
+    (the gradient arrives in the activations' dtype: two products in it),
+    so the gradients round as one process rounds them."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype).reshape(-1, w.shape[1])
+        dx = (g @ w.t()).reshape(x.shape)
+        dw = x.reshape(-1, w.shape[0]).t() @ g
+        return dx, dw
+
+
+def _row_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel dense layer: under tensor parallelism this rank's
+    partial sum in f32 (:class:`_RowPartial`, the weight cast as
+    :func:`dense_apply` casts it), else :func:`dense_apply`."""
+    if sharding.model_axis() is None:
+        return dense_apply(p, x)
+    return _RowPartial.apply(x, p["w"].to(x.dtype))
 
 
 def rmsnorm_init(d: int, cfg: ModelConfig,
@@ -160,18 +210,51 @@ def attention_init(key: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
+def _kv_columns(p: Params, x: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """K or V's columns: this rank's where its kv heads split over the
+    model axis, else all of them (gathered over ``model`` where
+    ``param_specs`` cut them inside a head)."""
+    y = dense_apply(p, x)
+    ax = sharding.model_axis()
+    if ax is not None and cfg.n_kv_heads % ax.size \
+            and y.shape[-1] != cfg.n_kv_heads * cfg.head_dim:
+        y = sharding.gather(y, ax, -1)
+    return y
+
+
+def _own_kv_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
+    """Under tensor parallelism with K and V held whole, the kv heads of
+    this rank's query heads: a contiguous run when they group evenly,
+    else one (repeated) kv head per query head."""
+    ax = sharding.model_axis()
+    if ax is None or k.shape[2] != cfg.n_kv_heads or \
+            cfg.n_kv_heads % ax.size == 0:
+        return k, v
+    n_q = cfg.n_heads // ax.size
+    group = cfg.n_heads // cfg.n_kv_heads
+    idx = [h // group for h in range(ax.rank * n_q, (ax.rank + 1) * n_q)]
+    lo, n_kv = idx[0], idx[-1] + 1 - idx[0]
+    if n_q % n_kv == 0 and idx == [lo + j // (n_q // n_kv)
+                                   for j in range(n_q)]:
+        return k[:, :, lo:lo + n_kv], v[:, :, lo:lo + n_kv]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
+
+
 def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
          cfg: ModelConfig, kind: str):
     B, L, _ = x.shape
-    q = dense_apply(p["wq"], x).reshape(B, L, cfg.n_heads, cfg.head_dim)
-    k = dense_apply(p["wk"], x).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
-    v = dense_apply(p["wv"], x).reshape(B, L, cfg.n_kv_heads, cfg.head_dim)
+    q = dense_apply(p["wq"], x).reshape(B, L, -1, cfg.head_dim)
+    k = _kv_columns(p["wk"], x, cfg).reshape(B, L, -1, cfg.head_dim)
+    v = _kv_columns(p["wv"], x, cfg).reshape(B, L, -1, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm_apply(p["q_norm"], q, cfg.rms_eps)
         k = rmsnorm_apply(p["k_norm"], k, cfg.rms_eps)
     theta = cfg.rope_theta_local if kind == "local" else cfg.rope_theta
     q = apply_rope(q, positions, theta, cfg.mrope_sections)
     k = apply_rope(k, positions, theta, cfg.mrope_sections)
+    k, v = _own_kv_heads(k, v, cfg)
     return q, k, v
 
 
@@ -376,17 +459,16 @@ def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
             # blocks recomputed there (repro_torch.models.flash)
             from repro_torch.models.flash import flash_attention
             KV = k.shape[2]
-            qg = q.reshape(B, L, KV, cfg.n_heads // KV, cfg.head_dim)
+            qg = q.reshape(B, L, KV, q.shape[2] // KV, cfg.head_dim)
             y = flash_attention(qg, k, v, q_pos, q_pos, q_chunk,
-                                kv_chunk).reshape(B, L, cfg.n_heads,
-                                                  cfg.head_dim)
+                                kv_chunk).reshape(q.shape)
         else:
             y = _attention_rect(q, k, v, q_pos, q_pos, cfg, kv_chunk)
         if cache is not None:
             _prefill_cache(cache, k, v, q_pos, int8_cache)
 
-    y = y.reshape(B, L, cfg.n_heads * cfg.head_dim)
-    return dense_apply(p["wo"], y), cache
+    y = y.reshape(B, L, -1)
+    return _row_apply(p["wo"], y), cache
 
 
 def _prefill_cache(cache: Params, k, v, q_pos, int8_cache: bool) -> None:
@@ -430,8 +512,8 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     act = F.silu if cfg.mlp_act == "silu" else gelu
     if cfg.mlp_gated:
         g = act(dense_apply(p["w_gate"], x))
-        return dense_apply(p["w_out"], g * dense_apply(p["w_in"], x))
-    return dense_apply(p["w_out"], act(dense_apply(p["w_in"], x)))
+        return _row_apply(p["w_out"], g * dense_apply(p["w_in"], x))
+    return _row_apply(p["w_out"], act(dense_apply(p["w_in"], x)))
 
 
 # ---------------------------------------------------------------------------
@@ -445,7 +527,21 @@ def embedding_init(key: torch.Generator, cfg: ModelConfig) -> Params:
 
 def embedding_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig
                     ) -> torch.Tensor:
-    x = p["table"][tokens.long()].to(_dtype(cfg))
+    """tokens (B, L) -> (B, L, d); under tensor parallelism (B, L / M, d):
+    this rank's vocab rows looked up where they hold the token, summed
+    over ``model`` and reduce-scattered onto the sequence (every other
+    rank adds zeros, so the sum is the row itself)."""
+    ax = sharding.model_axis()
+    if ax is None:
+        x = p["table"][tokens.long()]
+    else:
+        n = p["table"].shape[0]
+        local = tokens.long() - ax.rank * n
+        mine = (local >= 0) & (local < n)
+        x = torch.where(mine[..., None], p["table"][local.clamp(0, n - 1)],
+                        0.0)
+        x = sharding.scatter(x, ax, 1)
+    x = x.to(_dtype(cfg))
     if cfg.emb_scale_by_sqrt_dim:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                              device=x.device)
@@ -454,7 +550,8 @@ def embedding_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig
 
 def lm_head_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
                   ) -> torch.Tensor:
-    """x (B, L, d) -> logits (B, L, vocab_padded) in f32."""
+    """x (B, L, d) -> logits (B, L, vocab_padded) in f32; under tensor
+    parallelism this rank's vocab slice of them."""
     logits = x.float() @ p["table"].to(x.dtype).float().T
     if cfg.final_logit_softcap > 0.0:
         c = cfg.final_logit_softcap

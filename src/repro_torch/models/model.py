@@ -9,6 +9,16 @@ continue the pattern). The JAX package stacks the same layers by period
 and run; ``repro_torch.interop.model_params`` carries them across. A cache
 is a list with one dict per layer, written in place by :func:`forward`.
 
+On a grid of ranks (``sharding.set_mesh`` of a ``core.mesh.MeshGrid``)
+``params`` are this rank's shards under :func:`shard_specs`: each
+block's are all-gathered over their FSDP axes inside the block (under
+``remat="full"`` again in its backward, so no gathered copy outlives its
+block), and under tensor parallelism the embedding, the blocks and the
+head run as ``models.layers`` and ``models.blocks`` say, the hidden
+state gathered back to the whole sequence before the head. Tensor
+parallelism covers training and scoring of attention / dense-MLP models
+(``sharding.check_model``).
+
 Works in three modes:
   * train/score:   forward(params, tokens, positions)          -> logits
   * prefill:       forward(..., cache=init_cache(...))         -> logits, cache
@@ -16,6 +26,8 @@ Works in three modes:
 """
 from __future__ import annotations
 
+import functools
+import types
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -83,6 +95,31 @@ def param_spec(cfg: ModelConfig) -> Params:
     return init_params(_Shapes(), cfg, "meta")
 
 
+def shard_specs(cfg: ModelConfig, mesh=None, layout: Optional[str] = None):
+    """``sharding.param_specs`` of ``cfg``'s params on ``mesh`` (default:
+    the bound grid, None where no grid of more than one rank is bound),
+    under ``layout`` (default: the bound one). Cached: do not modify."""
+    mesh = mesh if mesh is not None else sharding.bound_grid()
+    if mesh is None:
+        return None
+    names = sharding._axis_names(mesh)
+    return _specs(cfg, names, tuple(mesh.shape[n] for n in names),
+                  layout or sharding.current_layout())
+
+
+@functools.lru_cache(maxsize=16)
+def _specs(cfg, names, sizes, layout):
+    shape = types.SimpleNamespace(axis_names=names,
+                                  shape=dict(zip(names, sizes)))
+    return sharding.param_specs(param_spec(cfg), shape, layout)
+
+
+def _block(p, specs, x, positions, cfg, kind, cache):
+    """One block on this rank's shards ``p``: their FSDP dims gathered."""
+    return block_apply(sharding.gather_params(p, specs), x, positions, cfg,
+                       kind, cache)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Cache:
     dev = _device(device)
@@ -106,25 +143,37 @@ def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     backward instead of kept."""
     if remat not in ("none", "full"):
         raise ValueError(f"remat is 'none' or 'full', got {remat!r}")
-    x = embedding_apply(params["embed"], tokens, cfg)
+    tp = sharding.model_axis()
+    if tp is not None:
+        if cache is not None:
+            raise ValueError(f"prefill and decode under tensor parallelism "
+                             f"are {sharding.TP_LATER}")
+        sharding.check_model(cfg, tp.size, tokens.shape[1])
+    specs = shard_specs(cfg)
+    sub = (lambda k: None) if specs is None else specs.__getitem__
+    x = embedding_apply(sharding.gather_params(params["embed"], sub("embed")),
+                        tokens, cfg)
     x = sharding.constrain(x, "batch", "model", None)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     recompute = remat == "full" and torch.is_grad_enabled()
     for i, kind in enumerate(layer_kinds(cfg)):
         c = None if cache is None else cache[i]
+        spec_i = None if specs is None else specs["layers"][i]
         if recompute:
-            x, _, a = checkpoint(block_apply, params["layers"][i], x,
+            x, _, a = checkpoint(_block, params["layers"][i], spec_i, x,
                                  positions, cfg, kind, c,
                                  use_reentrant=False)
         else:
-            x, _, a = block_apply(params["layers"][i], x, positions, cfg,
-                                  kind, c)
+            x, _, a = _block(params["layers"][i], spec_i, x, positions, cfg,
+                             kind, c)
         aux_total = aux_total + a
 
-    x = rmsnorm_apply(params["final_norm"], x, cfg.rms_eps)
+    x = sharding.seq_gather(rmsnorm_apply(params["final_norm"], x,
+                                          cfg.rms_eps))
     if not head:
         return x, cache, aux_total
-    head_p = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    head_p = sharding.gather_params(params[name], sub(name))
     logits = lm_head_apply(head_p, x, cfg)
     logits = sharding.constrain(logits, "batch", None, "model")
     return logits, cache, aux_total

@@ -110,9 +110,18 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
         y = y + vals[:, :, j] * scale[:, :, j]
     y = sharding.constrain(y, "batch", "model", None)
 
-    # Switch-style load-balance aux loss
-    frac = (idx[..., 0].reshape(-1, 1) == torch.arange(
-        E, device=x.device)).float().mean(dim=0)
+    # Switch-style load-balance aux loss; with the batch split over ranks
+    # the top-1 fractions are the global batch's, and each rank's own mean
+    # probabilities make the ranks' mean the global aux loss and its
+    # gradient
+    hits = (idx[..., 0].reshape(-1, 1) == torch.arange(
+        E, device=x.device)).float()
+    ax = sharding.batch_axis()
+    if ax is None or ax.size == 1:
+        frac = hits.mean(dim=0)
+    else:
+        frac = ax.all_gather(hits.sum(dim=0)).sum(0) / (hits.shape[0]
+                                                        * ax.size)
     mean_prob = probs.reshape(-1, E).mean(dim=0)
     aux = E * torch.sum(frac * mean_prob)
     return y, aux

@@ -1,11 +1,13 @@
-"""Mesh-aware sharding rules (the port of ``repro.models.sharding``).
+"""Mesh-aware sharding rules (the port of ``repro.models.sharding``) and
+the collectives that carry them out on a mesh of ranks.
 
 ``set_mesh(mesh)`` installs a mesh for the duration of a ``with`` block;
 ``resolve``, ``spec`` and ``param_specs`` map *logical* dim names onto its
 axes exactly as the JAX package does, so a launcher can lay out a run with
 the same rules. A mesh is the port's :class:`repro_torch.core.mesh.Mesh`
-or any object with ``axis_names`` (else the keys of ``shape``) and a
-``shape`` mapping axis names to sizes.
+or :class:`~repro_torch.core.mesh.MeshGrid`, or any object with
+``axis_names`` (else the keys of ``shape``) and a ``shape`` mapping axis
+names to sizes.
 
 Logical dims:
     "batch"  -> ("pod", "data") when the mesh has a pod axis else ("data",)
@@ -21,19 +23,44 @@ Layouts:
 
 A spec is a tuple with one entry per dim (an axis name, a tuple of axis
 names, or None); ``spec`` with no mesh is ``()``, as ``PartitionSpec()``.
-``constrain`` returns its tensor unchanged: the port has no compiler that
-places tensors by annotation, and each rank of a ``Mesh`` runs the whole
-model, so on one card and on a mesh alike there is nothing to constrain.
+
+Running on a mesh. The JAX package writes the layout as annotations
+(``constrain``) and GSPMD inserts the collectives. The port has no such
+compiler: ``constrain`` returns its tensor unchanged, and the layers call
+the layout's collectives explicitly, each a no-op where no
+:class:`MeshGrid` of more than one rank is bound (so one process computes
+exactly what it computed before):
+
+* a param leaf is held as this rank's shard of the full leaf under its
+  spec (:func:`shard`, :func:`unshard`); its FSDP dims (every sharded dim
+  but a "model" one) are all-gathered where a layer uses it
+  (:func:`gather_params`), and the gather's backward sums the gradient
+  over those ranks in rank order and keeps this rank's slice (a
+  reduce-scatter): FSDP;
+* under "tp" with a model axis of M > 1 (:func:`model_axis`) the
+  residual stream holds L / M tokens (sequence parallel): a mixer or MLP
+  gathers the sequence first (:func:`seq_gather`) and reduce-scatters its
+  row-parallel partial sums after (:func:`seq_scatter`); the embedding is
+  a masked lookup of this rank's vocab rows reduce-scattered the same way,
+  and the logits are this rank's vocab slice, reduced over ``model`` by
+  the loss (:func:`all_sum`, :func:`all_max`);
+* every reduction is an all-gather followed by a sum in rank order, so a
+  replicated result is bit-equal on every rank.
 """
 from __future__ import annotations
 
 import contextlib
-import threading
-from typing import Any, Optional, Tuple
+import types
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 
-_state = threading.local()
+from repro_torch import tree as tree_mod
+
+# process-wide, not thread-local: the autograd engine runs a CUDA
+# backward -- and so a checkpointed block's recompute, with its
+# collectives -- on a thread of its own, which must see the bound mesh
+_state = types.SimpleNamespace()
 
 
 def _current_mesh():
@@ -42,6 +69,11 @@ def _current_mesh():
 
 def _current_layout() -> str:
     return getattr(_state, "layout", "tp")
+
+
+def current_layout() -> str:
+    """The bound layout ("tp" unless ``set_mesh`` said otherwise)."""
+    return _current_layout()
 
 
 @contextlib.contextmanager
@@ -88,8 +120,9 @@ def spec(*dims: Optional[str], mesh=None) -> tuple:
 
 
 def constrain(x: torch.Tensor, *dims: Optional[str]) -> torch.Tensor:
-    """Sharding constraint by logical dim names: ``x`` itself (see the
-    module docstring)."""
+    """Sharding constraint by logical dim names: ``x`` itself (the layers
+    call the layout's collectives explicitly; see the module
+    docstring)."""
     if len(dims) > x.dim():
         raise ValueError(f"{len(dims)} dims named for a {x.dim()}-d tensor")
     return x
@@ -165,3 +198,284 @@ def param_specs(params: Any, mesh, layout: Optional[str] = None):
         return tuple(resolve(d, mesh, layout) for d in fixed)
 
     return _map_with_path(one, params)
+
+
+# ---------------------------------------------------------------------------
+# Running on a mesh of ranks
+# ---------------------------------------------------------------------------
+
+# the ROADMAP item that ports tensor parallelism to the other mixers
+TP_LATER = "ROADMAP A10"
+
+
+def bound_grid():
+    """The bound mesh if it is a grid of ranks (``MeshGrid``) with more
+    than one rank, else None."""
+    mesh = _current_mesh()
+    if mesh is None or getattr(mesh, "world", None) is None \
+            or mesh.world.size == 1:
+        return None
+    return mesh
+
+
+def axis_of(grid, entry):
+    """The ``core.mesh.Mesh`` of a spec entry: one axis by name, or the
+    grid's axes jointly (``world``)."""
+    names = (entry,) if isinstance(entry, str) else tuple(entry)
+    if len(names) == 1:
+        return grid.axes[names[0]]
+    if names != tuple(grid.axis_names):
+        raise ValueError(f"axes {names} are not one axis nor the grid's "
+                         f"{grid.axis_names}")
+    return grid.world
+
+
+def model_axis():
+    """The tensor-parallel axis: ``model`` under "tp" with more than one
+    rank on it, else None."""
+    grid = bound_grid()
+    if grid is None or _current_layout() != "tp":
+        return None
+    ax = grid.axes.get("model")
+    return ax if ax is not None and ax.size > 1 else None
+
+
+def batch_axis():
+    """The axis the batch rows are split over (``resolve("batch")``), or
+    None without a grid."""
+    grid = bound_grid()
+    return None if grid is None else axis_of(grid, resolve("batch", grid))
+
+
+def batch_rows(batch: int) -> slice:
+    """This rank's rows of a global batch of ``batch`` rows."""
+    ax = batch_axis()
+    if ax is None:
+        return slice(0, batch)
+    if batch % ax.size:
+        raise ValueError(f"batch {batch} does not split over {ax.size} "
+                         f"ranks")
+    n = batch // ax.size
+    return slice(ax.rank * n, (ax.rank + 1) * n)
+
+
+def check_model(cfg, model_ways: int, seq_len: Optional[int] = None,
+                layout: str = "tp") -> None:
+    """Raise ValueError where the port cannot run ``cfg`` with tensor
+    parallelism over ``model_ways`` ranks: it covers attention and dense
+    MLP blocks whose heads, feed-forward width, padded vocab and sequence
+    split evenly."""
+    if layout != "tp" or model_ways == 1:
+        return
+    kinds = set(cfg.pattern)
+    if cfg.n_experts or kinds - {"attn", "local"}:
+        what = sorted(kinds - {"attn", "local"}) + (
+            ["moe"] if cfg.n_experts else [])
+        raise ValueError(
+            f"{cfg.name}: tensor parallelism (layout 'tp', model axis "
+            f"{model_ways}) covers attention and dense MLP blocks; its "
+            f"{'/'.join(what)} layers are {TP_LATER} -- use a model axis "
+            f"of 1 or layout 'fsdp'")
+    for what, n in (("heads", cfg.n_heads), ("d_ff", cfg.d_ff),
+                    ("padded vocab", cfg.vocab_padded),
+                    ("sequence", seq_len)):
+        if n is not None and n % model_ways:
+            raise ValueError(f"{cfg.name}: {what} {n} does not split over "
+                             f"a model axis of {model_ways}")
+
+
+# -- collectives with their gradients -----------------------------------------
+
+def _cat(stacked: torch.Tensor, dim: int) -> torch.Tensor:
+    """(n, *shape) -> the n pieces concatenated along ``dim``."""
+    return torch.cat(stacked.unbind(0), dim)
+
+
+def _reduce_slice(ax, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` summed in rank order, this rank's slice along
+    ``dim`` (a reduce-scatter)."""
+    n = x.shape[dim] // ax.size
+    got = ax.all_gather(x)
+    return got.narrow(dim + 1, ax.rank * n, n).sum(0)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _cat(ax.all_gather(x), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_slice(ctx.ax, g, ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim = ax, dim
+        return _reduce_slice(ax, x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cat(ctx.ax.all_gather(g), ctx.dim), None, None
+
+
+class _AllSum(torch.autograd.Function):
+    """Forward the sum over the axis; backward the gradient unchanged:
+    what follows is replicated over the axis, so each rank's gradient is
+    already the whole one for its own summand."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        return ax.all_gather(x).sum(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def gather(x: torch.Tensor, ax, dim: int) -> torch.Tensor:
+    """All-gather ``x`` over ``ax`` along ``dim``; the gradient is summed
+    over ``ax`` and sliced back (reduce-scatter)."""
+    return _Gather.apply(x, ax, dim % x.dim())
+
+
+def scatter(x: torch.Tensor, ax, dim: int) -> torch.Tensor:
+    """Sum the partial ``x`` over ``ax`` and keep this rank's slice along
+    ``dim`` (reduce-scatter); the gradient is all-gathered."""
+    return _Scatter.apply(x, ax, dim % x.dim())
+
+
+def all_sum(x: torch.Tensor, ax) -> torch.Tensor:
+    return _AllSum.apply(x, ax)
+
+
+def all_max(x: torch.Tensor, ax) -> torch.Tensor:
+    """The elementwise max over ``ax`` (no gradient)."""
+    return ax.all_gather(x.detach()).amax(0)
+
+
+def seq_gather(x: torch.Tensor) -> torch.Tensor:
+    """(B, L / M, ...) -> (B, L, ...) under tensor parallelism, else
+    ``x``."""
+    ax = model_axis()
+    return x if ax is None else gather(x, ax, 1)
+
+
+def seq_scatter(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A row-parallel layer's partial (B, L, ...) -> the sum's (B, L / M,
+    ...) in ``dtype`` under tensor parallelism, else ``x``."""
+    ax = model_axis()
+    return x if ax is None else scatter(x, ax, 1).to(dtype)
+
+
+def local_slice(x: torch.Tensor, n: int) -> torch.Tensor:
+    """This model rank's ``n`` entries of the last dim of a leaf that is
+    replicated over ``model`` but used beside column-parallel outputs of
+    width ``n`` (a bias); ``x`` itself where it is ``n`` wide."""
+    if x.shape[-1] == n:
+        return x
+    ax = model_axis()
+    return x.narrow(-1, ax.rank * n, n)
+
+
+# -- param trees ---------------------------------------------------------------
+
+def _sharded_dims(spec_: tuple, fsdp_only: bool):
+    """(dim, entry) of each sharded dim; with ``fsdp_only`` without the
+    tensor-parallel ("model") ones, which stay local."""
+    return [(d, e) for d, e in enumerate(spec_) if e is not None
+            and not (fsdp_only and e == "model")]
+
+
+def shard_leaf(x: torch.Tensor, spec_: tuple, grid) -> torch.Tensor:
+    """This rank's slice of the full ``x`` (a view): along a dim sharded
+    over several axes, the first is the major one."""
+    for dim, entry in _sharded_dims(spec_, False):
+        ax = axis_of(grid, entry)
+        n = x.shape[dim] // ax.size
+        x = x.narrow(dim, ax.rank * n, n)
+    return x
+
+
+def _specs_leaves(tree, specs):
+    """``specs``' leaves (tuples) beside ``tree``'s."""
+    flat, sp = tree_mod.leaves(tree), spec_leaves(specs)
+    if len(sp) != len(flat):
+        raise ValueError(f"{len(sp)} specs for {len(flat)} leaves")
+    return flat, sp
+
+
+def spec_leaves(specs) -> list:
+    """A spec tree's specs in flattening order: a spec is a tuple, so the
+    tree's nodes are dicts and lists only."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in spec_leaves(v)]
+    return [specs]
+
+
+def cut_axes(spec_: tuple, fsdp_only: bool = False) -> set:
+    """The axis names a leaf is cut over; with ``fsdp_only`` the ones its
+    FSDP dims are cut over (not a tensor-parallel "model" dim)."""
+    return {a for _, e in _sharded_dims(spec_, fsdp_only)
+            for a in ((e,) if isinstance(e, str) else e)}
+
+
+def shard(tree, specs, grid=None):
+    """This rank's shard of every leaf of the full ``tree`` under
+    ``specs`` (contiguous copies, so the full leaves can be freed); the
+    tree itself without a grid."""
+    grid = grid or bound_grid()
+    if grid is None:
+        return tree
+    flat, sp = _specs_leaves(tree, specs)
+    return tree_mod.unflatten(tree, [shard_leaf(x, s, grid).clone()
+                                     for x, s in zip(flat, sp)])
+
+
+def unshard_leaf(x: torch.Tensor, spec_: tuple, grid=None) -> torch.Tensor:
+    """The full leaf from every rank's shard ``x`` (collective: every
+    rank calls it)."""
+    grid = grid or bound_grid()
+    # the innermost entry of the cut first: the last cut, the first undone
+    for dim, entry in reversed(_sharded_dims(spec_, False)):
+        ax = axis_of(grid, entry)
+        if ax.size > 1:
+            x = _cat(ax.all_gather(x), dim)
+    return x
+
+
+def unshard(tree, specs, grid=None, to=None):
+    """The full tree from every rank's shards, leaf by leaf (moved to
+    ``to`` as each is gathered, so one full leaf at a time stays on the
+    shards' device); the tree itself without a grid."""
+    grid = grid or bound_grid()
+    if grid is None:
+        return tree
+    flat, sp = _specs_leaves(tree, specs)
+    out = []
+    for x, s in zip(flat, sp):
+        full = unshard_leaf(x, s, grid)
+        out.append(full if to is None else full.to(to))
+    return tree_mod.unflatten(tree, out)
+
+
+def gather_params(tree, specs):
+    """``tree`` (this rank's shards) with every FSDP dim gathered, the
+    tensor-parallel ones kept local; the gradient comes back
+    reduce-scattered. ``tree`` itself without a grid or specs."""
+    grid = bound_grid()
+    if grid is None or specs is None:
+        return tree
+    flat, sp = _specs_leaves(tree, specs)
+    out = []
+    for x, s in zip(flat, sp):
+        for dim, entry in reversed(_sharded_dims(s, True)):
+            ax = axis_of(grid, entry)
+            if ax.size > 1:
+                x = gather(x, ax, dim)
+        out.append(x)
+    return tree_mod.unflatten(tree, out)

@@ -97,13 +97,18 @@ def update(
     params: PyTree,
     lr: torch.Tensor,
     cfg: AdamWConfig = AdamWConfig(),
+    norm=global_norm,
 ) -> Tuple[PyTree, Dict[str, PyTree], Dict[str, torch.Tensor]]:
     """One AdamW step, in place: writes the new params into ``params``,
     the new moments, master copy and step into ``state``, and consumes
     ``grads`` (float32 gradients are overwritten). Returns (params, state,
-    metrics), the same ``params`` and ``state`` objects."""
+    metrics), the same ``params`` and ``state`` objects. ``norm`` maps the
+    gradient leaves to their global norm: on a mesh of ranks, where each
+    holds shards, the train step passes one that reduces over the ranks
+    (``train_step.mesh_train_step``), and the moments, params and decay
+    mask are the shards' own."""
     g_leaves = tree_mod.leaves(grads)
-    gnorm = global_norm(g_leaves)
+    gnorm = norm(g_leaves)
     scale = (_clip_scale(gnorm, cfg.grad_clip_norm)
              if cfg.grad_clip_norm > 0 else None)
     state["step"].add_(1)

@@ -5,7 +5,14 @@ Two evaluation paths: :func:`lm_loss` over full logits, and
 :func:`chunked_lm_loss`, which applies the LM head and the CE one sequence
 chunk at a time, recomputing each chunk's logits in the backward
 (activation checkpointing), so the (B, L, vocab) f32 logits never
-materialize."""
+materialize.
+
+Under tensor parallelism (``sharding.model_axis()``) the logits are this
+rank's vocab slice: the log-sum-exp takes its max and its sum of
+exponentials over ``model`` (all-gathered, reduced in rank order), the
+label's logit comes from the rank whose slice holds it, and the z-loss
+is taken from the same log-sum-exp, so every rank of ``model`` holds the
+same loss."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -13,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import lm_head_apply
 
@@ -21,12 +29,23 @@ def _masked_lse(logits: torch.Tensor, labels: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """log-sum-exp over the real vocab and the labels' logits, (B, L)."""
     logits = logits.float()
+    ax = sharding.model_axis()
+    n = logits.shape[-1]
+    lo = 0 if ax is None else ax.rank * n
     if cfg.vocab_padded != cfg.vocab_size:
-        pad = torch.arange(logits.shape[-1],
-                           device=logits.device) >= cfg.vocab_size
+        pad = torch.arange(lo, lo + n, device=logits.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if ax is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return lse, ll
+    m = sharding.all_max(logits.amax(-1), ax)
+    lse = m + torch.log(sharding.all_sum(
+        torch.exp(logits - m[..., None]).sum(-1), ax))
+    local = labels.long() - lo
+    ll = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    ll = sharding.all_sum(torch.where((local >= 0) & (local < n), ll, 0.0),
+                          ax)
     return lse, ll
 
 

@@ -11,6 +11,16 @@ through the port's ``forward``; the step then updates the params and the
 optimizer state in place and returns the same objects -- the counterpart
 of the JAX package's ``donate_argnums=(0, 1)``, without which a second
 copy of params and moments would have to fit beside the first.
+
+``mesh_train_step(cfg, tc, mesh, layout)`` is the step on a grid of ranks
+(``core.mesh.MeshGrid``), the counterpart of the JAX package's jitted step
+under ``set_mesh``: params and AdamW state are this rank's shards under
+``models.shard_specs``, the batch this rank's rows
+(``sharding.batch_rows``), and the model runs its layout's collectives
+(``models.sharding``). Before the update each gradient is summed over
+the ranks that computed parts of it and divided by the number of batch
+shards (:func:`_mesh_sync`), and the global norm is reduced over the
+ranks (:func:`_mesh_norm`).
 """
 from __future__ import annotations
 
@@ -20,8 +30,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import tree as tree_mod
-from repro_torch.models import forward, make_positions
+from repro_torch.models import forward, make_positions, sharding
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import shard_specs
 from repro_torch.optim import adamw, schedule
 from repro_torch.train.loss import chunked_lm_loss, lm_loss
 
@@ -51,7 +62,10 @@ def loss_fn(params: PyTree, tokens: torch.Tensor, labels: torch.Tensor,
     if tc.loss_chunk > 0:
         hidden, _, aux = forward(params, tokens, pos, cfg, remat=tc.remat,
                                  head=False)
-        head_p = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        specs = shard_specs(cfg)
+        head_p = sharding.gather_params(params[name],
+                                        specs and specs[name])
         return chunked_lm_loss(head_p, hidden, labels, cfg,
                                chunk=tc.loss_chunk, aux=aux,
                                z_coef=tc.z_coef)
@@ -79,7 +93,8 @@ def value_and_grad(params: PyTree, tokens: torch.Tensor,
     return (loss.detach(), metrics), grads
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig, grad_sync=None):
+def make_train_step(cfg: ModelConfig, tc: TrainConfig, grad_sync=None,
+                    grad_norm=adamw.global_norm):
     def train_step(params: PyTree, opt_state: PyTree,
                    batch: Dict[str, torch.Tensor], step
                    ) -> Tuple[PyTree, PyTree, Dict[str, torch.Tensor]]:
@@ -118,11 +133,111 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, grad_sync=None):
         lr = schedule.warmup_cosine(step, tc.peak_lr, tc.warmup_steps,
                                     tc.total_steps, device=tokens.device)
         params, opt_state, opt_metrics = adamw.update(
-            grads, opt_state, params, lr, tc.adamw)
+            grads, opt_state, params, lr, tc.adamw, grad_norm)
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 
     return train_step
+
+
+def mesh_train_step(cfg: ModelConfig, tc: TrainConfig, mesh,
+                    layout: str = "tp"):
+    """``make_train_step`` on the grid ``mesh`` under ``layout``: the
+    returned ``(params, opt_state, batch, step)`` takes this rank's shards
+    and batch rows, runs with the mesh bound, and updates the shards in
+    place. Raises ValueError where the layout cannot run ``cfg``
+    (``sharding.check_model``)."""
+    sharding.check_model(cfg, mesh.shape.get("model", 1), layout=layout)
+    specs = sharding.spec_leaves(shard_specs(cfg, mesh, layout))
+    step = make_train_step(cfg, tc, _mesh_sync(specs, mesh, layout),
+                           _mesh_norm(specs, mesh, layout))
+
+    def run(params, opt_state, batch, i):
+        with sharding.set_mesh(mesh, layout):
+            return step(params, opt_state, batch, i)
+
+    return run
+
+
+def _sum_axes(spec, mesh, layout):
+    """The axes over which a leaf's gradient is still to be summed: the
+    batch axes, and under "tp" the model axis where the leaf is
+    replicated over it (each rank's part is partial), less the axes its
+    FSDP gather already summed over in the backward."""
+    batch = sharding.resolve("batch", mesh, layout)
+    axes = set((batch,) if isinstance(batch, str) else batch)
+    if layout == "tp" and "model" not in spec:
+        axes.add("model")
+    axes -= sharding.cut_axes(spec, fsdp_only=True)
+    return tuple(n for n in mesh.axis_names
+                 if n in axes and mesh.shape[n] > 1)
+
+
+def _reduce(tensors, axes, n_batch):
+    """Each tensor summed over its axes (``axes[i]``: a ``core.mesh`` axis
+    or None) in rank order, then divided by ``n_batch``: one all-gather
+    per axis and dtype."""
+    out = list(tensors)
+    groups = {}
+    for i, (t, ax) in enumerate(zip(out, axes)):
+        if ax is not None:
+            groups.setdefault((id(ax), t.dtype), (ax, []))[1].append(i)
+    for ax, idx in groups.values():
+        flat = torch.cat([out[i].reshape(-1) for i in idx])
+        summed = ax.all_gather(flat).sum(0)
+        for i, piece in zip(idx, summed.split([out[i].numel()
+                                               for i in idx])):
+            out[i] = piece.reshape(out[i].shape)
+    return [t / n_batch for t in out]
+
+
+def _mesh_sync(specs, mesh, layout):
+    """``grad_sync`` on the grid: each gradient summed over
+    :func:`_sum_axes`, every gradient and loss metric divided by the
+    number of batch shards (the metrics, replicated over any other axis,
+    averaged over the batch axis) -- what one process computes with that
+    many microbatches."""
+    batch_ax = sharding.axis_of(mesh, sharding.resolve("batch", mesh,
+                                                        layout))
+    n_batch = batch_ax.size
+    batch_ax = batch_ax if n_batch > 1 else None
+    names = [_sum_axes(s, mesh, layout) for s in specs]
+    axes = [sharding.axis_of(mesh, n) if n else None for n in names]
+
+    def sync(grads, metrics):
+        keys = sorted(metrics)
+        grads = _reduce(grads, axes, n_batch)
+        got = _reduce([metrics[k] for k in keys], [batch_ax] * len(keys),
+                      n_batch)
+        return grads, dict(zip(keys, got))
+
+    return sync
+
+
+def _mesh_norm(specs, mesh, layout):
+    """The global norm of the gradients' shards: each leaf's sum of
+    squares taken from it gathered over its FSDP axes (bit for bit the
+    term one process computes), the terms of a leaf sharded over
+    ``model`` summed over it in rank order, the leaves added in
+    flattening order -- the same norm on every rank."""
+    model = (mesh.axes["model"] if layout == "tp" and
+             mesh.shape.get("model", 1) > 1 else None)
+    tp = torch.tensor(["model" in s for s in specs])
+
+    def norm(leaves):
+        terms = torch.stack([
+            torch.sum(torch.square(sharding.gather_params(g, s).to(
+                torch.float32))) for g, s in zip(leaves, specs)])
+        if model is not None:
+            every = model.all_gather(terms)
+            terms = torch.where(tp.to(terms.device), every.sum(0),
+                                every[model.rank])
+        total = terms[0]
+        for t in terms[1:]:
+            total = total + t
+        return torch.sqrt(total)
+
+    return norm
 
 
 def init_state(key, cfg: ModelConfig, tc: Optional[TrainConfig] = None,

@@ -4,9 +4,15 @@ writer, retention GC, elastic restore -- here onto other devices than the
 saving ones), bf16 and int32 leaves bit for bit, the async snapshot held
 against an in-place update made right after ``save``, and the on-disk
 layout shared with the JAX package: each restores what the other
-saved."""
+saved. Across meshes of ranks: a ``--mesh 2x2`` training run's checkpoints
+(gathered, written by rank 0) have a 1x1 run's files, shapes and dtypes,
+restore bit-equal at 1x1 and in the reference, and resume at 1x2."""
 import json
 import os
+import shutil
+import subprocess
+import sys
+import textwrap
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +24,8 @@ from repro import checkpoint as jcheckpoint
 from repro_torch import tree as tree_mod
 from repro_torch.checkpoint import (AsyncCheckpointer, gc, latest_step,
                                     restore, save, steps)
+from repro_torch.models import init_params
+from repro_torch.optim import adamw
 
 # torch runs single-threaded in these tests: with JAX's CPU runtime in the
 # same process, the two thread pools contend and torch's ops run 10-40x
@@ -200,3 +208,108 @@ def test_the_layout_is_the_references(tmp_path):
         np.asarray(a), np.asarray(b)), back, jtree)
     assert sorted(os.listdir(tmp_path / "port" / "step_00000005")) == \
         sorted(os.listdir(tmp_path / "ref" / "step_00000004"))
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MESH_ARGS = ["--arch", "llama3_8b", "--reduced", "--batch", "4", "--seq",
+             "32", "--log-every", "1", "--device", "cpu"]
+# one process under PYTHONHASHSEED 0 (every run draws the same batches),
+# the config in f32 (the ranks take the parent's), one thread a rank:
+# a 2x2 run of four steps checkpointing at 2 and 4; its step-2 checkpoint
+# resumed at 1x2; a 2x2 run of no steps (its checkpoint: the initial
+# state, gathered from the 2x2 shards) resumed at 1x2 for four steps
+# beside an uninterrupted 1x2 run; a 1x1 run of one step
+MESH_CKPT_SCRIPT = textwrap.dedent("""
+    import dataclasses, json, shutil, sys
+    from repro_torch.launch import train
+    build = train.build_cfg
+    train.build_cfg = lambda args: dataclasses.replace(build(args),
+                                                       dtype="float32")
+    argv, root = json.loads(sys.argv[1]), sys.argv[2]
+
+    def run(name, *extra, ckpt=True):
+        more = ["--ckpt-dir", f"{root}/{name}"] if ckpt else []
+        return train.main(argv + list(extra) + more)
+
+    if __name__ == "__main__":
+        out = {"2x2": run("m22", "--mesh", "2x2", "--steps", "4",
+                          "--ckpt-every", "2")}
+        shutil.copytree(f"{root}/m22/step_00000002",
+                        f"{root}/resumed/step_00000002")
+        out["resumed"] = run("resumed", "--mesh", "1x2", "--steps", "4")
+        run("init", "--mesh", "2x2", "--steps", "0")
+        shutil.copytree(f"{root}/init/step_00000000",
+                        f"{root}/from_init/step_00000000")
+        out["from_init"] = run("from_init", "--mesh", "1x2", "--steps", "4")
+        out["whole"] = run("whole", "--mesh", "1x2", "--steps", "4",
+                           ckpt=False)
+        run("one", "--steps", "1")
+        print("RUNS " + json.dumps(out))
+""")
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("mesh_ckpt")
+    env = {**os.environ, "PYTHONPATH": "src", "PYTHONHASHSEED": "0",
+           "OMP_NUM_THREADS": "1"}
+    r = subprocess.run([sys.executable, "-c", MESH_CKPT_SCRIPT,
+                        json.dumps(MESH_ARGS), str(root)], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert "RUNS " in r.stdout, r.stdout[-2000:] + r.stderr[-3000:]
+    return root, json.loads(r.stdout.split("RUNS ")[1])
+
+
+def _llama_state():
+    from repro_torch import configs
+    params = init_params(0, configs.get_reduced("llama3_8b"), "cpu")
+    return params, adamw.init(params)
+
+
+def test_a_2x2_checkpoint_has_the_1x1_layout(mesh_runs):
+    """The files of a 2x2 run's checkpoint, its leaves' paths, shapes and
+    dtypes are a 1x1 run's."""
+    root, _ = mesh_runs
+    a, b = root / "m22" / "step_00000004", root / "one" / "step_00000001"
+    assert sorted(os.listdir(a)) == sorted(os.listdir(b))
+    ma, mb = (json.loads((d / "tree.json").read_text()) for d in (a, b))
+    assert (ma["treedef"], ma["dtypes"], ma["n_leaves"]) == (
+        mb["treedef"], mb["dtypes"], mb["n_leaves"])
+    with np.load(a / "arrays.npz") as x, np.load(b / "arrays.npz") as y:
+        assert sorted(x.files) == sorted(y.files)
+        for k in x.files:
+            assert (x[k].shape, x[k].dtype) == (y[k].shape, y[k].dtype), k
+
+
+def test_a_2x2_checkpoint_restores_at_1x1_and_in_the_reference(mesh_runs):
+    """The 2x2 run's checkpoint restores at 1x1 and in the reference
+    (``repro.checkpoint.restore``, the port's tree as structure donor)
+    bit for bit alike; the checkpoint of no steps, gathered from the 2x2
+    shards, is the initial state bit for bit."""
+    root, _ = mesh_runs
+    target = _llama_state()
+    got, step = restore(str(root / "m22"), target=target)
+    back, jstep = jcheckpoint.restore(str(root / "m22"), target=target)
+    assert step == jstep == 4
+    for a, b in zip(tree_mod.leaves(got), jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert a.numpy().dtype == np.asarray(b).dtype
+    init, step = restore(str(root / "init"), target=target)
+    assert step == 0
+    _assert_trees_equal(init, target)
+
+
+def test_a_2x2_checkpoint_resumes_at_1x2(mesh_runs):
+    """The 2x2 run's step-2 checkpoint resumed at 1x2: steps 2 and 3
+    within LOSS_RTOL of the 2x2 run's own (the two meshes round their
+    sums apart); the initial state gathered from 2x2 shards and resumed
+    at 1x2 gives an uninterrupted 1x2 run's four steps bit for bit."""
+    from _train_rules import LOSS_RTOL
+    _, runs = mesh_runs
+    resumed, whole22 = runs["resumed"], runs["2x2"]
+    assert [m["step"] for m in resumed] == [2, 3]
+    for a, b in zip(resumed, whole22[2:]):
+        for k in ("loss", "ce", "z_loss"):
+            np.testing.assert_allclose(a[k], b[k], rtol=LOSS_RTOL)
+    assert len(runs["whole"]) == 4
+    assert runs["from_init"] == runs["whole"]

@@ -9,8 +9,9 @@ LOSS_RTOL; with ``--data-selection coreset`` the selected token rows and
 their labels equal the reference's, but for a centre's tied nearest
 example. ``--mesh 2x1`` (two gloo ranks) computes what one process
 computes with two microbatches on the same global batch, and matches the
-plain ``1x1`` run's loss metrics within LOSS_RTOL; ``--mesh 1x2``
-raises."""
+plain ``1x1`` run's loss metrics within LOSS_RTOL; a mesh the port cannot
+run raises before any rank starts (``--mesh DxM`` with M > 1 runs:
+``test_torch_sharded_train.py``)."""
 import dataclasses
 import json
 import os
@@ -261,13 +262,23 @@ def test_mesh_2x1_matches_1x1(tmp_path):
                                    atol=1e-7)
 
 
-def test_mesh_with_a_model_axis_raises():
-    with pytest.raises(ValueError, match="tensor parallelism"):
-        train.main(ARGS + ["--device", "cpu", "--mesh", "1x2"])
-    with pytest.raises(ValueError, match="split"):
-        train.main(ARGS + ["--device", "cpu", "--mesh", "3x1"])
-    with pytest.raises(ValueError, match="DATAxMODEL"):
-        train.mesh_shape("2")
+@pytest.mark.parametrize("argv, match", [
+    # tensor parallelism covers attention and dense MLP blocks: MoE, SSD
+    # and RG-LRU layers with a model axis > 1 name the ROADMAP item
+    (["--arch", "dbrx_132b", "--mesh", "1x2"], "ROADMAP A10"),
+    (["--arch", "granite_moe_3b_a800m", "--mesh", "2x2"], "ROADMAP A10"),
+    (["--arch", "mamba2_370m", "--mesh", "1x2"], "ROADMAP A10"),
+    (["--arch", "recurrentgemma_2b", "--mesh", "1x4"], "ROADMAP A10"),
+    (["--mesh", "3x1"], "split"),
+    (["--mesh", "2"], "DATAxMODEL"),
+    (["--mesh", "0x2"], "positive"),
+])
+def test_mesh_with_a_model_axis_raises(argv, match):
+    """Meshes the port cannot run raise ValueError before any rank
+    starts: a family tensor parallelism does not cover yet, a batch that
+    does not split over the data ranks, a malformed ``--mesh``."""
+    with pytest.raises(ValueError, match=match):
+        train.main(ARGS + ["--reduced", "--device", "cpu"] + argv)
 
 
 def test_the_default_device_is_the_card():
