@@ -1,17 +1,20 @@
 """How far a tensor-parallel forward's loss lies from one process's in bf16.
 
-llama3-8b at its published widths cut to ``--layers`` layers, B = 2 rows of
-L = 2,048 tokens per batch, on ``--batches`` bigram batches: the loss of
-the port's ``train_step.loss_fn`` in one process and on a 1x2 (data,
-model) mesh of two gloo ranks sharing the card (tensor and sequence
-parallel), and the relative difference per batch. Prints the card's name
-and power limit, then one JSON line.
+Each ``--arch`` (default llama3-8b) at its published widths cut to its
+``--layers`` layers, ``--batch`` rows of ``--seq`` tokens per batch (2 x
+2,048 by default), on ``--batches`` bigram batches: the loss of the
+port's ``train_step.loss_fn`` in one process and on a 1x2 (data, model)
+mesh of two gloo ranks sharing the card (tensor and sequence parallel;
+the MoE expert parallel), and the relative difference per batch. Prints
+the card's name and power limit, then one JSON line per architecture.
 
     PYTHONHASHSEED=0 PYTHONPATH=src python scripts/torch_tp_loss_spread.py \\
-        [--batches 24] [--layers 2] [--device cpu]
+        [--batches 24] [--arch llama3_8b] [--layers 2] [--device cpu]
 
-On the CPU pass ``--device cpu`` (and small ``--width`` and ``--seq``:
-at the published widths the params alone take 6 GB).
+Several architectures at once: ``--arch granite_moe_3b_a800m,mamba2_370m,
+recurrentgemma_2b --layers 2,4,3 --seq 1024`` (one layer count each). On
+the CPU pass ``--device cpu`` (and small ``--width`` and ``--seq``: at the
+published widths llama3-8b's params alone take 6 GB).
 """
 import argparse
 import json
@@ -33,7 +36,7 @@ def losses(device, args, mesh=None):
     from repro_torch.train import TrainConfig, train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    argv = ["--arch", "llama3_8b", "--layers", str(args.layers)]
+    argv = ["--arch", args.arch, "--layers", str(args.layers)]
     if args.width:
         argv += ["--width", str(args.width)]
     cfg = launch_train.build_cfg(launch_train.parse_args(argv))
@@ -44,7 +47,7 @@ def losses(device, args, mesh=None):
     out = []
     with sharding.set_mesh(mesh), torch.no_grad():
         for s in range(args.batches):
-            b = data.batch(s, 2, args.seq)
+            b = data.batch(s, args.batch, args.seq)
             loss, _ = train_step.loss_fn(params, b["tokens"], b["labels"],
                                          cfg, TrainConfig())
             out.append(float(loss))
@@ -58,7 +61,9 @@ def rank(mesh, args):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--batches", type=int, default=24)
-    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--arch", default="llama3_8b")
+    ap.add_argument("--layers", default="2")
+    ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--width", type=int, default=0)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--device", default="cuda")
@@ -71,16 +76,27 @@ def main(argv=None):
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip())
-    one = losses(dev, args)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    two = launch("torch_tp_loss_spread:rank", 2, (args,),
-                 axis_name=("data", "model"), shape=(1, 2),
-                 device=dev if dev.type == "cpu" else torch.device("cuda", 0),
-                 timeout=900)[0]
-    rel = [abs(a - b) / abs(a) for a, b in zip(one, two)]
-    print(json.dumps({"one": one, "two": two, "rel": rel,
-                      "max_rel": max(rel), "mean_rel": sum(rel) / len(rel)}))
+    archs = args.arch.split(",")
+    layers = args.layers.split(",")
+    if len(layers) != len(archs):
+        raise ValueError(f"{len(layers)} layer counts for {len(archs)} "
+                         f"architectures")
+    for arch, n in zip(archs, layers):
+        one_arch = argparse.Namespace(**{**vars(args), "arch": arch,
+                                         "layers": int(n)})
+        one = losses(dev, one_arch)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        two = launch("torch_tp_loss_spread:rank", 2, (one_arch,),
+                     axis_name=("data", "model"), shape=(1, 2),
+                     device=dev if dev.type == "cpu"
+                     else torch.device("cuda", 0), timeout=900)[0]
+        rel = [abs(a - b) / abs(a) for a, b in zip(one, two)]
+        print(json.dumps({"arch": arch, "layers": int(n),
+                          "batch": args.batch, "seq": args.seq,
+                          "one": one, "two": two, "rel": rel,
+                          "max_rel": max(rel),
+                          "mean_rel": sum(rel) / len(rel)}), flush=True)
 
 
 if __name__ == "__main__":

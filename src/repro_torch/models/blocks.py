@@ -6,8 +6,9 @@ gemma-style sandwich post-norms.
 Under tensor parallelism (``sharding.model_axis()``) the residual stream,
 the norms and the residual adds hold this rank's L / M tokens: the
 sequence is all-gathered after a pre-norm and the mixer's or the MLP's
-row-parallel partial sums are reduce-scattered back (in f32, rounded
-once to the stream's dtype) before the post-norm."""
+row-parallel partial sums (attention, SSD, RG-LRU, dense MLP, the MoE's
+combine over this rank's experts) are reduce-scattered back (in f32,
+rounded once to the stream's dtype) before the post-norm."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple

@@ -36,6 +36,20 @@ this rank's slices of the weights, as ``param_specs`` cuts them:
 * the embedding is vocab-parallel: a lookup of this rank's vocab rows
   masked to its tokens, summed over ``model`` by the caller, and the LM
   head gives this rank's vocab slice of the logits.
+
+The other mixers follow the same rules (their modules say how): the
+RG-LRU runs on this rank's channels (its gates read the whole ``xi``,
+all-gathered), the SSD on its heads (the packed ``in_proj`` columns,
+cut off the heads by ``param_specs``, all-gathered first), the MoE on
+its experts; each ends in a row-parallel f32 partial sum (``_row_apply``
+for ``w_out`` / ``out_proj``, the MoE's combine over its own experts).
+Two gradient traps go with them (``models.sharding``): the SSD's gated
+RMSNorm takes its mean square as a sum over ``model`` that each rank
+uses for its own channels, so its backward sums the gradient over
+``model`` as well (``sharding.all_reduce``, not ``all_sum``); and the
+MoE's load-balance loss, computed the same on every rank of ``model``
+from the gathered sequence, would send its gradient M times, so each
+rank takes its own L / M tokens' share of it.
 """
 from __future__ import annotations
 

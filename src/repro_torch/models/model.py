@@ -16,8 +16,10 @@ block's are all-gathered over their FSDP axes inside the block (under
 block), and under tensor parallelism the embedding, the blocks and the
 head run as ``models.layers`` and ``models.blocks`` say, the hidden
 state gathered back to the whole sequence before the head. Tensor
-parallelism covers training and scoring of attention / dense-MLP models
-(``sharding.check_model``).
+parallelism covers training and scoring of every family -- attention,
+dense and MoE MLPs (experts split over ``model``), SSD and RG-LRU
+mixers -- where its widths split (``sharding.check_model``); a cache
+under it is ``sharding.TP_LATER``.
 
 Works in three modes:
   * train/score:   forward(params, tokens, positions)          -> logits

@@ -14,6 +14,23 @@ semantics, accounted per row).
 Top-k breaks ties as ``jax.lax.top_k`` does, the lower expert first (a
 stable descending sort): router logits in bf16 make equal probabilities
 common.
+
+Under tensor parallelism (``sharding.model_axis()``) the experts are
+expert-parallel: ``param_specs`` gives a rank E / M of them (``d``
+FSDP over ``data``). The block has gathered the sequence, so every
+rank of ``model`` holds the same rows: each computes the routing, the
+capacity slots and the gates of every token, dispatches only the
+choices of its own experts, and returns the combine over them as a
+partial sum in f32 (bf16 operands upcast, each product exact), which the
+block reduce-scatters onto the sequence and rounds once -- the JAX
+package's all-to-all of the routed rows there and back. Experts that do
+not split over M stay whole on every rank: each computes every expert
+and returns its own L / M tokens' rows of the output (zeros elsewhere),
+so the sum over ``model`` is the output itself, not M copies. The
+load-balance loss is computed the same on every rank of ``model``, so
+its gradient would be counted M times: each rank takes the mean
+probabilities over its own L / M tokens and the partial losses are summed
+over ``model`` (``sharding.all_sum``).
 """
 from __future__ import annotations
 
@@ -80,34 +97,53 @@ def route(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, L, d) -> (y (B, L, d), aux_loss scalar f32)."""
+    """x (B, L, d) -> (y (B, L, d), aux_loss scalar f32); under tensor
+    parallelism y is this rank's partial sum in f32."""
     B, L, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = _row_capacity(L, cfg)
     probs, gate, idx, pos, keep = route(p, x, cfg)
+    w = p["experts"]
+    ax = sharding.model_axis()
+    n_local = w["w_in"].shape[0]          # E / M when expert-parallel
+    split = n_local != E
+    e0 = ax.rank * n_local if split else 0
+    if split:
+        keep = keep & (idx >= e0) & (idx < e0 + n_local)
 
     # each choice's row of the flattened (B * E * C, d) buffer; a kept
-    # choice's slot is its own, a dropped one adds zero into slot C - 1
-    slot = (torch.arange(B, device=x.device)[:, None, None] * E + idx) * C \
-        + pos                                                    # (B, L, K)
-    buf = x.new_zeros((B * E * C, d))
+    # choice's slot is its own, a dropped one (or another rank's) adds
+    # zero into a slot of this rank's
+    local = (idx - e0).clamp(0, n_local - 1)
+    slot = (torch.arange(B, device=x.device)[:, None, None] * n_local
+            + local) * C + pos                                   # (B, L, K)
+    buf = x.new_zeros((B * n_local * C, d))
     buf.index_add_(0, slot.reshape(-1), (x[:, :, None, :] * keep[
         ..., None].to(x.dtype)).reshape(-1, d))
-    buf = sharding.constrain(buf.reshape(B, E, C, d), "batch", "model",
-                             None, None)
+    buf = sharding.constrain(buf.reshape(B, n_local, C, d), "batch",
+                             "model", None, None)
 
     act = F.silu if cfg.mlp_act == "silu" else gelu
-    w = p["experts"]
     hg = act(torch.einsum("becd,edf->becf", buf, w["w_gate"].to(x.dtype)))
     hi = torch.einsum("becd,edf->becf", buf, w["w_in"].to(x.dtype))
     ho = torch.einsum("becf,efd->becd", hg * hi, w["w_out"].to(x.dtype))
     ho = sharding.constrain(ho, "batch", "model", None, None)
 
-    vals = ho.reshape(B * E * C, d)[slot]                        # (B,L,K,d)
+    vals = ho.reshape(B * n_local * C, d)[slot]                  # (B,L,K,d)
     scale = (gate * keep)[..., None].to(ho.dtype)
-    y = x.new_zeros((B, L, d))
-    for j in range(K):
-        y = y + vals[:, :, j] * scale[:, :, j]
+    if split:
+        y = torch.zeros((B, L, d), dtype=torch.float32, device=x.device)
+        for j in range(K):
+            y = y + vals[:, :, j].float() * scale[:, :, j].float()
+    else:
+        y = x.new_zeros((B, L, d))
+        for j in range(K):
+            y = y + vals[:, :, j] * scale[:, :, j]
+        if ax is not None:                # every rank holds every expert
+            n = L // ax.size
+            mine = torch.zeros((L,), dtype=torch.bool, device=x.device)
+            mine[ax.rank * n:(ax.rank + 1) * n] = True
+            y = torch.where(mine[:, None], y.float(), 0.0)
     y = sharding.constrain(y, "batch", "model", None)
 
     # Switch-style load-balance aux loss; with the batch split over ranks
@@ -116,12 +152,17 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     # gradient
     hits = (idx[..., 0].reshape(-1, 1) == torch.arange(
         E, device=x.device)).float()
-    ax = sharding.batch_axis()
-    if ax is None or ax.size == 1:
+    bx = sharding.batch_axis()
+    if bx is None or bx.size == 1:
         frac = hits.mean(dim=0)
     else:
-        frac = ax.all_gather(hits.sum(dim=0)).sum(0) / (hits.shape[0]
-                                                        * ax.size)
-    mean_prob = probs.reshape(-1, E).mean(dim=0)
-    aux = E * torch.sum(frac * mean_prob)
-    return y, aux
+        frac = bx.all_gather(hits.sum(dim=0)).sum(0) / (hits.shape[0]
+                                                        * bx.size)
+    if ax is None:
+        mean_prob = probs.reshape(-1, E).mean(dim=0)
+        return y, E * torch.sum(frac * mean_prob)
+    # this rank's L / M tokens' share of the mean, the shares summed
+    n = L // ax.size
+    mean_prob = probs[:, ax.rank * n:(ax.rank + 1) * n].reshape(
+        -1, E).sum(dim=0) / (B * L)
+    return y, sharding.all_sum(E * torch.sum(frac * mean_prob), ax)

@@ -13,6 +13,14 @@ A full pass runs the recurrence as a log-depth scan over the sequence (the
 recurrence is diagonal, so (a, b) pairs compose associatively); decode is
 a single O(1) state update. A cache passed to :func:`rglru_apply` is
 written in place and returned.
+
+Under tensor parallelism (``sharding.model_axis()``) a rank holds
+``lru_width / M`` channels: ``w_gate`` and ``w_x`` are column-parallel,
+the conv, ``Lambda`` and the recurrence act on those channels, and the
+gates' ``w_a`` / ``w_i`` (columns cut over ``model``) read the whole
+``xi``, all-gathered over ``model`` (the gradient comes back
+reduce-scattered). ``w_out`` is row-parallel: its partial sum comes out
+in f32 for the block to reduce-scatter.
 """
 from __future__ import annotations
 
@@ -22,9 +30,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (_dtype, _pdtype, dense_apply,
-                                       dense_init, gelu, normal)
+from repro_torch.models.layers import (_dtype, _pdtype, _row_apply,
+                                       dense_apply, dense_init, gelu, normal)
 
 Params = Dict[str, Any]
 
@@ -53,11 +62,16 @@ def rglru_init(key: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def _gates(p: Params, xi: torch.Tensor):
-    """Returns (log_a (B,L,W) f32, gated_input (B,L,W) f32)."""
+    """Returns (log_a (B,L,W) f32, gated_input (B,L,W) f32), W this
+    rank's channels."""
     xf = xi.float()
-    r = torch.sigmoid(dense_apply(p["w_a"], xi).float())
-    i = torch.sigmoid(dense_apply(p["w_i"], xi).float())
-    log_a = -_C * F.softplus(p["Lambda"].float()) * r
+    full = xi
+    if p["w_a"]["w"].shape[0] != xi.shape[-1]:
+        full = sharding.gather(xi, sharding.model_axis(), -1)
+    r = torch.sigmoid(dense_apply(p["w_a"], full).float())
+    i = torch.sigmoid(dense_apply(p["w_i"], full).float())
+    lam = sharding.local_slice(p["Lambda"], xi.shape[-1])
+    log_a = -_C * F.softplus(lam.float()) * r
     a2 = torch.exp(2.0 * log_a)
     b = torch.sqrt(torch.clamp_min(1.0 - a2, 1e-12)) * (i * xf)
     return log_a, b
@@ -96,9 +110,12 @@ def rglru_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
     B_, L, _ = u.shape
     gate = gelu(dense_apply(p["w_gate"], u))
     xi = dense_apply(p["w_x"], u)
+    width = xi.shape[-1]                 # lru_width / M under TP
 
     conv_state = cache["conv"] if cache is not None else None
-    xi, new_conv = _conv_causal(xi, p["conv_w"], p["conv_b"], conv_state)
+    xi, new_conv = _conv_causal(
+        xi, sharding.local_slice(p["conv_w"], width),
+        sharding.local_slice(p["conv_b"], width), conv_state)
 
     log_a, b = _gates(p, xi)
 
@@ -106,8 +123,7 @@ def rglru_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
         h = cache["h"] * torch.exp(log_a[:, 0]) + b[:, 0]        # (B, W)
         y = h[:, None, :]
     else:
-        h0 = cache["h"] if cache is not None else b.new_zeros(
-            (B_, cfg.lru_width))
+        h0 = cache["h"] if cache is not None else b.new_zeros((B_, width))
         # prepend h0 as a pseudo-step: h_t = a_t h_{t-1} + b_t
         a_all = torch.cat([torch.ones_like(h0)[:, None], torch.exp(log_a)],
                           dim=1)
@@ -119,7 +135,7 @@ def rglru_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
         cache["conv"].copy_(new_conv)
         cache["h"].copy_(h)
 
-    out = dense_apply(p["w_out"], y.to(u.dtype) * gate)
+    out = _row_apply(p["w_out"], y.to(u.dtype) * gate)
     return out, cache
 
 

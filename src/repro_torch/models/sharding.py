@@ -44,8 +44,28 @@ exactly what it computed before):
   a masked lookup of this rank's vocab rows reduce-scattered the same way,
   and the logits are this rank's vocab slice, reduced over ``model`` by
   the loss (:func:`all_sum`, :func:`all_max`);
+* the other mixers split as ``param_specs`` cuts their weights
+  (``models.rglru``, ``models.ssd``, ``models.moe``): the RG-LRU and the
+  SSD run on this rank's channels or heads, the MoE on this rank's
+  experts (expert parallel), each handing the block a row-parallel
+  partial sum to reduce-scatter;
 * every reduction is an all-gather followed by a sum in rank order, so a
   replicated result is bit-equal on every rank.
+
+Two gradient traps of tensor parallelism, and the ops that avoid them:
+
+* a sum over ``model`` whose result every rank goes on to use for its own
+  part (the SSD's gated RMSNorm: the mean square over the whole
+  ``d_inner`` from each rank's channels) needs the gradient summed over
+  ``model`` too (:func:`all_reduce`); :func:`all_sum` passes it through
+  unchanged, which is right only where what follows is replicated (the
+  loss);
+* anything every rank of ``model`` computes the same from the gathered
+  sequence sends the same gradient from every rank, and the sum over
+  ``model`` (``seq_gather``'s backward, or the step's sum of a replicated
+  leaf's gradient) counts it M times: such a term is taken over this
+  rank's L / M tokens and the partials are summed (the MoE's load-balance
+  loss).
 """
 from __future__ import annotations
 
@@ -204,8 +224,9 @@ def param_specs(params: Any, mesh, layout: Optional[str] = None):
 # Running on a mesh of ranks
 # ---------------------------------------------------------------------------
 
-# the ROADMAP item that ports tensor parallelism to the other mixers
-TP_LATER = "ROADMAP A10"
+# the ROADMAP item that ports prefill and decode with caches under tensor
+# parallelism
+TP_LATER = "ROADMAP A10b"
 
 
 def bound_grid():
@@ -261,22 +282,24 @@ def batch_rows(batch: int) -> slice:
 
 def check_model(cfg, model_ways: int, seq_len: Optional[int] = None,
                 layout: str = "tp") -> None:
-    """Raise ValueError where the port cannot run ``cfg`` with tensor
-    parallelism over ``model_ways`` ranks: it covers attention and dense
-    MLP blocks whose heads, feed-forward width, padded vocab and sequence
-    split evenly."""
+    """Raise ValueError where ``cfg`` cannot run with tensor parallelism
+    over ``model_ways`` ranks, naming the width that does not split: the
+    heads of attention layers, a dense MLP's ``d_ff``, the padded vocab,
+    the sequence, the SSD heads (``ssm_nheads``) and the RG-LRU width
+    (``lru_width``). Experts that do not split stay whole on every rank
+    (``param_specs``)."""
     if layout != "tp" or model_ways == 1:
         return
     kinds = set(cfg.pattern)
-    if cfg.n_experts or kinds - {"attn", "local"}:
-        what = sorted(kinds - {"attn", "local"}) + (
-            ["moe"] if cfg.n_experts else [])
-        raise ValueError(
-            f"{cfg.name}: tensor parallelism (layout 'tp', model axis "
-            f"{model_ways}) covers attention and dense MLP blocks; its "
-            f"{'/'.join(what)} layers are {TP_LATER} -- use a model axis "
-            f"of 1 or layout 'fsdp'")
-    for what, n in (("heads", cfg.n_heads), ("d_ff", cfg.d_ff),
+    attn = bool(kinds & {"attn", "local"})
+    dense_mlp = cfg.d_ff > 0 and (
+        (attn and not cfg.n_experts) or "rglru" in kinds)
+    for what, n in (("heads", cfg.n_heads if attn else None),
+                    ("d_ff", cfg.d_ff if dense_mlp else None),
+                    ("ssm_nheads", cfg.ssm_nheads if "ssd" in kinds
+                     else None),
+                    ("lru_width", cfg.lru_width if "rglru" in kinds
+                     else None),
                     ("padded vocab", cfg.vocab_padded),
                     ("sequence", seq_len)):
         if n is not None and n % model_ways:
@@ -335,6 +358,21 @@ class _AllSum(torch.autograd.Function):
         return g, None
 
 
+class _AllReduce(torch.autograd.Function):
+    """Forward the sum over the axis; backward the gradient summed over
+    it too: every rank goes on with the sum for its own part, so each
+    summand reaches every rank's loss term."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return ax.all_gather(x).sum(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ax.all_gather(g).sum(0), None
+
+
 def gather(x: torch.Tensor, ax, dim: int) -> torch.Tensor:
     """All-gather ``x`` over ``ax`` along ``dim``; the gradient is summed
     over ``ax`` and sliced back (reduce-scatter)."""
@@ -349,6 +387,12 @@ def scatter(x: torch.Tensor, ax, dim: int) -> torch.Tensor:
 
 def all_sum(x: torch.Tensor, ax) -> torch.Tensor:
     return _AllSum.apply(x, ax)
+
+
+def all_reduce(x: torch.Tensor, ax) -> torch.Tensor:
+    """The sum of ``x`` over ``ax`` where each rank uses it for a part of
+    its own (the gradient is summed over ``ax`` as well)."""
+    return _AllReduce.apply(x, ax)
 
 
 def all_max(x: torch.Tensor, ax) -> torch.Tensor:

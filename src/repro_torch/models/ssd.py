@@ -7,6 +7,23 @@ inter-chunk interactions flow through a small (H, P, N) state carried from
 chunk to chunk. Decode keeps (conv_state, ssm_state) and costs O(1) per
 token. A cache passed to :func:`ssd_apply` is written in place and
 returned.
+
+Under tensor parallelism (``sharding.model_axis()``) a rank runs its
+``ssm_nheads / M`` heads. ``param_specs`` cuts the packed ``in_proj``
+columns ``[z | x | B | C | dt]`` and the conv's ``x | B | C`` channels
+into M contiguous blocks that are not head-aligned, and keeps that layout
+(checkpoints and the dry run's bytes are the JAX package's): a rank
+computes its columns and all-gathers them over ``model`` (the gradient
+comes back reduce-scattered), as it gathers the conv's weights, then
+takes its heads of ``z``, ``x`` and ``dt`` and ``B`` / ``C`` whole, and
+runs the conv on those channels. ``A_log``, ``D`` and ``dt_bias`` are cut
+by heads. The gated RMSNorm normalises over the whole ``d_inner``: its
+mean square is the sum over ``model`` of each rank's partial sums
+(``sharding.all_reduce``, whose backward sums the gradient over
+``model``: each rank goes on with its own channels). ``out_proj`` is
+row-parallel: its partial sum comes out in f32 for the block to
+reduce-scatter. Where ``in_proj`` or ``conv_w`` columns do not split,
+``param_specs`` keeps them whole and no gather is needed.
 """
 from __future__ import annotations
 
@@ -16,9 +33,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (_dtype, _pdtype, dense_apply,
-                                       dense_init, normal, rmsnorm_apply)
+from repro_torch.models.layers import (_dtype, _pdtype, _row_apply,
+                                       dense_apply, dense_init, normal,
+                                       rmsnorm_apply)
 
 Params = Dict[str, Any]
 
@@ -124,6 +143,57 @@ def _expand_groups(v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return torch.repeat_interleave(v, h // g, dim=-2)
 
 
+def _whole(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x``'s last dim whole: all-gathered over ``model`` where
+    ``param_specs`` cut it (``width`` the full size)."""
+    if x.shape[-1] == width:
+        return x
+    return sharding.gather(x, sharding.model_axis(), -1)
+
+
+def _head_range(cfg: ModelConfig) -> Tuple[int, int]:
+    """(first head, head count) of this rank: all of them without tensor
+    parallelism."""
+    ax = sharding.model_axis()
+    if ax is None:
+        return 0, cfg.ssm_nheads
+    n = cfg.ssm_nheads // ax.size
+    return ax.rank * n, n
+
+
+def _own_heads(cfg: ModelConfig, zxbcdt: torch.Tensor, conv_w, conv_b,
+               lo: int, n: int):
+    """Heads ``lo`` .. ``lo + n`` of the whole in_proj output: (z, xBC,
+    dt_raw, conv_w, conv_b) with xBC those heads' x channels and B / C
+    whole, and the conv's weights on those channels."""
+    z, xBC, dt_raw = _split_in_proj(cfg, zxbcdt)
+    if n == cfg.ssm_nheads:
+        return z, xBC, dt_raw, conv_w, conv_b
+    din, P = cfg.ssm_dinner, cfg.ssm_headdim
+    x_cols = slice(lo * P, (lo + n) * P)
+
+    def channels(t):
+        return torch.cat([t[..., x_cols], t[..., din:]], dim=-1)
+
+    return (z[..., x_cols], channels(xBC), dt_raw[..., lo:lo + n],
+            channels(conv_w), channels(conv_b))
+
+
+def _gated_norm(scale: torch.Tensor, y: torch.Tensor, eps: float
+                ) -> torch.Tensor:
+    """The gated RMSNorm over the whole ``d_inner`` from this rank's
+    channels ``y``: the mean square summed over ``model``."""
+    ax = sharding.model_axis()
+    if ax is None:
+        return rmsnorm_apply({"scale": scale}, y, eps)
+    yf = y.float()
+    ss = sharding.all_reduce(torch.sum(yf * yf, dim=-1, keepdim=True), ax)
+    var = ss / (y.shape[-1] * ax.size)
+    out = yf * torch.rsqrt(var + eps)
+    return (out * sharding.local_slice(scale, y.shape[-1]).float()
+            ).to(y.dtype)
+
+
 def ssd_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
               cache: Optional[Params] = None
               ) -> Tuple[torch.Tensor, Optional[Params]]:
@@ -132,26 +202,35 @@ def ssd_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
     step; with a cache and L > 1, runs the chunked prefill and writes the
     final (conv, ssm) states into the cache."""
     B_, L, _ = u.shape
-    h, pdim, n = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state
-    din = cfg.ssm_dinner
-    splits = [din, cfg.ssm_ngroups * n, cfg.ssm_ngroups * n]
-    zxbcdt = dense_apply(p["in_proj"], u)
-    z, xBC, dt_raw = _split_in_proj(cfg, zxbcdt)
-    A = -torch.exp(p["A_log"].float())
-    D = p["D"].float()[None, None, :, None]
+    pdim, n = cfg.ssm_headdim, cfg.ssm_state
+    gn = cfg.ssm_ngroups * n
+    zxbcdt = _whole(dense_apply(p["in_proj"], u),
+                    2 * cfg.ssm_dinner + 2 * gn + cfg.ssm_nheads)
+    h0, h = _head_range(cfg)             # ssm_nheads / M heads under TP
+    z, xBC, dt_raw, conv_w, conv_b = _own_heads(
+        cfg, zxbcdt, _whole(p["conv_w"], _conv_dim(cfg)), p["conv_b"],
+        h0, h)
+    din = h * pdim
+    splits = [din, gn, gn]
+    A = -torch.exp(sharding.local_slice(p["A_log"], h).float())
+    D = sharding.local_slice(p["D"], h).float()[None, None, :, None]
+    dt_bias = sharding.local_slice(p["dt_bias"], h).float()
+
+    def heads(v):                        # (..., G*N) -> this rank's heads
+        return _expand_groups(v, cfg)[..., h0:h0 + h, :]
 
     if cache is not None and L == 1:
         window = torch.cat([cache["conv"], xBC.to(cache["conv"].dtype)],
                            dim=1)                                # (B, W, C)
         conv_out = (torch.einsum("bwc,wc->bc", window.float(),
-                                 p["conv_w"].float())
-                    + p["conv_b"].float())
+                                 conv_w.float())
+                    + conv_b.float())
         xBC_t = F.silu(conv_out)[:, None, :]                     # (B, 1, C)
         x, Bv, Cv = torch.split(xBC_t, splits, dim=-1)
         x = x.reshape(B_, 1, h, pdim)
-        Bh = _expand_groups(Bv, cfg)                             # (B,1,H,N)
-        Ch = _expand_groups(Cv, cfg)
-        dt = F.softplus(dt_raw.float() + p["dt_bias"].float())   # (B,1,H)
+        Bh = heads(Bv)                                           # (B,1,H,N)
+        Ch = heads(Cv)
+        dt = F.softplus(dt_raw.float() + dt_bias)                # (B,1,H)
         dA = torch.exp(dt[:, 0] * A)                             # (B,H)
         x_dt = x[:, 0] * dt[:, 0, :, None]                       # (B,H,P)
         state = (cache["ssm"] * dA[..., None, None]
@@ -161,12 +240,12 @@ def ssd_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
         cache["conv"].copy_(window[:, 1:])
         cache["ssm"].copy_(state)
     else:
-        conv = F.silu(_causal_conv(xBC, p["conv_w"], p["conv_b"]))
+        conv = F.silu(_causal_conv(xBC, conv_w, conv_b))
         x, Bv, Cv = torch.split(conv, splits, dim=-1)
         x = x.reshape(B_, L, h, pdim).float()
-        Bh = _expand_groups(Bv, cfg).float()
-        Ch = _expand_groups(Cv, cfg).float()
-        dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+        Bh = heads(Bv).float()
+        Ch = heads(Cv).float()
+        dt = F.softplus(dt_raw.float() + dt_bias)
         chunk = min(cfg.ssm_chunk, L)
         while L % chunk:
             chunk -= 1
@@ -181,8 +260,8 @@ def ssd_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(B_, L, din)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = y * F.silu(z.float())
-    y = rmsnorm_apply({"scale": p["norm_scale"]}, y.to(u.dtype), cfg.rms_eps)
-    return dense_apply(p["out_proj"], y), cache
+    y = _gated_norm(p["norm_scale"], y.to(u.dtype), cfg.rms_eps)
+    return _row_apply(p["out_proj"], y), cache
 
 
 def ssd_cache_init(batch: int, cfg: ModelConfig, device=None) -> Params:

@@ -6,7 +6,12 @@ warmup-cosine schedule.
 (params, opt_state, metrics)``. With ``grad_sync`` the step hands the
 gradients and the loss metrics to it before the clip and the update, and
 goes on with what it returns: ``launch.train`` averages them over the
-ranks of a data-parallel mesh there. Gradients come from ``torch.autograd``
+ranks of a data-parallel mesh there. The metrics it is handed carry each
+microbatch's ce as well (``CE_MICROBATCHES``), and the step takes
+``ppl_proxy`` from what comes back: exp(min(ce, 20)) of each
+microbatch's ce, averaged over the microbatches, as the JAX package's
+global step does (the mean of the batch shards' exp(ce) would be
+another number). Gradients come from ``torch.autograd``
 through the port's ``forward``; the step then updates the params and the
 optimizer state in place and returns the same objects -- the counterpart
 of the JAX package's ``donate_argnums=(0, 1)``, without which a second
@@ -38,6 +43,8 @@ from repro_torch.train.loss import chunked_lm_loss, lm_loss
 
 PyTree = Any
 METRICS = ("ce", "z_loss", "ppl_proxy", "loss", "moe_aux")
+# the (microbatches,) ce that ``grad_sync`` is handed beside the metrics
+CE_MICROBATCHES = "ce_microbatches"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +115,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, grad_sync=None,
         if n_mb == 1:
             (_, metrics), grads = value_and_grad(params, tokens, labels,
                                                  cfg, tc)
+            ces = [metrics["ce"]]
         else:
             mb_tok = tokens.reshape(n_mb, B // n_mb, -1)
             mb_lab = labels.reshape(n_mb, B // n_mb, -1)
@@ -117,6 +125,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, grad_sync=None,
                      for p in tree_mod.leaves(params)]
             metrics = {k: torch.zeros((), dtype=torch.float32,
                                       device=tokens.device) for k in METRICS}
+            ces = []
             for i in range(n_mb):
                 (_, m), g = value_and_grad(params, mb_tok[i], mb_lab[i], cfg,
                                            tc)
@@ -124,11 +133,14 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, grad_sync=None,
                     acc.add_(gi)
                 del g
                 metrics = {k: metrics[k] + m[k] for k in METRICS}
+                ces.append(m["ce"])
             for acc in grads:
                 acc.div_(n_mb)
             metrics = {k: v / n_mb for k, v in metrics.items()}
         if grad_sync is not None:
-            grads, metrics = grad_sync(grads, metrics)
+            grads, metrics = grad_sync(
+                grads, {**metrics, CE_MICROBATCHES: torch.stack(ces)})
+            metrics["ppl_proxy"] = _ppl_proxy(metrics.pop(CE_MICROBATCHES))
 
         lr = schedule.warmup_cosine(step, tc.peak_lr, tc.warmup_steps,
                                     tc.total_steps, device=tokens.device)
@@ -138,6 +150,18 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, grad_sync=None,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _ppl_proxy(ces: torch.Tensor) -> torch.Tensor:
+    """exp(min(ce, 20)) of each microbatch's ce, averaged as the step
+    averages its metrics (summed from zero in order, then divided)."""
+    ppl = torch.exp(torch.clamp_max(ces, 20.0))
+    if len(ppl) == 1:
+        return ppl[0]
+    total = torch.zeros((), dtype=torch.float32, device=ces.device)
+    for x in ppl:
+        total = total + x
+    return total / len(ppl)
 
 
 def mesh_train_step(cfg: ModelConfig, tc: TrainConfig, mesh,
@@ -195,8 +219,10 @@ def _mesh_sync(specs, mesh, layout):
     """``grad_sync`` on the grid: each gradient summed over
     :func:`_sum_axes`, every gradient and loss metric divided by the
     number of batch shards (the metrics, replicated over any other axis,
-    averaged over the batch axis) -- what one process computes with that
-    many microbatches."""
+    averaged over the batch axis, in one all-gather) -- what one process
+    computes on the global batch. Each microbatch's ce
+    (``CE_MICROBATCHES``) is averaged the same way, so the step's
+    ``ppl_proxy`` is exp of the global ce, as the JAX package's."""
     batch_ax = sharding.axis_of(mesh, sharding.resolve("batch", mesh,
                                                         layout))
     n_batch = batch_ax.size

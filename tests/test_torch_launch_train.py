@@ -8,10 +8,13 @@ hash seed), and each step's metrics are held to ``_train_rules``'
 LOSS_RTOL; with ``--data-selection coreset`` the selected token rows and
 their labels equal the reference's, but for a centre's tied nearest
 example. ``--mesh 2x1`` (two gloo ranks) computes what one process
-computes with two microbatches on the same global batch, and matches the
-plain ``1x1`` run's loss metrics within LOSS_RTOL; a mesh the port cannot
-run raises before any rank starts (``--mesh DxM`` with M > 1 runs:
-``test_torch_sharded_train.py``)."""
+computes with two microbatches on the same global batch but
+``ppl_proxy``, and matches the plain ``1x1`` run's metrics within
+LOSS_RTOL, ``ppl_proxy`` among them (exp of the global batch's ce, as the
+reference's global step takes it); a mesh the port cannot run raises
+before any rank starts, naming the width that does not split (``--mesh
+DxM`` with M > 1 runs: ``test_torch_sharded_train.py`` and
+``test_torch_sharded_mixers.py``)."""
 import dataclasses
 import json
 import os
@@ -37,9 +40,10 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--arch", "llama3_8b", "--reduced", "--steps", "5", "--batch", "4",
         "--seq", "32", "--log-every", "1"]
-# metrics a rank averages as one of D microbatches: ppl_proxy is the mean
-# of exp(ce) over them, not exp of the mean, so only the microbatched
-# 1x1 run computes it the same way
+# the metrics but ppl_proxy, which is exp(min(ce, 20)) of each
+# microbatch's ce averaged over the microbatches: one exp of the global
+# ce on D data ranks (as on one process with one microbatch, and in the
+# reference's global step), the mean of two exps with two microbatches
 LOSS_METRICS = ("loss", "ce", "z_loss", "moe_aux", "grad_norm", "lr")
 
 
@@ -245,9 +249,9 @@ def _final(ckpt):
 def test_mesh_2x1_matches_1x1(tmp_path):
     """Two gloo ranks, each on two of the four rows, gradients averaged
     before the update: the same as one process with two microbatches on
-    the same global batch (metrics within LOSS_RTOL, params after five
-    steps to a few ulp), and the loss metrics of the plain 1x1 run within
-    LOSS_RTOL."""
+    the same global batch (metrics but ``ppl_proxy`` within LOSS_RTOL,
+    params after five steps to a few ulp), and the metrics of the plain
+    1x1 run within LOSS_RTOL, ``ppl_proxy`` among them."""
     env = {**os.environ, "PYTHONPATH": "src", "PYTHONHASHSEED": "0"}
     r = subprocess.run([sys.executable, "-c", MESH_SCRIPT,
                         json.dumps(ARGS + ["--device", "cpu"]),
@@ -255,28 +259,31 @@ def test_mesh_2x1_matches_1x1(tmp_path):
                        capture_output=True, text=True, timeout=600)
     assert "RUNS " in r.stdout, r.stdout[-2000:] + r.stderr[-3000:]
     runs = json.loads(r.stdout.split("RUNS ")[1])
-    _assert_metrics(runs["mesh2"], runs["mb2"])
-    _assert_metrics(runs["mesh2"], runs["one"], LOSS_METRICS)
+    _assert_metrics(runs["mesh2"], runs["mb2"], LOSS_METRICS)
+    _assert_metrics(runs["mesh2"], runs["one"],
+                    LOSS_METRICS + ("ppl_proxy",))
     for a, b in zip(_final(tmp_path / "mesh2"), _final(tmp_path / "mb2")):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-7)
 
 
 @pytest.mark.parametrize("argv, match", [
-    # tensor parallelism covers attention and dense MLP blocks: MoE, SSD
-    # and RG-LRU layers with a model axis > 1 name the ROADMAP item
-    (["--arch", "dbrx_132b", "--mesh", "1x2"], "ROADMAP A10"),
-    (["--arch", "granite_moe_3b_a800m", "--mesh", "2x2"], "ROADMAP A10"),
-    (["--arch", "mamba2_370m", "--mesh", "1x2"], "ROADMAP A10"),
-    (["--arch", "recurrentgemma_2b", "--mesh", "1x4"], "ROADMAP A10"),
+    # a width that does not split over the model axis is named: the SSD
+    # heads, the RG-LRU width, the sequence, the attention heads
+    (["--arch", "mamba2_370m", "--mesh", "1x3"], "ssm_nheads 8"),
+    (["--arch", "recurrentgemma_2b", "--width", "42", "--mesh", "1x4"],
+     "lru_width 42"),
+    (["--arch", "dbrx_132b", "--mesh", "1x4", "--seq", "30"],
+     "sequence 30"),
+    (["--arch", "granite_moe_3b_a800m", "--mesh", "1x3"], "heads 4"),
     (["--mesh", "3x1"], "split"),
     (["--mesh", "2"], "DATAxMODEL"),
     (["--mesh", "0x2"], "positive"),
 ])
 def test_mesh_with_a_model_axis_raises(argv, match):
     """Meshes the port cannot run raise ValueError before any rank
-    starts: a family tensor parallelism does not cover yet, a batch that
-    does not split over the data ranks, a malformed ``--mesh``."""
+    starts: a width that does not split over the model ranks, a batch
+    that does not split over the data ranks, a malformed ``--mesh``."""
     with pytest.raises(ValueError, match=match):
         train.main(ARGS + ["--reduced", "--device", "cpu"] + argv)
 

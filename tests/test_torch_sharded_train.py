@@ -8,15 +8,14 @@ sequence parallelism over ``model`` with FSDP over ``data`` (layout
   (MQA: its one kv head's columns split inside the head), gemma3 (local
   windows, q / k norms, post-norms) and qwen2-vl (M-RoPE), and at 2x2
   under "fsdp" for every family (MoE, SSD and RG-LRU among them): the
-  step's metrics within LOSS_RTOL, every gradient (gathered from the
-  shards) within 2 GRAD_RTOL of its leaf's largest, the params after one
-  step under the first-step rule at that gradient tolerance
-  (``_train_rules``). The reference's gradients are read back from its
-  first moment after the step (m = 0.1 g, g clipped: one multiply each
-  way, within two ulps), so one compile per config serves both.
-  ``ppl_proxy`` is held where the batch is not split: with D batch shards
-  it is the mean of their exp(ce), as with D microbatches, where the
-  reference's global step takes exp of the mean.
+  step's metrics within LOSS_RTOL, ``ppl_proxy`` among them (exp of the
+  global batch's ce, as the reference's global step takes it, also where
+  the batch is split), every gradient (gathered from the shards) within 2
+  GRAD_RTOL of its leaf's largest, the params after one step under the
+  first-step rule at that gradient tolerance (``_train_rules``). The
+  reference's gradients are read back from its first moment after the
+  step (m = 0.1 g, g clipped: one multiply each way, within two ulps), so
+  one compile per config serves both.
 * Bit-stability: after each of two steps every leaf of params and
   moments is bit-equal on the ranks that hold the same shard of it, and
   two runs end bit-equal.
@@ -29,7 +28,10 @@ sequence parallelism over ``model`` with FSDP over ``data`` (layout
 
 All cases of one mesh run in one ``core.mesh.launch``, beside the
 reference's compiles on a thread of their own; the reference launcher
-runs as a subprocess alongside."""
+runs as a subprocess alongside. ``test_torch_sharded_mixers.py`` drives
+the MoE, SSD and RG-LRU families through the same helpers
+(:func:`drive`, :func:`assert_step`, :func:`assert_bits`,
+:func:`assert_bytes`)."""
 import hashlib
 import json
 import os
@@ -116,7 +118,7 @@ def _case(mesh, cfg, layout, params, b, steps):
     return out
 
 
-def _rank_cases(mesh, cases):
+def rank_cases(mesh, cases):
     """``core.mesh.launch``'s target: every case of one mesh, in order;
     the first case runs twice (two runs must end bit-equal)."""
     torch.set_num_threads(1)
@@ -127,45 +129,44 @@ def _rank_cases(mesh, cases):
     return {"coords": mesh.coords, "cases": out}
 
 
-def _inputs(arch):
-    jc, tc = cfgs(arch)
+def _inputs(arch, **changes):
+    jc, tc = cfgs(arch, **changes)
     jparams = jinit_params(jax.random.PRNGKey(0), jc)
     b = batch(tc, batch_size=B)
     return jc, tc, jparams, b
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Every mesh's launch (a thread each) beside the reference's
-    compiles (a thread each) and its ``--mesh 2x2`` launcher run (a
-    subprocess)."""
-    archs = sorted(set(TP_ARCHS) | set(FSDP_ARCHS))
-    inputs = {arch: _inputs(arch) for arch in archs}
+def drive(inputs, cases, meshes, target):
+    """Each mesh's launch of ``target`` (a thread each) on its cases
+    (``cases[mesh]``: (key of ``inputs``, layout) pairs; ``inputs[key]``
+    is :func:`_inputs`' tuple) beside the reference's unsharded step of
+    every key (compiled on a thread each). Returns (port, ref): each
+    mesh's ranks' results (or the exception, raised in the test that
+    reads it) and each key's reference step."""
     port = {}
 
-    def drive(name, shape):
-        cases = [(inputs[a][1], layout,
-                  interop.model_params(to_numpy(inputs[a][2]), inputs[a][1],
-                                       "cpu"),
-                  port_batch(inputs[a][3]))
-                 for a, layout in _cases(name)]
+    def run(name, shape):
+        mine = [(inputs[key][1], layout,
+                 interop.model_params(to_numpy(inputs[key][2]),
+                                      inputs[key][1], "cpu"),
+                 port_batch(inputs[key][3]))
+                for key, layout in cases[name]]
         try:
             port[name] = launch(
-                "test_torch_sharded_train:_rank_cases", shape[0] * shape[1],
-                (cases,), axis_name=("data", "model"), shape=shape,
-                device="cpu", timeout=600)
+                target, shape[0] * shape[1], (mine,),
+                axis_name=("data", "model"), shape=shape, device="cpu",
+                timeout=600)
         except Exception as e:   # raised in the test that reads it
             port[name] = e
 
-    launcher = _start_launcher_parity()
-    threads = [threading.Thread(target=drive, args=item)
-               for item in MESHES.items()]
+    threads = [threading.Thread(target=run, args=item)
+               for item in meshes.items()]
     for thread in threads:
         thread.start()
     jtc = jtrain_step.TrainConfig(**STEP_KW)
 
-    def reference(arch):
-        jc, tc, jparams, b = inputs[arch]
+    def reference(key):
+        jc, tc, jparams, b = inputs[key]
         params, opt, metrics = reference_step(jc, jtc, jparams, b)
         clip = min(1.0, 1.0 / metrics["grad_norm"])
         grads = [torch.from_numpy((m.double() / (0.1 * clip)).float()
@@ -180,22 +181,40 @@ def runs():
 
     try:
         # XLA compiles outside the GIL: one thread a config
-        with ThreadPoolExecutor(len(archs)) as pool:
-            ref = dict(zip(archs, pool.map(reference, archs)))
+        with ThreadPoolExecutor(len(inputs)) as pool:
+            ref = dict(zip(inputs, pool.map(reference, inputs)))
     finally:
         for thread in threads:
             thread.join()
-        out, err = launcher.communicate(timeout=600)
-    assert "LAUNCHERS " in out, out[-2000:] + err[-3000:]
-    return {"port": port, "ref": ref,
-            "launchers": json.loads(out.split("LAUNCHERS ")[1])}
+    return port, ref
 
 
-def _port(runs, mesh_name):
-    got = runs["port"][mesh_name]
+@pytest.fixture(scope="module")
+def runs():
+    """Every mesh's launch beside the reference's compiles
+    (:func:`drive`) and its ``--mesh 2x2`` launcher run (a
+    subprocess)."""
+    archs = sorted(set(TP_ARCHS) | set(FSDP_ARCHS))
+    inputs = {arch: _inputs(arch) for arch in archs}
+    launcher = start_launcher_parity(LAUNCHER_ARGV, 4)
+    try:
+        port, ref = drive(inputs, {m: _cases(m) for m in MESHES}, MESHES,
+                          "test_torch_sharded_train:rank_cases")
+    finally:
+        launchers = launcher_runs(launcher)
+    return {"port": port, "ref": ref, "launchers": launchers}
+
+
+def port_ranks(port, mesh_name):
+    """One mesh's ranks' results, or its launch's exception raised."""
+    got = port[mesh_name]
     if isinstance(got, Exception):
         raise got
     return got
+
+
+def _port(runs, mesh_name):
+    return port_ranks(runs["port"], mesh_name)
 
 
 @pytest.mark.parametrize("mesh_name, arch, layout", [
@@ -206,14 +225,18 @@ def test_step_is_the_references_unsharded_step(runs, mesh_name, arch,
     one step against the reference's unsharded step."""
     ranks = _port(runs, mesh_name)
     i = _cases(mesh_name).index((arch, layout))
-    got, ref = ranks[0]["cases"][i], runs["ref"][arch]
-    label = f"{arch} {layout} {mesh_name}"
+    assert_step(ranks[0]["cases"][i], runs["ref"][arch],
+                f"{arch} {layout} {mesh_name}")
+
+
+def assert_step(got, ref, label):
+    """One case's first step (rank 0's :func:`_case`) against the
+    reference's unsharded step: every metric within LOSS_RTOL, every
+    gathered gradient within 2 GRAD_RTOL of its leaf's largest, the
+    params under the first-step rule."""
     m = got["metrics"][0]
     assert m.keys() == ref["metrics"].keys(), label
-    split = MESHES[mesh_name][0] > 1 or layout == "fsdp"
     for k, v in m.items():
-        if split and k == "ppl_proxy":
-            continue
         np.testing.assert_allclose(v, ref["metrics"][k], rtol=LOSS_RTOL,
                                    atol=1e-7, err_msg=f"{label} {k}")
     assert_grads([torch.from_numpy(g) for g in got["grads"]], ref["grads"],
@@ -230,10 +253,17 @@ def test_replicated_leaves_are_bit_equal_and_runs_repeat(runs, mesh_name):
     param or moment (their coordinates equal on the axes it is cut over)
     hold it bit for bit; the first case run twice ends bit-equal; every
     rank's metrics are the same bits."""
-    ranks = _port(runs, mesh_name)
-    shape = dict(zip(("data", "model"), MESHES[mesh_name]))
-    for i, (arch, layout) in enumerate(_cases(mesh_name)):
-        tc = runs["ref"][arch]["tc"]
+    assert_bits(_port(runs, mesh_name), [
+        (runs["ref"][arch]["tc"], layout) for arch, layout in
+        _cases(mesh_name)], MESHES[mesh_name])
+
+
+def assert_bits(ranks, cases, mesh_shape):
+    """The check above on the ranks of one launch, ``cases`` its
+    (config, layout) pairs in order."""
+    shape = dict(zip(("data", "model"), mesh_shape))
+    for i, (tc, layout) in enumerate(cases):
+        arch = tc.name
         specs = sharding.spec_leaves(
             shard_specs(tc, _Grid(shape), layout)) * 3   # params, m, v
         for step in range(2):
@@ -244,7 +274,7 @@ def test_replicated_leaves_are_bit_equal_and_runs_repeat(runs, mesh_name):
                     key = tuple(r["coords"][a] for a in sorted(held))
                     d = r["cases"][i]["digests"][step][j]
                     assert seen.setdefault(key, d) == d, (
-                        arch, layout, mesh_name, step, j)
+                        arch, layout, mesh_shape, step, j)
             metrics = {json.dumps(r["cases"][i]["metrics"][step],
                                   sort_keys=True) for r in ranks}
             assert len(metrics) == 1, (arch, layout, step)
@@ -262,10 +292,17 @@ class _Grid:
 def test_a_rank_holds_its_shards_bytes(runs, mesh_name):
     """The param and AdamW moment bytes each rank holds: three times the
     sum over leaves of the leaf's bytes over the ranks it is cut over."""
-    ranks = _port(runs, mesh_name)
-    shape = dict(zip(("data", "model"), MESHES[mesh_name]))
-    for i, (arch, layout) in enumerate(_cases(mesh_name)):
-        tc = runs["ref"][arch]["tc"]
+    assert_bytes(_port(runs, mesh_name), [
+        (runs["ref"][arch]["tc"], layout) for arch, layout in
+        _cases(mesh_name)], MESHES[mesh_name])
+
+
+def assert_bytes(ranks, cases, mesh_shape):
+    """The check above on the ranks of one launch, ``cases`` its
+    (config, layout) pairs in order."""
+    shape = dict(zip(("data", "model"), mesh_shape))
+    for i, (tc, layout) in enumerate(cases):
+        arch = tc.name
         want = 0
         from repro_torch.models import param_spec
         full = tree_mod.leaves(param_spec(tc))
@@ -277,15 +314,15 @@ def test_a_rank_holds_its_shards_bytes(runs, mesh_name):
             want += 3 * x.numel() * x.element_size() // ways
         whole = 3 * sum(x.numel() * x.element_size() for x in full)
         for r in ranks:
-            assert r["cases"][i]["bytes"] == want, (arch, layout, mesh_name)
+            assert r["cases"][i]["bytes"] == want, (arch, layout, mesh_shape)
         if layout == "fsdp" or shape["data"] * shape["model"] > 1:
-            assert want < whole, (arch, layout, mesh_name)
+            assert want < whole, (arch, layout, mesh_shape)
 
 
 # both launchers in one process under PYTHONHASHSEED 0 (the same bigram
-# batches), both configs in f32, JAX on four forced host devices: the
-# reference's --mesh 2x2 run, then the port's from the reference's
-# initial state carried across (``main``'s ``state=``)
+# batches), both configs in f32, JAX on as many forced host devices as
+# the mesh has: the reference's --mesh run, then the port's from the
+# reference's initial state carried across (``main``'s ``state=``)
 LAUNCHER_SCRIPT = textwrap.dedent("""
     import dataclasses, json, sys
     import jax
@@ -317,22 +354,32 @@ LAUNCHER_ARGV = ["--arch", "llama3_8b", "--reduced", "--mesh", "2x2",
                  "--log-every", "1"]
 
 
-def _start_launcher_parity():
+def start_launcher_parity(argv, devices):
+    """Both launchers on ``argv`` (:data:`LAUNCHER_SCRIPT`), JAX on
+    ``devices`` forced host devices: a subprocess, read by
+    :func:`launcher_runs`."""
     env = {**os.environ, "PYTHONPATH": "src" + os.pathsep + "tests",
            "PYTHONHASHSEED": "0", "OMP_NUM_THREADS": "1",
-           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={devices}"}
     return subprocess.Popen([sys.executable, "-c", LAUNCHER_SCRIPT,
-                             json.dumps(LAUNCHER_ARGV)], cwd=ROOT, env=env,
+                             json.dumps(argv)], cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
+
+
+def launcher_runs(proc):
+    """{"port": its metrics log, "ref": the reference's}."""
+    out, err = proc.communicate(timeout=600)
+    assert "LAUNCHERS " in out, out[-2000:] + err[-3000:]
+    return json.loads(out.split("LAUNCHERS ")[1])
 
 
 def test_launcher_2x2_is_the_references(runs):
     """``--mesh 2x2``: four gloo ranks against the reference's four host
     devices, each of the four steps' metrics within LOSS_RTOL
-    (``test_torch_launch_train._assert_metrics``) but ``ppl_proxy``, the
-    mean of the two data rows' exp(ce) here."""
-    from test_torch_launch_train import LOSS_METRICS, _assert_metrics
+    (``test_torch_launch_train._assert_metrics``), ``ppl_proxy`` among
+    them: exp of the global batch's ce on both sides."""
+    from test_torch_launch_train import _assert_metrics
     got, want = runs["launchers"]["port"], runs["launchers"]["ref"]
     assert len(got) == 4
-    _assert_metrics(got, want, LOSS_METRICS)
+    _assert_metrics(got, want)
