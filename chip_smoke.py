@@ -240,7 +240,14 @@ Phases (any failed check raises, and the script exits non-zero):
    1,024 tokens each: losses against each family's 1x1 run on the same
    batches, leaves held by both ranks bit-equal, param and AdamW bytes a
    rank about half of 1x1's, step walls, peak memory and staged bytes a
-   rank, a fingerprint of each family's final state.
+   rank, a fingerprint of each family's final state; (i) on (h)'s ranks
+   and each family's final params, ``models.forward`` with a cache on
+   the 1x2 mesh (sequence-parallel prefill of 2 x 2,048 tokens, 16
+   flash-decode steps, the KV cache's length cut over ``model``; for
+   granite-moe also an int8 KV cache and f32 activations) against the
+   same run in one process: logits within a bound, picks equal but at near ties, cache
+   bytes a rank the layout's shards', walls and staged bytes, each
+   family's picks digested.
 
 Every bound is ``repro_torch.roofline.work``'s on the card's data-sheet
 figures (``roofline.report.detect``). It prints a ``{"kernels": [...]}``
@@ -3466,10 +3473,149 @@ H_ARGV = ["--batch", "2", "--seq", "1024", "--steps", "2", "--log-every",
 # a rank holds its shards under param_specs: half of every leaf cut over
 # "model", the replicated ones (norms, the router, biases) whole
 H_HELD_MAX = 0.51
+# (i) prefill and decode on the (h) ranks, on the params each family's
+# (h) run leaves: B = 2 rows of a 2,048-token prompt from the seed, 16
+# greedy decode steps, a cache of 2,064 slots (1,032 a rank; the local
+# layer's ring of 2,048 wraps in decode), with tensor and sequence
+# parallel prefill and flash-decode over "model", held to the same run in
+# one process (rank 0); granite-moe also with an int8 KV cache and with
+# f32 activations. The decode steps of both runs take the 1x1 run's
+# picks, so every step is compared on the same sequence. max |dlogit| /
+# max |logit| is held to I_BOUND, about 3x the largest 1x2-against-1x1
+# spread of scripts/torch_tp_decode_spread.py over 8 prompts (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md): in bf16 granite-moe's top-8 routing
+# flips at near ties and moves a token's logits by up to 0.50 of their
+# largest (int8 0.37), mamba2 lay up to 2.2e-2, recurrentgemma 1.2e-3;
+# in f32 the routing holds and granite-moe lay up to 2.8e-6. A pick may
+# differ only where the 1x1 run's top two lie within twice the bound
+I_SERVE = (2, 2048, 16)          # batch, prompt, decode steps
+I_SEED = 32
+I_INT8 = ("granite_moe_3b_a800m",)
+I_F32 = ("granite_moe_3b_a800m",)
+I_BOUND = {"granite_moe_3b_a800m": 1.5, "granite_moe_3b_a800m int8": 1.1,
+           "granite_moe_3b_a800m f32": 1e-5, "mamba2_370m": 7e-2,
+           "recurrentgemma_2b": 4e-3}
+
+
+def serve_run(params, cfg, prompt, new, grid=None, feed=None):
+    """Prefill ``prompt`` (B, P) into a cache of P + ``new`` slots, then
+    ``new`` greedy decode steps, with ``models.forward``: on ``grid``
+    (bound under layout "tp"; ``params`` this rank's shards under the
+    training layout) or in one process. With ``feed`` (B, new) decode
+    step i takes ``feed[:, i]`` in place of the last pick, so two runs
+    decode one sequence. Returns the full-vocab logits (B, new + 1, V) f32
+    of the prompt's last position and of each step, their picks, the
+    prefill's wall, the mean ms a decode step, the cache bytes this rank
+    holds, and the bytes a decode step staged through host memory."""
+    from repro_torch.models import (forward, init_cache, make_positions,
+                                    sharding)
+    dev = prompt.device
+    B, P = prompt.shape
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def full(lg):                       # (B, V / M) -> (B, V)
+        return lg if grid is None else sharding.unshard_leaf(
+            lg, (None, "model"), grid)
+
+    with torch.no_grad(), sharding.set_mesh(grid, "tp"):
+        cache = init_cache(cfg, B, P + new, dev)
+        sync()
+        t = time.perf_counter()
+        lg, cache, _ = forward(params, prompt, make_positions(prompt, cfg),
+                               cfg, cache=cache)
+        logits = [full(lg[:, -1])]
+        sync()
+        prefill_s = time.perf_counter() - t
+        staged = grid.staged_bytes if grid is not None else 0
+        t = time.perf_counter()
+        for i in range(new):
+            tok = logits[-1].argmax(-1) if feed is None else feed[:, i]
+            tok = tok.to(prompt.dtype)[:, None]
+            lg, cache, _ = forward(params, tok,
+                                   make_positions(tok, cfg, offset=P + i),
+                                   cfg, cache=cache)
+            logits.append(full(lg[:, 0]))
+        sync()
+        step_ms = (time.perf_counter() - t) * 1e3 / new
+        staged = (grid.staged_bytes - staged) // new if grid is not None \
+            else 0
+    logits = torch.stack(logits, 1).float()
+    return {"logits": logits, "picks": logits.argmax(-1),
+            "prefill_s": prefill_s, "step_ms": step_ms,
+            "cache_bytes": sum(x.nbytes for c in cache for x in c.values()),
+            "staged": staged}
+
+
+def serve_compare(one, got):
+    """``got`` (a grid's :func:`serve_run` fed ``one``'s picks) against
+    ``one``: max |dlogit| / max |logit| at each position, whether the
+    picks are equal, and at each position where they differ the 1x1 run's
+    top-two gap over its max |logit|."""
+    scale = one["logits"].abs().amax(dim=(0, 2))              # (new + 1,)
+    err = ((got["logits"] - one["logits"]).abs().amax(dim=(0, 2))
+           / scale).tolist()
+    top = one["logits"].topk(2, dim=-1).values
+    differ = got["picks"] != one["picks"]                     # (B, new + 1)
+    gap = torch.where(differ, (top[..., 0] - top[..., 1]) / scale, 0.0
+                      ).amax(dim=0).tolist()
+    at = differ.any(dim=0).tolist()
+    return {"err": err, "equal": not any(at),
+            "ties": {i: gap[i] for i, d in enumerate(at) if d}}
+
+
+def serve_family(grid, cfg, shards, serve=I_SERVE, int8=False, f32=False):
+    """Phase 16 (i) for one family on this rank: the (h) run's final
+    ``shards`` gathered, rank 0 runs :func:`serve_run` in one process,
+    then every rank on the grid fed rank 0's picks (bf16 activations and
+    KV cache; with ``int8`` an int8 KV cache too, with ``f32`` f32
+    activations and cache too). Host values: per variant the
+    comparison (rank 0), walls, cache and staged bytes, the layout's
+    cache bytes a rank and the grid run's picks' digest."""
+    from repro_torch.launch import specs as specs_mod
+    from repro_torch.models import cache_spec, sharding
+    from repro_torch.models.model import shard_specs
+    B, P, new = serve
+    dev = grid.device
+    full = sharding.unshard(shards, shard_specs(cfg, grid, "tp"), grid)
+    if grid.rank:
+        full = None
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=torch.
+                           Generator().manual_seed(I_SEED)).to(dev)
+    out = {}
+    variants = [("bf16", cfg)]
+    if int8:
+        variants.append(("int8", dataclasses.replace(
+            cfg, kv_cache_dtype="int8")))
+    if f32:
+        variants.append(("f32", dataclasses.replace(cfg, dtype="float32")))
+    for name, c in variants:
+        one = serve_run(full, c, prompt, new) if grid.rank == 0 else None
+        picks = one["picks"] if one else torch.zeros(
+            (B, new + 1), dtype=torch.int64, device=dev)
+        feed = grid.world.all_gather(picks)[0]
+        got = serve_run(shards, c, prompt, new, grid, feed)
+        whole = cache_spec(c, B, P + new)
+        row = {"prefill_s": round(got["prefill_s"], 4),
+               "step_ms": round(got["step_ms"], 3),
+               "cache_bytes": got["cache_bytes"], "staged": got["staged"],
+               "layout_bytes": specs_mod.tree_bytes(
+                   whole, sharding.cache_specs(whole, grid), grid),
+               "tokens": digest(got["picks"])}
+        if one:
+            row.update(serve_compare(one, got))
+            row.update(one_prefill_s=round(one["prefill_s"], 4),
+                       one_step_ms=round(one["step_ms"], 3),
+                       one_cache_bytes=one["cache_bytes"])
+        del one, got
+        out[name] = row
+    return out
 
 
 def phase16_rank(mesh, spec):
-    """One rank of phase 16 (f), (g) or (h) (``core.mesh.launch``'s
+    """One rank of phase 16 (f), (g) or (h) and (i) (``core.mesh.launch``'s
     target, a spawned process): ``launch.train``'s own rank entry
     (``_rank``) on ``spec["argv"]``, once per entry of ``spec["runs"]``
     (extra argv, the config built from both), its ``mesh_train_step``
@@ -3478,10 +3624,12 @@ def phase16_rank(mesh, spec):
     of all of them after the last step), and with ``spec["batches"]`` in
     place of the selection's. With ``spec["one"]`` rank 0 first runs
     ``launch.train``'s 1x1 path (``_train`` without a mesh) on the same
-    argv in this process: the same bigram batches. Returns host values:
-    per run the log, walls, staged bytes, digests, the param and AdamW
-    state bytes this rank held and its peak memory (and the 1x1 run's
-    log, walls and peak); this rank's peak memory over the runs."""
+    argv in this process: the same bigram batches. With ``spec["serve"]``
+    each run goes on to (i) on its final params (:func:`serve_family`).
+    Returns host values: per run the log, walls, staged bytes, digests,
+    the param and AdamW state bytes this rank held and its peak memory
+    (and the 1x1 run's log, walls and peak, and (i)'s numbers); this
+    rank's peak memory over the runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch import tree as tree_mod
@@ -3495,6 +3643,7 @@ def phase16_rank(mesh, spec):
             torch.cuda.synchronize(mesh.device)
 
     runs = []
+    last = {}                  # the mesh run's newest params
     real = launch_train.mesh_train_step
     real_one = launch_train.make_train_step
 
@@ -3521,6 +3670,7 @@ def phase16_rank(mesh, spec):
 
         def run(params, opt, batch, i):
             cur = runs[-1]
+            last["params"] = params
             if not cur["held"]:
                 cur["held"]["params"] = sum(x.nbytes for x in
                                             tree_mod.leaves(params))
@@ -3529,6 +3679,7 @@ def phase16_rank(mesh, spec):
             sync()
             staged, t = mesh.staged_bytes, time.perf_counter()
             out = step(params, opt, batch, i)
+            last["params"] = out[0]
             sync()
             cur["walls"].append(round(time.perf_counter() - t, 4))
             cur["staged"].append(mesh.staged_bytes - staged)
@@ -3565,6 +3716,10 @@ def phase16_rank(mesh, spec):
             torch.cuda.reset_peak_memory_stats(mesh.device)
         runs[-1]["log"] = launch_train._rank(mesh, vars(args), cfg, None)
         runs[-1]["peak"] = peak()
+        if spec.get("serve"):
+            runs[-1]["serve"] = serve_family(
+                mesh, cfg, last.pop("params"), spec["serve"],
+                int8=extra[1] in I_INT8, f32=extra[1] in I_F32)
     return {"coords": mesh.coords, "runs": runs,
             "peak": max(r["peak"] for r in runs)}
 
@@ -3707,8 +3862,61 @@ def launch_train_mesh(dev, smi, batches, a_row, mb2, digests, get=None):
     return row
 
 
+def serve_check(arch, ranks, smi, digests, bounds, serve=I_SERVE):
+    """Phase 16 (i) of one family, read from the ranks' ``serve``
+    results: per variant the cache bytes a rank its layout shards' and
+    under one process's, every position's logits within the variant's
+    bound (``bounds``, by tag) of the 1x1 run's, picks equal but at near
+    ties (a top-two gap within twice the bound), every rank's picks the
+    same; the grid's picks go to ``digests``. Returns the numbers it
+    prints."""
+    out = {}
+    for name, r0 in ranks[0].items():
+        tag = arch if name == "bf16" else f"{arch} {name}"
+        label = f"phase 16 (i) {tag}"
+        bound = bounds[tag]
+        rs = [r[name] for r in ranks]
+        check(all(r["cache_bytes"] == r["layout_bytes"] for r in rs)
+              and r0["cache_bytes"] < r0["one_cache_bytes"],
+              f"{label}: cache bytes {[r['cache_bytes'] for r in rs]} a "
+              f"rank against the layout's {r0['layout_bytes']} and 1x1's "
+              f"{r0['one_cache_bytes']}")
+        check(all(math.isfinite(e) and e <= bound for e in r0["err"]),
+              f"{label}: max |dlogit| / max |logit| {r0['err']} (bound "
+              f"{bound})")
+        check(all(g <= 2 * bound for g in r0["ties"].values()),
+              f"{label}: picks differ from the 1x1 run's at positions "
+              f"{r0['ties']} (top-two gap over max |logit|), beyond near "
+              f"ties of {2 * bound}")
+        check(len({r["tokens"] for r in rs}) == 1,
+              f"{label}: the ranks' picks differ")
+        digests[f"serve 1x2 {tag} tokens"] = r0["tokens"]
+        out[name] = {k: r0[k] for k in (
+            "prefill_s", "one_prefill_s", "step_ms", "one_step_ms",
+            "cache_bytes", "one_cache_bytes", "layout_bytes", "staged",
+            "err", "equal", "ties", "tokens")}
+        out[name]["rank_step_ms"] = [r["step_ms"] for r in rs]
+        first = min(r0["ties"]) if r0["ties"] else None
+        print(f"  (i) {tag}: prefill of {serve[0]} x {serve[1]} tokens "
+              f"and {serve[2]} decode steps on 1x2 ({smi}): prefill "
+              f"{r0['prefill_s']} s (1x1 {r0['one_prefill_s']} s), "
+              f"{out[name]['rank_step_ms']} ms a decode step a rank (1x1 "
+              f"{r0['one_step_ms']}), cache {r0['cache_bytes'] / 1e6:.3f} "
+              f"MB a rank (1x1 {r0['one_cache_bytes'] / 1e6:.3f}; the "
+              f"layout's shard {r0['layout_bytes'] / 1e6:.3f}), staged "
+              f"{r0['staged'] / 1e6:.3f} MB a decode step a rank; max "
+              f"|dlogit| / max |logit| prefill {r0['err'][0]:.3g}, decode "
+              f"steps {[float(f'{e:.3g}') for e in r0['err'][1:]]} (bound "
+              f"{bound}); picks "
+              + ("equal" if r0["equal"] else
+                 f"first differ at position {first} (top-two gap "
+                 f"{r0['ties'][first]:.3g})")
+              + f"; tokens {r0['tokens']}")
+    return out
+
+
 def launch_train_mixers(dev, smi, digests, runs=H_RUNS, argv=H_ARGV,
-                        beside=None):
+                        beside=None, serve=I_SERVE, bounds=None):
     """Phase 16 (h): ``launch.train``'s ranks on an H_MESH mesh sharing
     the card (``phase16_rank``) for each (architecture, layers) of
     ``runs`` at its published widths on ``argv``, rank 0 running the
@@ -3716,10 +3924,12 @@ def launch_train_mixers(dev, smi, digests, runs=H_RUNS, argv=H_ARGV,
     of the 1x1's, every rank's log the same, leaves some rank beside it holds
     bit-equal, the param and AdamW bytes a rank its shards' and at most
     H_HELD_MAX of 1x1's; a fingerprint of each family's final state
-    (every rank's leaves, in rank order) goes to ``digests``. The ranks
-    are launched from a thread of their own while ``beside()`` (if given)
-    runs here, and are read after it. Returns (the numbers it prints,
-    what ``beside`` returned)."""
+    (every rank's leaves, in rank order) goes to ``digests``. Then (i)
+    on the same ranks and params, with ``serve`` (batch, prompt, decode
+    steps; :func:`serve_family`, :func:`serve_check`, ``bounds`` by tag
+    in place of I_BOUND). The ranks are launched from a thread of their own
+    while ``beside()`` (if given) runs here, and are read after it.
+    Returns (the numbers it prints, what ``beside`` returned)."""
     import threading
     from repro_torch import tree as tree_mod
     from repro_torch.core.mesh import launch
@@ -3731,7 +3941,7 @@ def launch_train_mixers(dev, smi, digests, runs=H_RUNS, argv=H_ARGV,
     grid = make_mesh(H_MESH, ("data", "model"))
     spec = {"argv": argv + ["--device", str(dev), "--mesh", mesh_arg],
             "runs": [["--arch", a, "--layers", str(n)] for a, n, _ in runs],
-            "one": True}
+            "one": True, "serve": serve}
     got = {}
 
     def run():
@@ -3815,8 +4025,12 @@ def launch_train_mixers(dev, smi, digests, runs=H_RUNS, argv=H_ARGV,
               f"share {r['param_share']}), staged "
               f"{r['staged_mb_per_step']} MB a step a rank, final state "
               f"{fp}")
-    print(f"  (h) wall {wall:.3f} s" + (" (beside (b) and (c))"
-                                         if beside is not None else ""))
+        r["serve"] = serve_check(extra[1], [m["serve"] for m in mine], smi,
+                                 digests,
+                                 I_BOUND if bounds is None else bounds,
+                                 serve)
+    print(f"  (h) and (i) wall {wall:.3f} s"
+          + (" (beside (b) and (c))" if beside is not None else ""))
     return {"runs": rows, "wall_s": round(wall, 3)}, other
 
 
@@ -3826,10 +4040,11 @@ def phase16(seed, dev, smi, counts, checks, dry, hw, digests, get=None):
     crash and resume, (c) two ranks, (d) the serving launcher, (e) the dry
     run (``dry``: :func:`dryrun_start`'s process and file), (f) and (g)
     the trainer on (data, model) meshes (:func:`launch_train_mesh`; adds
-    a digest), (h) the MoE, SSD and RG-LRU families on a 1x2 mesh
-    (:func:`launch_train_mixers`; adds a digest a family). ``get`` replaces ``configs.get_reduced`` where (b), (c)
-    and (g) restore their checkpoints. Returns each kernel's launches in
-    (a)."""
+    a digest), (h) the MoE, SSD and RG-LRU families on a 1x2 mesh and
+    (i) their prefill and decode there (:func:`launch_train_mixers`; adds
+    two digests a family, and granite-moe's int8 and f32 runs' two).
+    ``get`` replaces ``configs.get_reduced`` where (b), (c) and (g)
+    restore their checkpoints. Returns each kernel's launches in (a)."""
     t_phase = time.perf_counter()
     print(f"phase 16: the launchers ({smi})")
     total, keep = {}, {}

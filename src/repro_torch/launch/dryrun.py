@@ -62,6 +62,7 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.shapes import SHAPES, all_cells, cells_for
 from repro_torch.launch import specs as specs_mod
 from repro_torch.models.layers import torch_dtype
+from repro_torch.models import sharding
 from repro_torch.models.sharding import resolve
 from repro_torch.roofline.report import H100_SXM, build_report, detect
 from repro_torch.roofline.trace import Analysis, collective_link
@@ -209,10 +210,9 @@ def _out_specs(cell, out):
     if cell.shape.kind == "train":
         return (cell.specs[0], cell.specs[1], {k: () for k in out[2]})
     logits, cache = out
-    lspec = specs_mod._divisible_spec(("batch", "model"),
-                                      tuple(logits.shape), mesh,
-                                      cell.layout)
-    return (lspec, specs_mod._cache_shardings(cache, mesh))
+    lspec = sharding.divisible_spec(("batch", "model"), tuple(logits.shape),
+                                    mesh, cell.layout)
+    return (lspec, sharding.cache_specs(cache, mesh))
 
 
 def _aliased(cell, out) -> int:
@@ -229,7 +229,7 @@ def _aliased(cell, out) -> int:
 def _rank_cell(cell):
     """The cell at one rank's batch (the global batch over the batch
     axes it shards over), with the same microbatches and config."""
-    bspec = specs_mod._divisible_spec(
+    bspec = sharding.divisible_spec(
         ("batch",), (cell.shape.global_batch,), cell.mesh, cell.layout)[0]
     shape = dataclasses.replace(cell.shape, global_batch=(
         cell.shape.global_batch // specs_mod.ways(bspec, cell.mesh)))

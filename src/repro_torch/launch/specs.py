@@ -28,9 +28,11 @@ from repro_torch import configs
 from repro_torch import tree as tree_mod
 from repro_torch.launch.shapes import SHAPES, ShapeSpec
 from repro_torch.models import (cache_spec, forward, init_cache,
-                                make_positions, param_spec)
+                                make_positions, param_spec, sharding)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import param_specs, resolve, set_mesh
+from repro_torch.models.sharding import (cache_specs, divisible_spec,
+                                         param_specs, set_mesh, shard_shape,
+                                         ways)
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import TrainConfig, make_train_step
 
@@ -42,23 +44,6 @@ def axes(entry) -> Tuple[str, ...]:
     """The mesh axes of one spec entry (a name, a tuple of names or
     None)."""
     return (entry,) if isinstance(entry, str) else tuple(entry or ())
-
-
-def ways(entry, mesh) -> int:
-    """How many ways one spec entry splits its dim."""
-    return math.prod(mesh.shape[a] for a in axes(entry))
-
-
-def shard_shape(shape, spec, mesh) -> Tuple[int, ...]:
-    """The per-device shape of a ``shape`` laid out by ``spec``."""
-    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
-    out = []
-    for n, entry in zip(shape, spec):
-        w = ways(entry, mesh)
-        if n % w:
-            raise ValueError(f"dim {n} does not split {w} ways ({spec})")
-        out.append(n // w)
-    return tuple(out)
 
 
 def shard_bytes(t: torch.Tensor, spec, mesh) -> int:
@@ -80,46 +65,6 @@ def spec_leaves(specs: PyTree) -> List[tuple]:
     if isinstance(specs, list):
         return [s for v in specs for s in spec_leaves(v)]
     return [specs]
-
-
-def _divisible_spec(dims, shape, mesh, layout: str = "tp") -> tuple:
-    fixed = []
-    for d, size in zip(dims, shape):
-        r = resolve(d, mesh, layout)
-        total = ways(r, mesh)
-        fixed.append(r if total > 1 and size % total == 0 else None)
-    return tuple(fixed)
-
-
-def _cache_shardings(cache_abs: PyTree, mesh) -> PyTree:
-    """KV caches: batch over data, *length over model* (flash-decode layout;
-    works for MQA where heads cannot shard). States: heads/width over
-    model."""
-
-    def one(path, leaf):
-        last = path[-1]
-        lead = len(leaf.shape)
-
-        def dims(*ds):
-            return (None,) * (lead - len(ds)) + ds
-
-        if last in ("k", "v"):
-            d = dims("data", "model", None, None)
-        elif last in ("k_scale", "v_scale"):
-            d = dims("data", "model", None)
-        elif last == "pos":
-            d = dims("data", "model")
-        elif last == "conv":
-            d = dims("data", None, "model")
-        elif last == "ssm":
-            d = dims("data", "model", None, None)
-        elif last == "h":
-            d = dims("data", "model")
-        else:
-            d = (None,) * lead
-        return _divisible_spec(d, leaf.shape, mesh)
-
-    return _map_with_path(one, cache_abs)
 
 
 def _map_with_path(fn, tree, path=()):
@@ -181,38 +126,68 @@ def _lead(name: str, rows: List[List[int]]):
 
 def stacked_params(params: PyTree, cfg: ModelConfig) -> PyTree:
     """The port's params (layers a list) as the reference's tree: the
-    layers of each run in one tensor with leading (n_periods[, run_len])
-    dims, ``layers/scan/<run>`` and ``layers/rem/<run>``. Meta tensors in,
-    meta tensors out."""
+    layers of each run stacked in one tensor with leading (n_periods[,
+    run_len]) dims, ``layers/scan/<run>`` and ``layers/rem/<run>`` (meta
+    tensors in, meta tensors out)."""
     out = {k: v for k, v in params.items() if k != "layers"}
     layers: Dict[str, Dict[str, Any]] = {"scan": {}, "rem": {}}
     for name, rows in _layer_groups(cfg).items():
         lead = _lead(name, rows)
-        one = params["layers"][rows[0][0]]
         part, run = name.split("/")
         layers[part][run] = tree_mod.map(
-            lambda x: torch.empty(lead + tuple(x.shape), dtype=x.dtype,
-                                  device=x.device), one)
+            lambda *xs: torch.stack(xs).reshape(lead + tuple(xs[0].shape)),
+            *(params["layers"][i] for row in rows for i in row))
     out["layers"] = {k: v for k, v in layers.items() if v}
     return out
+
+
+def _views(name: str, rows: List[List[int]], sub: PyTree):
+    """(layer index, its per-layer view of the stacked tree ``sub``) for
+    each layer of the group ``name``."""
+    part = name.split("/")[0]
+    lead = _lead(name, rows)
+    for p, row in enumerate(rows):
+        for j, i in enumerate(row):
+            index = (p, j)[:len(lead)] if part == "scan" else (j,)[
+                :len(lead)]
+            yield i, tree_mod.map(lambda x: x[index], sub)
 
 
 def per_layer_views(stacked: PyTree, cfg: ModelConfig) -> PyTree:
     """The port's params as views of :func:`stacked_params`' tensors: an
     in-place update of a view updates the stacked argument."""
     out = {k: v for k, v in stacked.items() if k != "layers"}
-    layers: List[Any] = [None] * cfg.n_layers
+    out["layers"] = [None] * cfg.n_layers
     for name, rows in _layer_groups(cfg).items():
         part, run = name.split("/")
-        sub = stacked["layers"][part][run]
-        lead = _lead(name, rows)
-        for p, row in enumerate(rows):
-            for j, i in enumerate(row):
-                index = (p, j)[:len(lead)] if part == "scan" else (j,)[
-                    :len(lead)]
-                layers[i] = tree_mod.map(lambda x: x[index], sub)
-    out["layers"] = layers
+        for i, view in _views(name, rows, stacked["layers"][part][run]):
+            out["layers"][i] = view
     return out
+
+
+def layer_shards(stacked: PyTree, specs: PyTree, cfg: ModelConfig, grid
+                 ) -> Tuple[PyTree, PyTree]:
+    """This rank's shards of :func:`stacked_params` under ``specs`` as the
+    port's per-layer params and their spec tree (``forward``'s
+    ``specs``): a stacking dim cut over an axis is all-gathered first
+    (the reference's rules cut the stacked dim of a 1-d leaf), every
+    other dim stays as it comes."""
+    out = {k: v for k, v in stacked.items() if k != "layers"}
+    out_specs = {k: v for k, v in specs.items() if k != "layers"}
+    out["layers"] = [None] * cfg.n_layers
+    out_specs["layers"] = [None] * cfg.n_layers
+    for name, rows in _layer_groups(cfg).items():
+        part, run = name.split("/")
+        n = len(_lead(name, rows))
+        spec_t = specs["layers"][part][run]
+        sub = tree_mod.map(
+            lambda x, sp: sharding.unshard_leaf(x, tuple(sp[:n]), grid),
+            stacked["layers"][part][run], spec_t)
+        for i, view in _views(name, rows, sub):
+            out["layers"][i] = view
+            out_specs["layers"][i] = _map_specs(lambda sp: tuple(sp[n:]),
+                                                spec_t)
+    return out, out_specs
 
 
 # -- cells ---------------------------------------------------------------------
@@ -301,16 +276,20 @@ def build_cell(arch: str, shape_name, mesh,
     cfg = cfg_override or configs.get(arch)
     params_abs = stacked_params(param_spec(cfg), cfg)
     pshard = param_specs(params_abs, mesh, layout)
-    batch_spec = _divisible_spec(("batch", None),
-                                 (shape.global_batch, shape.seq_len), mesh,
-                                 layout)
+    batch_spec = divisible_spec(("batch", None),
+                                (shape.global_batch, shape.seq_len), mesh,
+                                layout)
 
-    def stepped(fn):
-        """``fn`` on the per-layer views of the stacked parameters, under
-        the mesh."""
+    def stepped(fn, pspecs):
+        """``fn`` on the per-layer views of the stacked parameters and
+        their specs, under the mesh: on a grid of ranks the arguments are
+        this rank's shards under the cell's specs (:func:`layer_shards`)."""
         def run(params, *rest):
             with set_mesh(mesh, layout):
-                return fn(per_layer_views(params, cfg), *rest)
+                grid = sharding.bound_grid()
+                if grid is None:
+                    return fn(per_layer_views(params, cfg), None, *rest)
+                return fn(*layer_shards(params, pspecs, cfg, grid), *rest)
         return run
 
     if shape.kind == "train":
@@ -355,15 +334,16 @@ def build_cell(arch: str, shape_name, mesh,
         if cache_bytes0 > 2.5e9 and cfg.kv_cache_dtype != "int8":
             cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
 
-        def prefill(params, tokens):
-            B = tokens.shape[0]
-            cache = init_cache(cfg, B, shape.seq_len, device=tokens.device)
+        def prefill(params, specs, tokens):
+            cache = init_cache(cfg, shape.global_batch, shape.seq_len,
+                               device=tokens.device)
             pos = make_positions(tokens, cfg)
             logits, cache, _ = forward(params, tokens, pos, cfg,
-                                       cache=cache)
+                                       cache=cache, specs=specs)
             return logits[:, -1], cache
 
-        return Cell(arch, shape, cfg, stepped(prefill), (params_sds, tokens),
+        return Cell(arch, shape, cfg, stepped(prefill, pshard),
+                    (params_sds, tokens),
                     donate=(), specs=(pshard, batch_spec), mesh=mesh,
                     layout=layout)
 
@@ -376,21 +356,22 @@ def build_cell(arch: str, shape_name, mesh,
     if cache_bytes > 2.5e9 and cfg.kv_cache_dtype != "int8":
         cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
         cache_abs = cache_spec(cfg, shape.global_batch, shape.seq_len)
-    cache_sh = _cache_shardings(cache_abs, mesh)
+    cache_sh = cache_specs(cache_abs, mesh)
     token = _meta((shape.global_batch, 1), torch.int32)
-    tok_spec = _divisible_spec(("batch", None), (shape.global_batch, 1),
-                               mesh)
+    tok_spec = divisible_spec(("batch", None), (shape.global_batch, 1),
+                              mesh)
     positions = _meta((shape.global_batch,), torch.int32)
-    pos_spec = _divisible_spec(("batch",), (shape.global_batch,), mesh)
+    pos_spec = divisible_spec(("batch",), (shape.global_batch,), mesh)
 
-    def decode(params, token, positions, cache):
+    def decode(params, specs, token, positions, cache):
         pos = positions[:, None]
         if cfg.mrope_sections is not None:
             pos = pos[:, None, :].expand(token.shape[0], 3, 1)
-        logits, cache, _ = forward(params, token, pos, cfg, cache=cache)
+        logits, cache, _ = forward(params, token, pos, cfg, cache=cache,
+                                   specs=specs)
         return logits[:, 0], cache
 
-    return Cell(arch, shape, cfg, stepped(decode),
+    return Cell(arch, shape, cfg, stepped(decode, pshard),
                 (params_sds, token, positions, cache_abs), donate=(3,),
                 specs=(pshard, tok_spec, pos_spec, cache_sh), mesh=mesh,
                 layout=layout)

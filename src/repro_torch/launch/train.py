@@ -133,9 +133,10 @@ def main(argv=None, *, state=None):
     cfg = build_cfg(args)
     if ranks == 1:
         return _train(args, cfg, dev, state)
-    if args.batch % data_ways:
+    if args.batch % (data_ways * args.microbatches):
         raise ValueError(f"--batch {args.batch} does not split over "
-                         f"{data_ways} data ranks")
+                         f"{data_ways} data ranks in {args.microbatches} "
+                         f"microbatches")
     sharding.check_model(cfg, model_ways, args.seq)
     from repro_torch.core.mesh import launch
     if state is not None:
@@ -208,7 +209,7 @@ def _train(args, cfg, dev, state=None, mesh=None):
     fail_at = int(os.environ.get("REPRO_FAIL_AT_STEP", "-1"))
     data_ways = 1 if mesh is None else mesh.shape["data"]
     with sharding.set_mesh(mesh):
-        rows = sharding.batch_rows(args.batch)
+        rows = sharding.batch_rows(args.batch, args.microbatches)
 
     sel_batches = None
     if args.data_selection == "coreset":

@@ -8,7 +8,10 @@ the norms and the residual adds hold this rank's L / M tokens: the
 sequence is all-gathered after a pre-norm and the mixer's or the MLP's
 row-parallel partial sums (attention, SSD, RG-LRU, dense MLP, the MoE's
 combine over this rank's experts) are reduce-scattered back (in f32,
-rounded once to the stream's dtype) before the post-norm."""
+rounded once to the stream's dtype) before the post-norm; where the
+sequence runs whole on every rank (``sharding.seq_axis()`` None: a
+cache's prefill or decode of a length that does not split) they are
+summed over ``model`` instead."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -61,14 +64,16 @@ def block_init(key: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
 
 
 def block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, kind: str, cache: Optional[Params] = None
+                cfg: ModelConfig, kind: str, cache: Optional[Params] = None,
+                cut: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Returns (x, new_cache, aux_loss)."""
+    """Returns (x, new_cache, aux_loss). ``cut``: whether an attention
+    cache's length is cut over ``model`` (``sharding.length_cut``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = sharding.seq_gather(rmsnorm_apply(p["ln1"], x, cfg.rms_eps))
     if kind in ("attn", "local"):
         h, new_cache = attention_apply(p["attn"], h, positions, cfg, kind,
-                                       cache)
+                                       cache, cut=cut)
     elif kind == "ssd":
         h, new_cache = ssd_apply(p["ssd"], h, cfg, cache)
     else:  # rglru
@@ -92,7 +97,16 @@ def block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
 
 
 def block_cache_init(batch: int, max_len: int, cfg: ModelConfig, kind: str,
-                     device=None) -> Params:
+                     device=None, grid=None) -> Params:
+    """An empty cache of one layer: zeros, every slot's ``pos`` -1. On a
+    ``grid`` this rank's shard of it under ``sharding.cache_specs``,
+    allocated at the shard's shape."""
+    if grid is not None:
+        full = block_cache_init(batch, max_len, cfg, kind, "meta")
+        specs = sharding.cache_specs(full, grid)
+        return {k: torch.full(sharding.shard_shape(v.shape, specs[k], grid),
+                              -1 if k == "pos" else 0, dtype=v.dtype,
+                              device=device) for k, v in full.items()}
     if kind == "attn":
         return AttnCacheSpec(max_len).init(batch, cfg, device)
     if kind == "local":

@@ -19,8 +19,8 @@ A cache passed to :func:`attention_apply` is written in place (prefill and
 decode alike) and returned.
 
 Tensor parallelism (``sharding.model_axis()`` bound: layout "tp", M > 1
-ranks on ``model``; training and scoring, no cache). The layers run on
-this rank's slices of the weights, as ``param_specs`` cuts them:
+ranks on ``model``). The layers run on this rank's slices of the
+weights, as ``param_specs`` cuts them:
 
 * ``wq`` / ``wk`` / ``wv``, ``w_gate`` / ``w_in`` are column-parallel (this
   rank's heads, this rank's d_ff / M columns; a bias, replicated, is
@@ -50,6 +50,19 @@ uses for its own channels, so its backward sums the gradient over
 MoE's load-balance loss, computed the same on every rank of ``model``
 from the gathered sequence, would send its gradient M times, so each
 rank takes its own L / M tokens' share of it.
+
+A cache under tensor parallelism (``sharding.GridCache``) holds a KV
+cache's length cut over ``model``: rank r the slots [r S / M, (r + 1) S
+/ M) of every kv head (the whole cache where S does not split). Prefill
+runs the attention as training does and hands each rank its slots'
+keys and values of every kv head (gathered over ``model`` where the rank
+computed its own heads), the local layer's ring keeping slot == pos % S.
+Decode is flash-decode: the new token's q and k / v heads are
+all-gathered over ``model``, the rank holding slot ``cur % S`` writes
+it, every rank attends all heads over its own slots and keeps the
+online-softmax partials (max, sum, f32 accumulator), and the partials,
+all-gathered, are merged in rank order; each rank then takes its own
+heads' rows into ``wo``.
 """
 from __future__ import annotations
 
@@ -268,8 +281,16 @@ def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
     theta = cfg.rope_theta_local if kind == "local" else cfg.rope_theta
     q = apply_rope(q, positions, theta, cfg.mrope_sections)
     k = apply_rope(k, positions, theta, cfg.mrope_sections)
-    k, v = _own_kv_heads(k, v, cfg)
     return q, k, v
+
+
+def _all_kv_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
+    """Every kv head of K and V: all-gathered over ``model`` where this
+    rank computed its own."""
+    if k.shape[2] == cfg.n_kv_heads:
+        return k, v
+    ax = sharding.model_axis()
+    return sharding.gather(k, ax, 2), sharding.gather(v, ax, 2)
 
 
 def _fit_chunk(chunk: int, length: int) -> int:
@@ -433,15 +454,22 @@ class AttnCacheSpec:
 def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
                     cfg: ModelConfig, kind: str,
                     cache: Optional[Params] = None, q_chunk: int = 2048,
-                    kv_chunk: int = 4096):
+                    kv_chunk: int = 4096, cut: bool = False):
     """Modes: cache is None -> training/scoring full pass (returns y, None).
     cache given & L > 1 -> prefill (fills the cache). cache given & L == 1
-    -> single-token decode (updates the ring cache)."""
+    -> single-token decode (updates the ring cache). Under tensor
+    parallelism ``cut`` says whether the cache's length is cut over
+    ``model`` (``sharding.length_cut``)."""
     B, L, _ = x.shape
-    q, k, v = _qkv(p, x, positions, cfg, kind)
+    q, k_held, v_held = _qkv(p, x, positions, cfg, kind)
+    k, v = _own_kv_heads(k_held, v_held, cfg)
 
     int8_cache = cfg.kv_cache_dtype == "int8"
-    if cache is not None and L == 1:
+    ax = sharding.model_axis()
+    if cache is not None and L == 1 and ax is not None:
+        k, v = _all_kv_heads(k_held, v_held, cfg)
+        y = _decode_on_grid(q, k, v, cache, positions, cfg, kind, cut, ax)
+    elif cache is not None and L == 1:
         cur = positions[:, -1] if positions.dim() == 2 else positions[:, 0, -1]
         S = cache["pos"].shape[1]
         slot = (cur % S).long()                                  # (B,)
@@ -478,19 +506,33 @@ def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
                                 kv_chunk).reshape(q.shape)
         else:
             y = _attention_rect(q, k, v, q_pos, q_pos, cfg, kv_chunk)
-        if cache is not None:
+        if cache is not None and ax is not None:
+            k, v = _all_kv_heads(k_held, v_held, cfg)
+            _prefill_cache(cache, k, v, q_pos, int8_cache,
+                           *_slots(cache, cut, ax))
+        elif cache is not None:
             _prefill_cache(cache, k, v, q_pos, int8_cache)
 
     y = y.reshape(B, L, -1)
     return _row_apply(p["wo"], y), cache
 
 
-def _prefill_cache(cache: Params, k, v, q_pos, int8_cache: bool) -> None:
-    """Write a prefill's keys and values into ``cache``: the first L slots,
-    or, when the sequence is longer than the cache (a local layer's ring),
-    its last S tokens aligned so that slot == pos % S."""
+def _slots(cache: Params, cut: bool, ax) -> Tuple[int, int]:
+    """(first slot this rank holds, slots of the whole cache): rank r's
+    S / M where the length is cut over ``model``, else all of them."""
+    s = cache["pos"].shape[1]
+    return (ax.rank * s, s * ax.size) if cut else (0, s)
+
+
+def _prefill_cache(cache: Params, k, v, q_pos, int8_cache: bool,
+                   lo: int = 0, S: Optional[int] = None) -> None:
+    """Write a prefill's keys and values into ``cache``, which holds slots
+    ``lo`` .. of a cache of ``S`` (default: all of them): the first L
+    slots, or, when the sequence is longer than the cache (a local layer's
+    ring), its last S tokens aligned so that slot == pos % S."""
     B, L = k.shape[:2]
-    S = cache["pos"].shape[1]
+    s = cache["pos"].shape[1]
+    S = s if S is None else S
     kw, vw = k, v
     payload = {}
     if int8_cache:
@@ -500,10 +542,74 @@ def _prefill_cache(cache: Params, k, v, q_pos, int8_cache: bool) -> None:
     payload["pos"] = q_pos.to(torch.int32)[None].expand(B, L)
     for name, val in payload.items():
         if S >= L:
-            cache[name][:, :L] = val.to(cache[name].dtype)
+            n = min(max(L - lo, 0), s)
+            cache[name][:, :n] = val[:, lo:lo + n].to(cache[name].dtype)
         else:
-            shift = (L - S) % S
-            cache[name].copy_(torch.roll(val[:, L - S:], shift, dims=1))
+            # slot j holds the position in [L - S, L) that is j mod S
+            j = torch.arange(lo, lo + s, device=val.device)
+            cache[name].copy_(val[:, L - S + (j - (L - S)) % S])
+
+
+def _decode_on_grid(q, k, v, cache: Params, positions, cfg: ModelConfig,
+                    kind: str, cut: bool, ax) -> torch.Tensor:
+    """One decode step against a cache whose length is cut over ``model``
+    (``cut``) or whole on every rank: q (B, 1, H / M, hd) this rank's
+    heads, k / v (B, 1, KV, hd) every kv head. Returns this rank's heads'
+    attention output (B, 1, H / M, hd)."""
+    B, _, hq, hd = q.shape
+    q = sharding.gather(q, ax, 2)                        # (B, 1, H, hd)
+    cur = positions[:, -1] if positions.dim() == 2 else positions[:, 0, -1]
+    lo, S = _slots(cache, cut, ax)
+    s = cache["pos"].shape[1]
+    slot = (cur % S).long() - lo
+    mine = (slot >= 0) & (slot < s)                      # this rank's rows
+    bidx = torch.arange(B, device=q.device)
+    slot = slot.clamp(0, s - 1)
+
+    def put(name, val):
+        old = cache[name][bidx, slot]
+        keep = mine.reshape((B,) + (1,) * (old.dim() - 1))
+        cache[name][bidx, slot] = torch.where(keep, val.to(old.dtype), old)
+
+    if cfg.kv_cache_dtype == "int8":
+        kq, ksc = _quant_kv(k[:, 0])
+        vq, vsc = _quant_kv(v[:, 0])
+        put("k", kq)
+        put("v", vq)
+        put("k_scale", ksc)
+        put("v_scale", vsc)
+        k_cache = _dequant_kv(cache["k"], cache["k_scale"], k.dtype)
+        v_cache = _dequant_kv(cache["v"], cache["v_scale"], v.dtype)
+    else:
+        put("k", k[:, 0])
+        put("v", v[:, 0])
+        k_cache, v_cache = cache["k"], cache["v"]
+    put("pos", cur.to(torch.int32))
+
+    # this rank's slots, every head: the online-softmax partials
+    KV = k_cache.shape[2]
+    H = q.shape[2]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    sc = _scores(qg, k_cache, cfg.attn_logit_softcap)     # (B,KV,G,1,s)
+    slot_pos = cache["pos"]
+    valid = (slot_pos >= 0) & (slot_pos <= cur[:, None])
+    if kind == "local":
+        valid &= slot_pos > (cur[:, None] - cfg.window)
+    valid = valid[:, None, None, None, :]
+    m = torch.where(valid, sc, _NEG_INF).amax(dim=-1)    # (B,KV,G,1)
+    pr = torch.where(valid, torch.exp(sc - m[..., None]), 0.0)
+    l = pr.sum(dim=-1)
+    acc = _pv(pr, v_cache)                               # (B,1,KV,G,hd)
+    if cut:
+        # the ranks' partials merged in rank order by log-sum-exp
+        ms, ls, accs = (ax.all_gather(t) for t in (m, l, acc))
+        m = ms.amax(dim=0)
+        w = torch.exp(ms - m)                            # (M,B,KV,G,1)
+        l = (w * ls).sum(dim=0)
+        acc = (w.permute(0, 1, 4, 2, 3)[..., None] * accs).sum(dim=0)
+    out = acc / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
+    out = out.reshape(B, 1, H, hd).to(q.dtype)
+    return out[:, :, ax.rank * hq:(ax.rank + 1) * hq]
 
 
 # ---------------------------------------------------------------------------
@@ -544,7 +650,8 @@ def embedding_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig
     """tokens (B, L) -> (B, L, d); under tensor parallelism (B, L / M, d):
     this rank's vocab rows looked up where they hold the token, summed
     over ``model`` and reduce-scattered onto the sequence (every other
-    rank adds zeros, so the sum is the row itself)."""
+    rank adds zeros, so the sum is the row itself); all of (B, L, d)
+    where the sequence runs whole (``sharding.seq_axis()`` None)."""
     ax = sharding.model_axis()
     if ax is None:
         x = p["table"][tokens.long()]
@@ -554,7 +661,8 @@ def embedding_apply(p: Params, tokens: torch.Tensor, cfg: ModelConfig
         mine = (local >= 0) & (local < n)
         x = torch.where(mine[..., None], p["table"][local.clamp(0, n - 1)],
                         0.0)
-        x = sharding.scatter(x, ax, 1)
+        x = (sharding.all_sum(x, ax) if sharding.seq_axis() is None
+             else sharding.scatter(x, ax, 1))
     x = x.to(_dtype(cfg))
     if cfg.emb_scale_by_sqrt_dim:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,

@@ -16,10 +16,18 @@ block's are all-gathered over their FSDP axes inside the block (under
 block), and under tensor parallelism the embedding, the blocks and the
 head run as ``models.layers`` and ``models.blocks`` say, the hidden
 state gathered back to the whole sequence before the head. Tensor
-parallelism covers training and scoring of every family -- attention,
-dense and MoE MLPs (experts split over ``model``), SSD and RG-LRU
-mixers -- where its widths split (``sharding.check_model``); a cache
-under it is ``sharding.TP_LATER``.
+parallelism covers every family -- attention, dense and MoE MLPs
+(experts split over ``model``), SSD and RG-LRU mixers -- where its widths
+split (``sharding.check_model``), in training, scoring, prefill and
+decode. The params come in the layout ``specs`` names: by default the
+training layout's :func:`shard_specs` (FSDP over ``data``); a caller
+whose params are laid out otherwise passes its spec tree (the serving
+cells of ``launch.specs``: bf16, replicated over ``data``), and only the
+dims it cuts over ``data`` are gathered. Prefill and decode on a grid
+take a ``sharding.GridCache`` (:func:`init_cache` under the bound grid:
+the JAX package's serving layout, ``sharding.cache_specs``) and this
+rank's rows of the batch; the logits are this rank's vocab slice, as in
+training.
 
 Works in three modes:
   * train/score:   forward(params, tokens, positions)          -> logits
@@ -116,42 +124,63 @@ def _specs(cfg, names, sizes, layout):
     return sharding.param_specs(param_spec(cfg), shape, layout)
 
 
-def _block(p, specs, x, positions, cfg, kind, cache):
+def _block(p, specs, x, positions, cfg, kind, cache, cut):
     """One block on this rank's shards ``p``: their FSDP dims gathered."""
     return block_apply(sharding.gather_params(p, specs), x, positions, cfg,
-                       kind, cache)
+                       kind, cache, cut)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Cache:
+    """An empty cache for ``batch`` rows of up to ``max_len`` tokens. On a
+    bound grid (layout "tp") a ``sharding.GridCache``: this rank's shards
+    of it under ``sharding.cache_specs``."""
     dev = _device(device)
-    return [block_cache_init(batch, max_len, cfg, kind, dev)
-            for kind in layer_kinds(cfg)]
+    grid = sharding.bound_grid()
+    kinds = layer_kinds(cfg)
+    if grid is None:
+        return [block_cache_init(batch, max_len, cfg, kind, dev)
+                for kind in kinds]
+    if sharding.current_layout() != "tp":
+        raise ValueError("a cache on a grid is laid out under layout 'tp'")
+    full = [block_cache_init(batch, max_len, cfg, kind, "meta")
+            for kind in kinds]
+    return sharding.GridCache(
+        [block_cache_init(batch, max_len, cfg, kind, dev, grid)
+         for kind in kinds], sharding.cache_specs(full, grid))
 
 
 def cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Cache:
-    """The cache's shapes and dtypes, nothing allocated (meta tensors)."""
+    """The cache's shapes and dtypes, nothing allocated (meta tensors);
+    on a bound grid this rank's shards'."""
     return init_cache(cfg, batch, max_len, device="meta")
 
 
 def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
             cfg: ModelConfig, cache: Optional[Cache] = None,
-            remat: str = "none", head: bool = True
+            remat: str = "none", head: bool = True, specs=None
             ) -> Tuple[torch.Tensor, Optional[Cache], torch.Tensor]:
     """Returns (logits (B, L, vocab_padded) f32, cache | None, aux). With
     ``head=False`` the first element is the normalized hidden state
     (B, L, d) instead (the chunked-CE loss applies the head itself). With
     ``remat="full"`` each block's activations are recomputed in the
-    backward instead of kept."""
+    backward instead of kept. ``specs``: the params' spec tree on the
+    bound grid (default :func:`shard_specs`, the training layout)."""
     if remat not in ("none", "full"):
         raise ValueError(f"remat is 'none' or 'full', got {remat!r}")
     tp = sharding.model_axis()
+    whole = False
     if tp is not None:
-        if cache is not None:
-            raise ValueError(f"prefill and decode under tensor parallelism "
-                             f"are {sharding.TP_LATER}")
-        sharding.check_model(cfg, tp.size, tokens.shape[1])
-    specs = shard_specs(cfg)
+        # a cache's prompt that does not split runs whole on every rank
+        whole = cache is not None and tokens.shape[1] % tp.size != 0
+        sharding.check_model(cfg, tp.size,
+                             None if whole else tokens.shape[1])
+    with sharding.whole_sequence(whole):
+        return _forward(params, tokens, positions, cfg, cache, remat, head,
+                        shard_specs(cfg) if specs is None else specs, tp)
+
+
+def _forward(params, tokens, positions, cfg, cache, remat, head, specs, tp):
     sub = (lambda k: None) if specs is None else specs.__getitem__
     x = embedding_apply(sharding.gather_params(params["embed"], sub("embed")),
                         tokens, cfg)
@@ -160,14 +189,16 @@ def forward(params: Params, tokens: torch.Tensor, positions: torch.Tensor,
     recompute = remat == "full" and torch.is_grad_enabled()
     for i, kind in enumerate(layer_kinds(cfg)):
         c = None if cache is None else cache[i]
+        cut = (tp is not None and c is not None
+               and kind in ("attn", "local") and sharding.length_cut(cache, i))
         spec_i = None if specs is None else specs["layers"][i]
         if recompute:
             x, _, a = checkpoint(_block, params["layers"][i], spec_i, x,
-                                 positions, cfg, kind, c,
+                                 positions, cfg, kind, c, cut,
                                  use_reentrant=False)
         else:
             x, _, a = _block(params["layers"][i], spec_i, x, positions, cfg,
-                             kind, c)
+                             kind, c, cut)
         aux_total = aux_total + a
 
     x = sharding.seq_gather(rmsnorm_apply(params["final_norm"], x,

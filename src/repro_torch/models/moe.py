@@ -30,7 +30,11 @@ so the sum over ``model`` is the output itself, not M copies. The
 load-balance loss is computed the same on every rank of ``model``, so
 its gradient would be counted M times: each rank takes the mean
 probabilities over its own L / M tokens and the partial losses are summed
-over ``model`` (``sharding.all_sum``).
+over ``model`` (``sharding.all_sum``). Where the sequence runs whole on
+every rank of ``model`` (prefill of a length that does not split, decode)
+there is no L / M: rank 0 takes every token's share and the others none
+(:func:`_token_share`), so the sum is the unsharded value, not M times
+it.
 """
 from __future__ import annotations
 
@@ -95,6 +99,16 @@ def route(p: Params, x: torch.Tensor, cfg: ModelConfig):
     return probs, gate, idx, pos.reshape(B, L, K), keep.reshape(B, L, K)
 
 
+def _token_share(L: int, ax) -> Tuple[int, int]:
+    """The tokens (lo, hi) this rank of ``model`` accounts for where every
+    rank holds all L: its L / M under sequence parallelism, all of them
+    on rank 0 where the sequence runs whole."""
+    if sharding.seq_axis() is not None:
+        n = L // ax.size
+        return ax.rank * n, (ax.rank + 1) * n
+    return (0, L) if ax.rank == 0 else (0, 0)
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, L, d) -> (y (B, L, d), aux_loss scalar f32); under tensor
@@ -140,9 +154,9 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
         for j in range(K):
             y = y + vals[:, :, j] * scale[:, :, j]
         if ax is not None:                # every rank holds every expert
-            n = L // ax.size
+            lo, hi = _token_share(L, ax)
             mine = torch.zeros((L,), dtype=torch.bool, device=x.device)
-            mine[ax.rank * n:(ax.rank + 1) * n] = True
+            mine[lo:hi] = True
             y = torch.where(mine[:, None], y.float(), 0.0)
     y = sharding.constrain(y, "batch", "model", None)
 
@@ -161,8 +175,7 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     if ax is None:
         mean_prob = probs.reshape(-1, E).mean(dim=0)
         return y, E * torch.sum(frac * mean_prob)
-    # this rank's L / M tokens' share of the mean, the shares summed
-    n = L // ax.size
-    mean_prob = probs[:, ax.rank * n:(ax.rank + 1) * n].reshape(
-        -1, E).sum(dim=0) / (B * L)
+    # this rank's tokens' share of the mean, the shares summed
+    lo, hi = _token_share(L, ax)
+    mean_prob = probs[:, lo:hi].reshape(-1, E).sum(dim=0) / (B * L)
     return y, sharding.all_sum(E * torch.sum(frac * mean_prob), ax)

@@ -52,6 +52,19 @@ exactly what it computed before):
 * every reduction is an all-gather followed by a sum in rank order, so a
   replicated result is bit-equal on every rank.
 
+Prefill and decode with a cache (layout "tp" only). A cache on a grid is
+a :class:`GridCache`: each leaf this rank's shard under
+:func:`cache_specs`, the JAX package's serving layout (batch over
+``data``; the KV cache's length over ``model``, so MQA's one kv head need
+not split; the SSD's and RG-LRU's states by channels or heads), made by
+``models.init_cache`` under the bound grid or by :func:`shard_cache`.
+Where the prompt's length splits over ``model`` the stream is sequence
+parallel as in training; where it does not (decode's one token, an odd
+prompt) the sequence runs whole on every rank of ``model``
+(:func:`seq_axis` is None): the mixers' and MLPs' row-parallel partial
+sums are summed over ``model`` (:func:`all_sum`) in place of the
+reduce-scatter, and so is the embedding's lookup.
+
 Two gradient traps of tensor parallelism, and the ops that avoid them:
 
 * a sum over ``model`` whose result every rank goes on to use for its own
@@ -221,13 +234,113 @@ def param_specs(params: Any, mesh, layout: Optional[str] = None):
 
 
 # ---------------------------------------------------------------------------
-# Running on a mesh of ranks
+# Cache sharding rule
 # ---------------------------------------------------------------------------
 
-# the ROADMAP item that ports prefill and decode with caches under tensor
-# parallelism
-TP_LATER = "ROADMAP A10b"
+def ways(entry, mesh) -> int:
+    """How many ways one spec entry (an axis name, a tuple of them or
+    None) cuts its dim."""
+    names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+    out = 1
+    for nm in names:
+        out *= mesh.shape[nm]
+    return out
 
+
+def divisible_spec(dims, shape, mesh, layout: str = "tp") -> tuple:
+    """The spec of logical ``dims`` on ``shape``: a dim that is cut fewer
+    than two ways, or that its axes do not divide, stays whole."""
+    fixed = []
+    for d, size in zip(dims, shape):
+        r = resolve(d, mesh, layout)
+        total = ways(r, mesh)
+        fixed.append(r if total > 1 and size % total == 0 else None)
+    return tuple(fixed)
+
+
+def shard_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """The per-rank shape of a ``shape`` laid out by ``spec``."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for n, entry in zip(shape, spec):
+        w = ways(entry, mesh)
+        if n % w:
+            raise ValueError(f"dim {n} does not split {w} ways ({spec})")
+        out.append(n // w)
+    return tuple(out)
+
+
+# the cache leaves' logical dims, by leaf name, on their trailing dims
+_CACHE_DIMS = {
+    "k": ("data", "model", None, None),          # (B, S, KV, hd)
+    "v": ("data", "model", None, None),
+    "k_scale": ("data", "model", None),          # (B, S, KV)
+    "v_scale": ("data", "model", None),
+    "pos": ("data", "model"),                    # (B, S)
+    "conv": ("data", None, "model"),             # (B, K - 1, C)
+    "ssm": ("data", "model", None, None),        # (B, H, hd, N)
+    "h": ("data", "model"),                      # (B, W)
+}
+
+
+def cache_specs(cache, mesh):
+    """The spec tree of a (full) cache: KV caches batch over ``data`` and
+    *length over model* (the flash-decode layout: it works for MQA, whose
+    heads cannot split); the SSD's and RG-LRU's states batch over
+    ``data`` and heads / channels over ``model``. A dim its axis does not
+    divide stays whole (:func:`divisible_spec`)."""
+
+    def one(path, leaf):
+        nd = len(leaf.shape)
+        d = _CACHE_DIMS.get(path[-1], ())
+        d = (None,) * (nd - len(d)) + d
+        return divisible_spec(d, leaf.shape, mesh)
+
+    return _map_with_path(one, list(cache) if isinstance(cache, list)
+                          else cache)
+
+
+class GridCache(list):
+    """A cache on a grid of ranks: one dict per layer, as ``init_cache``
+    gives it, each leaf this rank's shard under ``specs`` (the
+    :func:`cache_specs` of the full cache, which tell the layers whether
+    a KV cache's length is cut)."""
+
+    def __init__(self, layers=(), specs=None):
+        super().__init__(layers)
+        self.specs = specs
+
+
+def length_cut(cache, i: int) -> bool:
+    """Whether layer ``i``'s KV cache has its length cut over ``model``;
+    raises for a cache on a tensor-parallel grid that is not a
+    :class:`GridCache`."""
+    specs = getattr(cache, "specs", None)
+    if specs is None:
+        raise ValueError("a cache under tensor parallelism is a "
+                         "sharding.GridCache: made by init_cache under the "
+                         "bound grid, or by shard_cache")
+    pos = specs[i].get("pos")
+    return pos is not None and pos[1] is not None
+
+
+def shard_cache(cache, grid=None) -> "GridCache":
+    """This rank's shard of every leaf of the full ``cache`` under
+    :func:`cache_specs`."""
+    grid = grid or bound_grid()
+    specs = cache_specs(cache, grid)
+    return GridCache(shard(list(cache), specs, grid), specs)
+
+
+def unshard_cache(cache: "GridCache", grid=None) -> list:
+    """The full cache from every rank's shards (collective: every rank
+    calls it)."""
+    return unshard(list(cache), cache.specs, grid or bound_grid())
+
+
+# ---------------------------------------------------------------------------
+# Running on a mesh of ranks
+# ---------------------------------------------------------------------------
 
 def bound_grid():
     """The bound mesh if it is a grid of ranks (``MeshGrid``) with more
@@ -268,16 +381,25 @@ def batch_axis():
     return None if grid is None else axis_of(grid, resolve("batch", grid))
 
 
-def batch_rows(batch: int) -> slice:
-    """This rank's rows of a global batch of ``batch`` rows."""
+def batch_rows(batch: int, microbatches: int = 1):
+    """This rank's rows of a global batch of ``batch`` rows taken in
+    ``microbatches`` microbatches: rank d of D holds rows d B / (D n) ..
+    (d + 1) B / (D n) of each microbatch (rows i B / n .. (i + 1) B / n),
+    in microbatch order, so that the i-th of its own microbatches is its
+    share of the global i-th. A slice where the rows are contiguous, else
+    a list of row indices."""
     ax = batch_axis()
     if ax is None:
         return slice(0, batch)
-    if batch % ax.size:
+    if batch % (ax.size * microbatches):
         raise ValueError(f"batch {batch} does not split over {ax.size} "
-                         f"ranks")
-    n = batch // ax.size
-    return slice(ax.rank * n, (ax.rank + 1) * n)
+                         f"ranks in {microbatches} microbatches")
+    n = batch // (ax.size * microbatches)
+    if microbatches == 1:
+        return slice(ax.rank * n, (ax.rank + 1) * n)
+    per_mb = batch // microbatches
+    return [i * per_mb + ax.rank * n + j for i in range(microbatches)
+            for j in range(n)]
 
 
 def check_model(cfg, model_ways: int, seq_len: Optional[int] = None,
@@ -285,9 +407,10 @@ def check_model(cfg, model_ways: int, seq_len: Optional[int] = None,
     """Raise ValueError where ``cfg`` cannot run with tensor parallelism
     over ``model_ways`` ranks, naming the width that does not split: the
     heads of attention layers, a dense MLP's ``d_ff``, the padded vocab,
-    the sequence, the SSD heads (``ssm_nheads``) and the RG-LRU width
-    (``lru_width``). Experts that do not split stay whole on every rank
-    (``param_specs``)."""
+    the sequence (``seq_len``; None where it runs whole on every rank, as
+    a forward with a cache runs a length that does not split), the SSD
+    heads (``ssm_nheads``) and the RG-LRU width (``lru_width``). Experts
+    that do not split stay whole on every rank (``param_specs``)."""
     if layout != "tp" or model_ways == 1:
         return
     kinds = set(cfg.pattern)
@@ -400,18 +523,43 @@ def all_max(x: torch.Tensor, ax) -> torch.Tensor:
     return ax.all_gather(x.detach()).amax(0)
 
 
+@contextlib.contextmanager
+def whole_sequence(whole: bool = True):
+    """Within the block the residual stream holds the whole sequence on
+    every rank of ``model`` (``forward`` with a cache whose length does
+    not split), not L / M tokens."""
+    prev = getattr(_state, "whole", False)
+    _state.whole = whole
+    try:
+        yield
+    finally:
+        _state.whole = prev
+
+
+def seq_axis():
+    """The axis the residual stream's sequence is cut over: the model
+    axis under sequence parallelism, None without tensor parallelism or
+    where the sequence runs whole (:func:`whole_sequence`)."""
+    return None if getattr(_state, "whole", False) else model_axis()
+
+
 def seq_gather(x: torch.Tensor) -> torch.Tensor:
-    """(B, L / M, ...) -> (B, L, ...) under tensor parallelism, else
+    """(B, L / M, ...) -> (B, L, ...) under sequence parallelism, else
     ``x``."""
-    ax = model_axis()
+    ax = seq_axis()
     return x if ax is None else gather(x, ax, 1)
 
 
 def seq_scatter(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A row-parallel layer's partial (B, L, ...) -> the sum's (B, L / M,
-    ...) in ``dtype`` under tensor parallelism, else ``x``."""
+    ...) in ``dtype`` under sequence parallelism, the whole sum (B, L,
+    ...) where the sequence runs whole, else ``x``."""
     ax = model_axis()
-    return x if ax is None else scatter(x, ax, 1).to(dtype)
+    if ax is None:
+        return x
+    if seq_axis() is None:
+        return all_sum(x, ax).to(dtype)
+    return scatter(x, ax, 1).to(dtype)
 
 
 def local_slice(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -24,6 +24,15 @@ mean square is the sum over ``model`` of each rank's partial sums
 row-parallel: its partial sum comes out in f32 for the block to
 reduce-scatter. Where ``in_proj`` or ``conv_w`` columns do not split,
 ``param_specs`` keeps them whole and no gather is needed.
+
+A cache under tensor parallelism holds ``ssm`` by heads (this rank's)
+and ``conv`` as ``sharding.cache_specs`` cuts it: a contiguous C / M
+slice of the packed ``x | B | C`` channels, which is not the channels
+this rank's heads use. A decode step all-gathers the conv window over
+``model`` (B x (K - 1) x C values), convolves its own channels and
+writes its slice of the new window back; a prefill writes its slice of
+the last K - 1 inputs. Where C does not split the window is whole on
+every rank.
 """
 from __future__ import annotations
 
@@ -161,6 +170,16 @@ def _head_range(cfg: ModelConfig) -> Tuple[int, int]:
     return ax.rank * n, n
 
 
+def _own_channels(cfg: ModelConfig, t: torch.Tensor, lo: int, n: int
+                  ) -> torch.Tensor:
+    """Of ``t``'s packed ``x | B | C`` channels (last dim), the x channels
+    of heads ``lo`` .. ``lo + n`` and B / C whole."""
+    if n == cfg.ssm_nheads:
+        return t
+    din, P = cfg.ssm_dinner, cfg.ssm_headdim
+    return torch.cat([t[..., lo * P:(lo + n) * P], t[..., din:]], dim=-1)
+
+
 def _own_heads(cfg: ModelConfig, zxbcdt: torch.Tensor, conv_w, conv_b,
                lo: int, n: int):
     """Heads ``lo`` .. ``lo + n`` of the whole in_proj output: (z, xBC,
@@ -169,14 +188,19 @@ def _own_heads(cfg: ModelConfig, zxbcdt: torch.Tensor, conv_w, conv_b,
     z, xBC, dt_raw = _split_in_proj(cfg, zxbcdt)
     if n == cfg.ssm_nheads:
         return z, xBC, dt_raw, conv_w, conv_b
-    din, P = cfg.ssm_dinner, cfg.ssm_headdim
-    x_cols = slice(lo * P, (lo + n) * P)
+    P = cfg.ssm_headdim
+    return (z[..., lo * P:(lo + n) * P], _own_channels(cfg, xBC, lo, n),
+            dt_raw[..., lo:lo + n], _own_channels(cfg, conv_w, lo, n),
+            _own_channels(cfg, conv_b, lo, n))
 
-    def channels(t):
-        return torch.cat([t[..., x_cols], t[..., din:]], dim=-1)
 
-    return (z[..., x_cols], channels(xBC), dt_raw[..., lo:lo + n],
-            channels(conv_w), channels(conv_b))
+def _write_conv(cache: Params, window: torch.Tensor) -> None:
+    """Write the whole conv window (B, K - 1, C) into ``cache["conv"]``:
+    this rank's slice of the channels where the cache holds one."""
+    c = cache["conv"].shape[-1]
+    if c != window.shape[-1]:
+        window = window.narrow(-1, sharding.model_axis().rank * c, c)
+    cache["conv"].copy_(window)
 
 
 def _gated_norm(scale: torch.Tensor, y: torch.Tensor, eps: float
@@ -210,6 +234,7 @@ def ssd_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
     z, xBC, dt_raw, conv_w, conv_b = _own_heads(
         cfg, zxbcdt, _whole(p["conv_w"], _conv_dim(cfg)), p["conv_b"],
         h0, h)
+    xBC_all = _split_in_proj(cfg, zxbcdt)[1]     # every head's channels
     din = h * pdim
     splits = [din, gn, gn]
     A = -torch.exp(sharding.local_slice(p["A_log"], h).float())
@@ -220,8 +245,11 @@ def ssd_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
         return _expand_groups(v, cfg)[..., h0:h0 + h, :]
 
     if cache is not None and L == 1:
-        window = torch.cat([cache["conv"], xBC.to(cache["conv"].dtype)],
-                           dim=1)                                # (B, W, C)
+        # the window of every channel (gathered over ``model`` where the
+        # cache holds a slice), this rank's channels convolved
+        hist = _whole(cache["conv"], _conv_dim(cfg))
+        full = torch.cat([hist, xBC_all.to(hist.dtype)], dim=1)  # (B, W, C)
+        window = _own_channels(cfg, full, h0, h)
         conv_out = (torch.einsum("bwc,wc->bc", window.float(),
                                  conv_w.float())
                     + conv_b.float())
@@ -237,7 +265,7 @@ def ssd_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
                  + torch.einsum("bhn,bhp->bhpn", Bh[:, 0], x_dt))
         y = torch.einsum("bhn,bhpn->bhp", Ch[:, 0], state)[:, None]
         y = y + D * x
-        cache["conv"].copy_(window[:, 1:])
+        _write_conv(cache, full[:, 1:])
         cache["ssm"].copy_(state)
     else:
         conv = F.silu(_causal_conv(xBC, conv_w, conv_b))
@@ -253,8 +281,8 @@ def ssd_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
         y = y + D * x
         if cache is not None:
             W = cache["conv"].shape[1]
-            tail = F.pad(xBC, (0, 0, max(W - L, 0), 0))[:, -W:]
-            cache["conv"].copy_(tail)
+            _write_conv(cache, F.pad(xBC_all, (0, 0, max(W - L, 0), 0))
+                        [:, -W:])
             cache["ssm"].copy_(final_state)
 
     y = y.reshape(B_, L, din)

@@ -70,9 +70,9 @@ def port_params(jparams, tc):
 
 def reference_run(jc, jparams, tok, prefill=LP, decode=True, trace=False):
     """The reference's score forward, prefill of ``prefill`` tokens and
-    decode steps to the end, as numpy: logits, aux, prefill logits and
-    cache, and the decode logits (B, L - prefill, V); with ``trace`` also
-    the cache after each decode step."""
+    decode steps to the end, as numpy: logits, aux, prefill logits, cache
+    and aux, and the decode logits (B, L - prefill, V); with ``trace``
+    also the cache after each decode step."""
     f = _jitted()
     t = jnp.asarray(tok)
     out = {}
@@ -81,10 +81,11 @@ def reference_run(jc, jparams, tok, prefill=LP, decode=True, trace=False):
     if not decode:
         return out
     cache = jinit_cache(jc, tok.shape[0], tok.shape[1])
-    lp, cache, _ = f(jparams, t[:, :prefill],
-                     jmake_positions(t[:, :prefill], jc), cfg=jc,
-                     cache=cache)
+    lp, cache, aux = f(jparams, t[:, :prefill],
+                       jmake_positions(t[:, :prefill], jc), cfg=jc,
+                       cache=cache)
     out["prefill"], out["cache"] = np.asarray(lp), to_numpy(cache)
+    out["prefill_aux"] = float(aux)
     steps, out["caches"] = [], []
     for s in range(prefill, tok.shape[1]):
         ls, cache, _ = f(jparams, t[:, s:s + 1],

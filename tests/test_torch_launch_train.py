@@ -277,6 +277,7 @@ def test_mesh_2x1_matches_1x1(tmp_path):
      "sequence 30"),
     (["--arch", "granite_moe_3b_a800m", "--mesh", "1x3"], "heads 4"),
     (["--mesh", "3x1"], "split"),
+    (["--mesh", "2x1", "--microbatches", "3"], "in 3 microbatches"),
     (["--mesh", "2"], "DATAxMODEL"),
     (["--mesh", "0x2"], "positive"),
 ])

@@ -91,7 +91,7 @@ def _case(mesh, cfg, layout, params, b, steps):
     paths = sharding.spec_leaves(specs)
     shards = sharding.shard(params, specs, mesh)
     with sharding.set_mesh(mesh, layout):
-        rows = sharding.batch_rows(B)
+        rows = sharding.batch_rows(B, tc.microbatches)
         mine = {k: v[rows] for k, v in b.items()}
         (_, _), grads = train_step.value_and_grad(
             shards, mine["tokens"], mine["labels"], cfg, tc)
