@@ -226,8 +226,11 @@ Phases (any failed check raises, and the script exits non-zero):
    microbatches on the same global batch; (d) ``launch.serve.main``; (e)
    ``launch.dryrun.run_cell`` for llama3-8b's three cells on the
    single-pod mesh and gemma3-27b's ``long_500k`` (meta tensors, a host
-   process of its own started before phase 14): bytes, terms and fits
-   against the card's figures; (f) the trainer of (a) on a 1x2 (data,
+   process of its own started before phase 14; temp bytes and the
+   collectives read from rank 0 of the port's sharded step on a
+   stand-in of the 16 x 16 grid): bytes, collective counts by kind,
+   terms and fits against the card's figures, llama3-8b ``train_4k``
+   held to fit; (f) the trainer of (a) on a 1x2 (data,
    model) mesh, two gloo ranks sharing the card, tensor and sequence
    parallel over ``model``, on (a)'s selected batches: losses against
    (a)'s, leaves held by both ranks bit-equal, step walls, each rank's
@@ -3420,17 +3423,24 @@ def launch_dryrun_read(proc, path, hw, smi):
         rows[name] = {k: r[k] for k in (
             "arg_bytes", "out_bytes", "temp_bytes", "alias_bytes",
             "peak_memory_bytes", "fits_hbm", "hlo_dot_flops", "ici_bytes",
-            "compute_s", "memory_s", "collective_s", "bottleneck",
-            "lower_s", "compile_s")}
+            "dcn_bytes", "collective_counts", "compute_s", "memory_s",
+            "collective_s", "bottleneck", "lower_s", "compile_s")}
         print(f"  (e) dry run {name} on the single-pod mesh: per device "
               f"args {r['arg_bytes'] / 1e9:.3f} GB, out "
               f"{r['out_bytes'] / 1e9:.3f} GB, temp "
-              f"{r['temp_bytes'] / 1e9:.3f} GB, aliased "
+              f"{r['temp_bytes'] / 1e9:.3f} GB ({r['temp_bytes']:.0f} B, "
+              f"rank 0 of the sharded step), aliased "
               f"{r['alias_bytes'] / 1e9:.3f} GB, fits {r['fits_hbm']} "
-              f"({hw.name}, {smi}); compute {r['compute_s']:.4g} s, memory "
-              f"{r['memory_s']:.4g} s, collective {r['collective_s']:.4g} s "
-              f"-> {r['bottleneck']}; {r['lower_s'] + r['compile_s']:.1f} s "
-              f"on the host")
+              f"({hw.name}, {smi}); collectives by kind "
+              f"{json.dumps(r['collective_counts'], sort_keys=True)}, link "
+              f"{r['ici_bytes'] / 1e6:.1f} MB; compute {r['compute_s']:.4g} "
+              f"s, memory {r['memory_s']:.4g} s, collective "
+              f"{r['collective_s']:.4g} s -> {r['bottleneck']}; "
+              f"{r['lower_s'] + r['compile_s']:.1f} s on the host")
+    train = cells.get("llama3_8b train_4k")
+    check(train is None or train["fits_hbm"],
+          f"phase 16 (e): llama3-8b train_4k does not fit {hw.name}: "
+          f"{train and train['peak_memory_bytes']}")
     return rows
 
 

@@ -23,9 +23,15 @@ one rank of a process group, and a :class:`Mesh` names that group's axis.
   laid out row-major as ``jax.make_mesh`` lays out its devices (rank
   ``d * M + m`` on a (data, model) grid). Each axis is a :class:`Mesh`
   over a sub-group of its own (one per row and per column,
-  ``torch.distributed.new_group``), and ``world`` is every rank in that
-  order (an axis pair such as ("data", "model") jointly). ``with grid:``
-  binds every axis.
+  ``torch.distributed.new_group``), ``world`` is every rank in that
+  order (an axis pair such as ("data", "model") jointly), and each other
+  run of axes a spec can name (("pod", "data") on a (pod, data, model)
+  grid) a :class:`Mesh` of its own (``joint``). ``with grid:`` binds
+  every axis. ``MeshGrid.stand_in`` is one rank of such a grid with no
+  process group: its collectives (:class:`StandInMesh`) record what a
+  real rank's record and return empty tensors of the result's shape, so
+  a step runs on meta tensors as one rank of a grid that was never
+  started (the dry run's).
 * :func:`launch` -- start ``world_size`` ranks with the ``spawn`` start
   method (a parent that has initialised CUDA cannot fork) and a
   ``file://`` store in a temporary directory (no TCP port to collide), run
@@ -128,17 +134,32 @@ class Mesh:
         self.staged_bytes += host.nbytes
         return host.to(self.device)
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, kind: str = "all-gather"
+                   ) -> torch.Tensor:
         """``(size, *x.shape)``: every rank's ``x`` in rank order (one
         collective; bf16, which gloo does not take, travels as its bits
-        viewed as float16: a gather copies bytes)."""
+        viewed as float16: a gather copies bytes). ``kind`` is the
+        collective the caller makes of it, as the record names it
+        (:meth:`note`)."""
         if x.dtype == torch.bfloat16:
-            return self.all_gather(x.view(torch.float16)).view(torch.bfloat16)
+            return self.all_gather(x.view(torch.float16),
+                                   kind).view(torch.bfloat16)
         send = self._wire(x)
         out = self._wire_empty((self.size,) + tuple(x.shape), x.dtype)
         dist.all_gather(list(out.unbind(0)), send, group=self.group)
-        note_collective("all-gather", self.ranks, out.nbytes)
+        self.note(kind, x)
         return self._unwire(out)
+
+    def note(self, kind: str, x: torch.Tensor) -> None:
+        """Record the all-gather of ``x`` as the collective ``kind`` it
+        stands for, with that collective's result bytes on this rank:
+        the gathered ``size`` copies (``all-gather``), ``x``'s own
+        (``all-reduce``: the sum of the gathered copies), or this rank's
+        slice of them (``reduce-scatter``)."""
+        n = x.numel() * x.element_size()
+        note_collective(kind, self.ranks, {
+            "all-gather": n * self.size, "all-reduce": n,
+            "reduce-scatter": n // self.size}[kind])
 
     def hop(self, buf: torch.Tensor, dst: int, src: int) -> torch.Tensor:
         """One hop of a ring: send ``buf`` to axis index ``dst`` and return
@@ -155,6 +176,24 @@ class Mesh:
         return self._unwire(recv)
 
 
+class StandInMesh(Mesh):
+    """A :class:`Mesh` of one rank with no process group
+    (:meth:`MeshGrid.stand_in`): each collective records what a real
+    rank's records (kind, group, result bytes, in order) and returns an
+    empty tensor of the result's shape on the input's device, so meta
+    tensors stay meta and nothing moves."""
+
+    def all_gather(self, x: torch.Tensor, kind: str = "all-gather"
+                   ) -> torch.Tensor:
+        self.note(kind, x)
+        return torch.empty((self.size,) + tuple(x.shape), dtype=x.dtype,
+                           device=x.device)
+
+    def hop(self, buf: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+        note_collective("collective-permute", (self.rank, dst), buf.nbytes)
+        return torch.empty_like(buf)
+
+
 @dataclasses.dataclass
 class MeshGrid:
     """Several named axes over the default process group, as seen from
@@ -162,9 +201,14 @@ class MeshGrid:
     global rank ``r`` sits at the row-major coordinates of ``r`` in
     ``sizes``. ``axes[name]`` is the :class:`Mesh` of the ranks that
     differ from this one in ``name`` alone, ``world`` the :class:`Mesh` of
-    every rank in global order (the axes jointly, the first major).
+    every rank in global order (the axes jointly, the first major), and
+    ``joint[names]`` for every other run of two or more axes in the
+    grid's order (``("pod", "data")``) the :class:`Mesh` of the ranks
+    that differ from this one in those axes alone, the first major. Each
+    mesh's ``ranks`` are its group's global ranks in its own order.
     Build it on every rank at once (:meth:`build`): each sub-group is a
-    collective ``new_group``."""
+    collective ``new_group``. :meth:`stand_in` is one rank of a grid with
+    no process group at all."""
 
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
@@ -173,27 +217,64 @@ class MeshGrid:
     backend: str
     axes: Dict[str, Mesh]
     world: Mesh
+    joint: Dict[Tuple[str, ...], Mesh] = dataclasses.field(
+        default_factory=dict)
 
     @classmethod
     def build(cls, axis_names: Sequence[str], sizes: Sequence[int],
               backend: str, rank: int, device: torch.device) -> "MeshGrid":
+        def group(members):
+            return dist.new_group(list(members), backend=backend)
+        return cls._make(axis_names, sizes, backend, rank, device, group,
+                         Mesh)
+
+    @classmethod
+    def stand_in(cls, axis_names: Sequence[str], sizes: Sequence[int],
+                 rank: int = 0) -> "MeshGrid":
+        """Rank ``rank`` of the grid with no process group, on the meta
+        device: the same axes, joint axes, ``world``, ``shape`` and
+        ``coords`` as a built grid's, each mesh a :class:`StandInMesh`
+        (its collectives record what a real rank's record and move
+        nothing)."""
+        return cls._make(axis_names, sizes, "none", rank,
+                         torch.device("meta"), lambda members: None,
+                         StandInMesh)
+
+    @classmethod
+    def _make(cls, axis_names, sizes, backend, rank, device, group,
+              mesh_cls) -> "MeshGrid":
+        """The grid of ``rank``: ``group(members)`` is called for every
+        group of every run of axes, on every rank in the same order."""
         names, sizes = tuple(axis_names), tuple(int(n) for n in sizes)
         world = math.prod(sizes)
-        coords = dict(zip(names, _coords(rank, sizes)))
-        axes = {}
-        for i, name in enumerate(names):
-            others = [range(n) for j, n in enumerate(sizes) if j != i]
-            # every rank creates every group, in the same order
-            for rest in itertools.product(*others):
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is not on a grid of {sizes}")
+        coords = _coords(rank, sizes)
+        axes, joint = {}, {}
+        for run in _runs(len(names)):
+            outside = [j for j in range(len(sizes)) if j not in run]
+            for rest in itertools.product(*(range(sizes[j])
+                                            for j in outside)):
+                fixed = dict(zip(outside, rest))
                 members = tuple(
-                    _flat(rest[:i] + (k,) + rest[i:], sizes)
-                    for k in range(sizes[i]))
-                group = dist.new_group(list(members), backend=backend)
-                if rank in members:
-                    axes[name] = Mesh(name, backend, sizes[i], coords[name],
-                                      device, group=group, ranks=members)
+                    _flat([{**fixed, **dict(zip(run, sub))}[j]
+                           for j in range(len(sizes))], sizes)
+                    for sub in itertools.product(*(range(sizes[j])
+                                                   for j in run)))
+                g = group(members)
+                if rank not in members:
+                    continue
+                key = tuple(names[j] for j in run)
+                mesh = mesh_cls(",".join(key), backend, len(members),
+                                members.index(rank), device, group=g,
+                                ranks=members)
+                if len(run) == 1:
+                    axes[key[0]] = mesh
+                else:
+                    joint[key] = mesh
         return cls(names, sizes, rank, device, backend, axes,
-                   Mesh(",".join(names), backend, world, rank, device))
+                   mesh_cls(",".join(names), backend, world, rank, device),
+                   joint)
 
     @property
     def shape(self) -> dict:
@@ -211,8 +292,9 @@ class MeshGrid:
 
     @property
     def staged_bytes(self) -> int:
-        return self.world.staged_bytes + sum(m.staged_bytes
-                                             for m in self.axes.values())
+        return self.world.staged_bytes + sum(
+            m.staged_bytes for m in (*self.axes.values(),
+                                     *self.joint.values()))
 
     def __enter__(self) -> "MeshGrid":
         for m in self.axes.values():
@@ -223,6 +305,16 @@ class MeshGrid:
         for m in reversed(list(self.axes.values())):
             m.__exit__(*exc)
         return False
+
+
+def _runs(n: int) -> List[Tuple[int, ...]]:
+    """The axes' runs a grid of ``n`` axes builds groups for, in the order
+    every rank builds them: each axis alone, then every other set of two
+    or more axes (in the grid's order) but all of them (``world``)."""
+    out = [(i,) for i in range(n)]
+    for k in range(2, n):
+        out += list(itertools.combinations(range(n), k))
+    return out
 
 
 def _coords(rank: int, sizes: Sequence[int]) -> Tuple[int, ...]:

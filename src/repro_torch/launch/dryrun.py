@@ -7,7 +7,27 @@ over the production mesh (nothing is allocated), and persist its roofline.
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both \\
         --hardware h100_sxm --network-bytes-per-s 50e9
 
-The port has no compiler, so each number is the port's own reckoning:
+The port has no compiler. Each cell runs twice, on meta tensors:
+
+* **the global run** (``Cell.lower``): the step on the whole mesh's
+  arguments, in the reference's stacked layout, with no grid bound;
+* **one rank's run**: rank 0 of the port's own sharded step on a
+  stand-in of the cell's mesh (``core.mesh.MeshGrid.stand_in``: the
+  grid's axes and groups with no process group, its collectives
+  recorded and returning empty tensors). A train cell runs
+  ``train_step.mesh_train_step(cfg, tc, grid, "tp")`` on the rank's
+  shards of the per-layer params under ``models.model.shard_specs`` (the
+  layout the sharded step runs; where the reference's stacked specs cut
+  a stacking dim the two differ, and the argument bytes below stay the
+  stacked ones), its AdamW state, and its batch rows
+  (``sharding.batch_rows`` with the cell's microbatches). A prefill or
+  decode cell runs ``launch.specs.build_cell(...).fn`` built on the grid,
+  on the rank's shards of the stacked serving params under the cell's
+  specs, its token rows and (decode) a ``sharding.GridCache`` of its
+  cache shards. A cell the step cannot run fails with the step's own
+  message.
+
+What the report reads:
 
 * **argument / output / alias bytes per device**: every meta argument's
   (and output's) shard shape under its spec (``launch.specs``) times its
@@ -17,35 +37,35 @@ The port has no compiler, so each number is the port's own reckoning:
   state, the decode step's cache: those bytes alias), the cache's
   layout for a prefill's cache, and ``("batch", "model")`` for logits.
 * **flops per device**: ``torch.utils.flop_counter.FlopCounterMode``'s
-  total over the whole step at the global batch (forward, backward with
-  the recomputation of remat ``"full"``: the dot products, as the
-  reference's ``hlo_dot_flops`` counts them), over the mesh's size.
-* **temp bytes**: the port's own working set, not a compiler's: the
-  peak, over the step run at *one rank's* batch (the global batch over
-  the batch axes), of the bytes of the storages its operations allocate
-  and that are alive at once (:class:`LiveBytes`: each new storage is
-  counted when an operation returns it and uncounted when it is freed;
-  the arguments are not counted). Nothing holds it to the reference's.
-* **result bytes**: the bytes of every operation's outputs over the step
-  at the global batch, over the mesh's size.
-* **the collective term**: reckoned from the layout's specs, not
-  compiled (:func:`layout_collectives`), priced with
-  ``roofline.trace.collective_link``.
+  total over the global run (forward, backward with the recomputation
+  of remat ``"full"``: the dot products, as the reference's
+  ``hlo_dot_flops`` counts them), over the mesh's size.
+* **temp bytes**: the port's own working set on one rank, not a
+  compiler's: the peak, over the rank's run, of the bytes of the
+  storages its operations allocate and that are alive at once
+  (:class:`LiveBytes`; the arguments are not counted). It includes the
+  buffers of the rank's collectives: every reduction of the port is an
+  all-gather summed in rank order, so a reduce-scatter holds the
+  group's copies of its operand at once.
+* **result bytes**: the bytes of every operation's outputs over the
+  global run, over the mesh's size.
+* **the collective term**: the rank's collectives as the run made
+  them (``roofline.record()``), each priced as the collective it stands
+  for (``trace.collective_phase_analysis``); a group whose ranks span
+  more than one pod is link bytes across the network between nodes.
 
 The JSON a cell writes has the reference's keys. ``lower_s`` is the time
-to build the cell and run the step at the global batch, ``compile_s`` the
-time of the second run, at one rank's batch (there is no compile step).
-``xla_flops`` and ``xla_bytes`` are 0: no other tool counts the program.
-``fits_hbm`` holds the peak (temp + arguments + outputs - aliased)
-against the memory of the card the report is for: ``report.detect()`` on
-the card, or ``H100_SXM`` when the caller passes it.
+to build the cell and make the global run, ``compile_s`` the time of the
+rank's run (there is no compile step). ``xla_flops`` and ``xla_bytes``
+are 0: no other tool counts the program. ``fits_hbm`` holds the peak
+(temp + arguments + outputs - aliased) against the memory of the card
+the report is for: ``report.detect()`` on the card, or ``H100_SXM`` when
+the caller passes it.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
-import math
 import os
 import time
 import traceback
@@ -58,15 +78,16 @@ from torch.utils._pytree import tree_leaves
 
 from repro_torch import configs
 from repro_torch import tree as tree_mod
+from repro_torch.core.mesh import MeshGrid
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.shapes import SHAPES, all_cells, cells_for
 from repro_torch.launch import specs as specs_mod
-from repro_torch.models.layers import torch_dtype
-from repro_torch.models import sharding
-from repro_torch.models.sharding import resolve
+from repro_torch.models import param_spec, sharding
+from repro_torch.models.model import shard_specs
+from repro_torch.optim import adamw
 from repro_torch.roofline.report import H100_SXM, build_report, detect
-from repro_torch.roofline.trace import Analysis, collective_link
-from repro_torch.train.train_step import TrainConfig
+from repro_torch.roofline.trace import collective_phase_analysis, record
+from repro_torch.train.train_step import mesh_train_step
 
 HARDWARE = {"h100_sxm": H100_SXM}
 
@@ -114,94 +135,6 @@ class LiveBytes(TorchDispatchMode):
         return out
 
 
-# -- the collective term -------------------------------------------------------
-
-def _group(entry, mesh):
-    """The axes of a spec entry that split (size > 1)."""
-    return tuple(a for a in specs_mod.axes(entry) if mesh.shape[a] > 1)
-
-
-class _Tally:
-    def __init__(self, mesh):
-        self.mesh, self.ana = mesh, Analysis()
-
-    def add(self, kind: str, axes, result_bytes: float, times: float = 1.0):
-        n = specs_mod.ways(axes, self.mesh)
-        if n <= 1 or times <= 0:
-            return
-        link = collective_link(kind, n, result_bytes) * times
-        a = self.ana
-        a.collective_counts[kind] = a.collective_counts.get(kind, 0.0) + times
-        a.collective_bytes_by_kind[kind] = (
-            a.collective_bytes_by_kind.get(kind, 0.0) + link)
-        if "pod" in axes:
-            a.dcn_collective_bytes += link
-        else:
-            a.ici_collective_bytes += link
-
-
-def layout_collectives(cell) -> Analysis:
-    """The collectives of one step under the cell's layout, per device,
-    reckoned from its specs (no compiled program to read them from):
-
-    * **parameters** sharded over the FSDP group (the axes of a spec's
-      ``data`` entries): one all-gather of each to its model-shard size
-      for the forward of every microbatch, and in training one more for
-      the recomputation of remat ``"full"`` and one reduce-scatter of its
-      gradient per microbatch;
-    * **gradients** of parameters replicated over some batch axes: one
-      all-reduce of the shard per microbatch over those axes (across
-      pods, the network);
-    * **tensor parallelism** (the ``tp`` layout shards every layer's
-      weights over ``model``): for every layer, an all-gather and a
-      reduce-scatter of its activations (one microbatch's rows on one
-      batch shard, sequence by width, in the compute dtype) around its
-      mixer and its MLP, per pass -- the forward, and in training the
-      recomputation and the backward. An MoE layer adds two all-to-alls
-      of its routed rows per pass.
-
-    Each is priced with ``trace.collective_link``; a group holding the
-    ``pod`` axis is link bytes across the network between nodes. The
-    reference's compiled program may fuse, hoist or drop some of these,
-    so the two counts differ (ROADMAP C states the ratios)."""
-    mesh, cfg, shape = cell.mesh, cell.cfg, cell.shape
-    tally = _Tally(mesh)
-    train = shape.kind == "train"
-    mb = cell.microbatches
-    batch_axes = _group(resolve("batch", mesh, cell.layout), mesh)
-    params, pspecs = cell.args[0], cell.specs[0]
-    for p, spec in zip(tree_mod.leaves(params),
-                       specs_mod.spec_leaves(pspecs)):
-        shard = specs_mod.shard_bytes(p, spec, mesh)
-        used = {a for entry in spec for a in _group(entry, mesh)}
-        fsdp = tuple(a for a in batch_axes if a in used)
-        gathered = shard * specs_mod.ways(fsdp, mesh)
-        tally.add("all-gather", fsdp, gathered, mb * (2 if train else 1))
-        if train:
-            tally.add("reduce-scatter", fsdp, shard, mb)
-            tally.add("all-reduce", tuple(a for a in batch_axes
-                                          if a not in used), shard, mb)
-    model = _group("model", mesh) if cell.layout == "tp" else ()
-    if model:
-        bways = specs_mod.ways(batch_axes, mesh)
-        rows = shape.global_batch // (1 if shape.global_batch % bways
-                                      else bways) // mb
-        length = 1 if shape.kind == "decode" else shape.seq_len
-        act = (max(rows, 1) * length * cfg.d_model
-               * torch_dtype(cfg.dtype).itemsize)
-        passes = 3 * mb if train else 1
-        per_layer = 2 if cfg.d_ff or cfg.n_experts else 1
-        n = specs_mod.ways(model, mesh)
-        times = cfg.n_layers * per_layer * passes
-        tally.add("all-gather", model, act, times)
-        tally.add("reduce-scatter", model, act / n, times)
-        if cfg.n_experts:
-            routed = act * max(cfg.top_k, 1)
-            tally.add("all-to-all", model, routed,
-                      2 * cfg.n_layers * passes)
-    return tally.ana
-
-
 # -- one cell --------------------------------------------------------------------
 
 def _out_specs(cell, out):
@@ -226,20 +159,44 @@ def _aliased(cell, out) -> int:
         if id(t) in ours)
 
 
-def _rank_cell(cell):
-    """The cell at one rank's batch (the global batch over the batch
-    axes it shards over), with the same microbatches and config."""
-    bspec = sharding.divisible_spec(
-        ("batch",), (cell.shape.global_batch,), cell.mesh, cell.layout)[0]
-    shape = dataclasses.replace(cell.shape, global_batch=(
-        cell.shape.global_batch // specs_mod.ways(bspec, cell.mesh)))
-    tc = None
+def _stand_in(mesh):
+    """Rank 0 of ``mesh`` with no process group, and the ranks of one pod
+    (None on a mesh with no ``pod`` axis)."""
+    names = tuple(mesh.axis_names)
+    sizes = tuple(mesh.shape[a] for a in names)
+    grid = MeshGrid.stand_in(names, sizes, rank=0)
+    pod_block = (grid.size // mesh.shape["pod"] if "pod" in names
+                 else None)
+    return grid, pod_block
+
+
+def rank_run(cell, grid):
+    """This rank's run of the cell on ``grid`` (see the module docstring)
+    as ``(fn, args)``: ``fn(*args)`` runs it, on the rank's meta shards
+    (made here, so the run's working set leaves them out)."""
+    layout, cfg, shape = cell.layout, cell.cfg, cell.shape
     if shape.kind == "train":
-        tc = TrainConfig(microbatches=math.gcd(cell.microbatches,
-                                               shape.global_batch),
-                         remat="full")
-    return specs_mod.build_cell(cell.arch, shape, cell.mesh, tc, cell.cfg,
-                                cell.layout)
+        params = sharding.shard(param_spec(cfg), shard_specs(
+            cfg, grid, layout), grid)
+        opt = adamw.init(params)
+        with sharding.set_mesh(grid, layout):
+            rows = sharding.batch_rows(shape.global_batch,
+                                       cell.microbatches)
+        n = len(range(shape.global_batch)[rows]) \
+            if isinstance(rows, slice) else len(rows)
+        batch = {k: torch.empty((n, shape.seq_len), dtype=torch.int32,
+                                device="meta") for k in ("tokens", "labels")}
+        i = torch.empty((), dtype=torch.int32, device="meta")
+        return (mesh_train_step(cfg, cell.tc, grid, layout),
+                (params, opt, batch, i))
+    on_grid = specs_mod.build_cell(cell.arch, shape, grid, cfg_override=cfg,
+                                   layout=layout)
+    args = list(on_grid.args)
+    cache = args.pop() if shape.kind == "decode" else None
+    args = [sharding.shard(a, s, grid) for a, s in zip(args, on_grid.specs)]
+    if cache is not None:
+        args.append(sharding.shard_cache(cache, grid))
+    return on_grid.fn, tuple(args)
 
 
 def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
@@ -261,10 +218,11 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
     with meter:
         lowered = cell.lower()
     t_lower = time.time() - t0
-    rank = _rank_cell(cell)
+    grid, pod_block = _stand_in(mesh)
+    fn, args = rank_run(cell, grid)
     live = LiveBytes()
-    with live:
-        rank.lower()
+    with record() as led, live:
+        fn(*args)
     t_compile = time.time() - t0 - t_lower
 
     arg = sum(specs_mod.tree_bytes(a, s, mesh)
@@ -275,7 +233,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
     alias = _aliased(cell, out)
     temp = live.peak
     peak = float(temp + arg + out_bytes - alias)
-    ana = layout_collectives(cell)
+    ana = collective_phase_analysis(led.collectives, phases=(),
+                                    pod_block=pod_block)["other"]
     ana.dot_flops = lowered.flops / mesh.size
     ana.result_bytes = meter.result_bytes / mesh.size
     rep = build_report(
@@ -307,7 +266,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str, out_dir: str,
               f"aliased={alias/1e9:.2f}GB")
         print(f"  flops: counted/dev={rep.hlo_dot_flops:.3e} "
               f"model_flops/dev={rep.model_flops_total/mesh.size:.3e}")
-        print(f"  collectives (from the layout): {rep.collective_counts} "
+        print(f"  collectives (rank 0's run): {rep.collective_counts} "
               f"link={rep.ici_bytes/1e6:.1f}MB "
               f"network={rep.dcn_bytes/1e6:.1f}MB")
     if out_dir:

@@ -214,6 +214,7 @@ class Cell:
     specs: Tuple = ()      # one spec tree per argument
     mesh: Any = None
     layout: str = "tp"
+    tc: Optional[TrainConfig] = None   # a train cell's
 
     def lower(self) -> Lowered:
         """Run ``fn`` on the meta arguments under ``FlopCounterMode``: the
@@ -323,7 +324,7 @@ def build_cell(arch: str, shape_name, mesh,
                     microbatches=tc.microbatches,
                     specs=(pshard, opt_sh, {"tokens": batch_spec,
                                             "labels": batch_spec}, ()),
-                    mesh=mesh, layout=layout)
+                    mesh=mesh, layout=layout, tc=tc)
 
     params_sds, pshard = _serve_param_sds(params_abs, pshard, mesh, cfg)
     if shape.kind == "prefill":

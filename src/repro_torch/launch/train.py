@@ -25,10 +25,11 @@ its shards, so every mesh starts from the 1x1 run's bits; the ranks of a
 batch with D microbatches, bit for bit. Rank 0 alone writes checkpoints
 (full leaves, gathered), the heartbeat and the metrics; a rank's failure
 makes ``main`` raise (a non-zero exit, which the ``Supervisor``
-restarts). Every family runs on any mesh whose widths split; one whose
-heads, ``d_ff``, SSD heads, RG-LRU width, padded vocab or sequence do not
-split over M (``sharding.check_model``) raises before any rank starts,
-naming the width.
+restarts). Every family runs on any mesh whose widths split (attention
+heads need not: every rank then runs every head); one whose ``d_ff``,
+SSD heads, RG-LRU width, padded vocab or sequence do not split over M
+(``sharding.check_model``) raises before any rank starts, naming the
+width.
 
 Batches come from ``BigramLM``, whose key hashes a string as the JAX
 package's does, and Python salts that hash per process: runs in two

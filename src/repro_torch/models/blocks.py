@@ -14,19 +14,21 @@ cache's prefill or decode of a length that does not split) they are
 summed over ``model`` instead."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (AttnCacheSpec, attention_apply,
-                                       attention_init, mlp_apply, mlp_init,
-                                       rmsnorm_apply, rmsnorm_init)
+from repro_torch.models.layers import (AttnCacheSpec, CacheLeaf, allocate,
+                                       attention_apply, attention_init,
+                                       mlp_apply, mlp_init, rmsnorm_apply,
+                                       rmsnorm_init)
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.rglru import (rglru_apply, rglru_cache_init,
+from repro_torch.models.rglru import (rglru_apply, rglru_cache_layout,
                                       rglru_init)
-from repro_torch.models.ssd import ssd_apply, ssd_cache_init, ssd_init
+from repro_torch.models.ssd import ssd_apply, ssd_cache_layout, ssd_init
 
 Params = Dict[str, Any]
 
@@ -96,24 +98,30 @@ def block_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
     return x, new_cache, aux
 
 
+def block_cache_layout(batch: int, max_len: int, cfg: ModelConfig,
+                       kind: str) -> Dict[str, CacheLeaf]:
+    """One layer's cache as shapes, dtypes and fill values, nothing
+    allocated."""
+    if kind == "attn":
+        return AttnCacheSpec(max_len).layout(batch, cfg)
+    if kind == "local":
+        return AttnCacheSpec(min(cfg.window, max_len)).layout(batch, cfg)
+    if kind == "ssd":
+        return ssd_cache_layout(batch, cfg)
+    if kind == "rglru":
+        return rglru_cache_layout(batch, cfg)
+    raise ValueError(kind)
+
+
 def block_cache_init(batch: int, max_len: int, cfg: ModelConfig, kind: str,
                      device=None, grid=None) -> Params:
     """An empty cache of one layer: zeros, every slot's ``pos`` -1. On a
     ``grid`` this rank's shard of it under ``sharding.cache_specs``,
-    allocated at the shard's shape."""
+    allocated at the shard's shape (the whole cache's shapes are read
+    from its layout, never allocated)."""
+    layout = block_cache_layout(batch, max_len, cfg, kind)
     if grid is not None:
-        full = block_cache_init(batch, max_len, cfg, kind, "meta")
-        specs = sharding.cache_specs(full, grid)
-        return {k: torch.full(sharding.shard_shape(v.shape, specs[k], grid),
-                              -1 if k == "pos" else 0, dtype=v.dtype,
-                              device=device) for k, v in full.items()}
-    if kind == "attn":
-        return AttnCacheSpec(max_len).init(batch, cfg, device)
-    if kind == "local":
-        return AttnCacheSpec(min(cfg.window, max_len)).init(batch, cfg,
-                                                            device)
-    if kind == "ssd":
-        return ssd_cache_init(batch, cfg, device)
-    if kind == "rglru":
-        return rglru_cache_init(batch, cfg, device)
-    raise ValueError(kind)
+        specs = sharding.cache_specs(layout, grid)
+        layout = {k: dataclasses.replace(v, shape=sharding.shard_shape(
+            v.shape, specs[k], grid)) for k, v in layout.items()}
+    return allocate(layout, device)

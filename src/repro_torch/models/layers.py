@@ -32,6 +32,13 @@ weights, as ``param_specs`` cuts them:
   inside a head: the rank computes its columns, all-gathers them over
   ``model`` and holds K and V whole (the gradient comes back summed over
   ``model``), then takes the kv heads of its own query heads;
+* where the query heads do not split over M either, ``wq``'s columns get
+  the same treatment (gathered where ``param_specs`` cut them, inside a
+  head, else computed whole), every rank runs every head, and each
+  takes its own columns of the attention output into the rows of
+  ``wo`` they meet (:func:`_own_rows`): the partial sums add up over
+  ``model`` to the whole product, and each rank's gradient is its own
+  part of the whole one;
 * RoPE, M-RoPE and the q / k norms act on the heads a rank holds;
 * the embedding is vocab-parallel: a lookup of this rank's vocab rows
   masked to its tokens, summed over ``model`` by the caller, and the LM
@@ -237,15 +244,15 @@ def attention_init(key: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def _kv_columns(p: Params, x: torch.Tensor, cfg: ModelConfig
-                ) -> torch.Tensor:
-    """K or V's columns: this rank's where its kv heads split over the
-    model axis, else all of them (gathered over ``model`` where
-    ``param_specs`` cut them inside a head)."""
+def _columns(p: Params, x: torch.Tensor, cfg: ModelConfig, heads: int
+             ) -> torch.Tensor:
+    """Q, K or V's columns (``heads`` heads): this rank's where the heads
+    split over the model axis, else all of them (gathered over ``model``
+    where ``param_specs`` cut them inside a head)."""
     y = dense_apply(p, x)
     ax = sharding.model_axis()
-    if ax is not None and cfg.n_kv_heads % ax.size \
-            and y.shape[-1] != cfg.n_kv_heads * cfg.head_dim:
+    if ax is not None and heads % ax.size \
+            and y.shape[-1] != heads * cfg.head_dim:
         y = sharding.gather(y, ax, -1)
     return y
 
@@ -253,10 +260,11 @@ def _kv_columns(p: Params, x: torch.Tensor, cfg: ModelConfig
 def _own_kv_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
     """Under tensor parallelism with K and V held whole, the kv heads of
     this rank's query heads: a contiguous run when they group evenly,
-    else one (repeated) kv head per query head."""
+    else one (repeated) kv head per query head; all of them where the
+    query heads do not split (every rank runs every head)."""
     ax = sharding.model_axis()
     if ax is None or k.shape[2] != cfg.n_kv_heads or \
-            cfg.n_kv_heads % ax.size == 0:
+            cfg.n_kv_heads % ax.size == 0 or cfg.n_heads % ax.size:
         return k, v
     n_q = cfg.n_heads // ax.size
     group = cfg.n_heads // cfg.n_kv_heads
@@ -272,9 +280,12 @@ def _own_kv_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig):
 def _qkv(p: Params, x: torch.Tensor, positions: torch.Tensor,
          cfg: ModelConfig, kind: str):
     B, L, _ = x.shape
-    q = dense_apply(p["wq"], x).reshape(B, L, -1, cfg.head_dim)
-    k = _kv_columns(p["wk"], x, cfg).reshape(B, L, -1, cfg.head_dim)
-    v = _kv_columns(p["wv"], x, cfg).reshape(B, L, -1, cfg.head_dim)
+    q = _columns(p["wq"], x, cfg, cfg.n_heads).reshape(B, L, -1,
+                                                       cfg.head_dim)
+    k = _columns(p["wk"], x, cfg, cfg.n_kv_heads).reshape(B, L, -1,
+                                                          cfg.head_dim)
+    v = _columns(p["wv"], x, cfg, cfg.n_kv_heads).reshape(B, L, -1,
+                                                          cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm_apply(p["q_norm"], q, cfg.rms_eps)
         k = rmsnorm_apply(p["k_norm"], k, cfg.rms_eps)
@@ -422,6 +433,22 @@ def _dequant_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 
 @dataclasses.dataclass(frozen=True)
+class CacheLeaf:
+    """One cache leaf's shape, dtype and fill value, nothing allocated: a
+    cache's layout (``sharding.cache_specs`` reads its shape), which
+    :func:`allocate` makes."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    fill: int = 0
+
+
+def allocate(layout: Dict[str, CacheLeaf], device=None) -> Params:
+    """The leaves of ``layout``, each filled with its value."""
+    return {k: torch.full(v.shape, v.fill, dtype=v.dtype, device=device)
+            for k, v in layout.items()}
+
+
+@dataclasses.dataclass(frozen=True)
 class AttnCacheSpec:
     """Cache layout for one attention layer: ring buffer of ``size`` slots
     (size == window for local layers, max_len for global). With
@@ -429,26 +456,21 @@ class AttnCacheSpec:
     per-(slot, head) f32 scales."""
     size: int
 
-    def init(self, batch: int, cfg: ModelConfig, device=None) -> Params:
+    def layout(self, batch: int, cfg: ModelConfig) -> Dict[str, CacheLeaf]:
         kvd = (batch, self.size, cfg.n_kv_heads, cfg.head_dim)
-        pos = torch.full((batch, self.size), -1, dtype=torch.int32,
-                         device=device)
+        pos = CacheLeaf((batch, self.size), torch.int32, -1)
         if cfg.kv_cache_dtype == "int8":
             sc = (batch, self.size, cfg.n_kv_heads)
-            return {
-                "k": torch.zeros(kvd, dtype=torch.int8, device=device),
-                "v": torch.zeros(kvd, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(sc, dtype=torch.float32,
-                                       device=device),
-                "v_scale": torch.zeros(sc, dtype=torch.float32,
-                                       device=device),
-                "pos": pos,
-            }
-        return {
-            "k": torch.zeros(kvd, dtype=_dtype(cfg), device=device),
-            "v": torch.zeros(kvd, dtype=_dtype(cfg), device=device),
-            "pos": pos,
-        }
+            return {"k": CacheLeaf(kvd, torch.int8),
+                    "v": CacheLeaf(kvd, torch.int8),
+                    "k_scale": CacheLeaf(sc, torch.float32),
+                    "v_scale": CacheLeaf(sc, torch.float32),
+                    "pos": pos}
+        return {"k": CacheLeaf(kvd, _dtype(cfg)),
+                "v": CacheLeaf(kvd, _dtype(cfg)), "pos": pos}
+
+    def init(self, batch: int, cfg: ModelConfig, device=None) -> Params:
+        return allocate(self.layout(batch, cfg), device)
 
 
 def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
@@ -514,7 +536,24 @@ def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor,
             _prefill_cache(cache, k, v, q_pos, int8_cache)
 
     y = y.reshape(B, L, -1)
-    return _row_apply(p["wo"], y), cache
+    wo = p["wo"]
+    if ax is not None and cfg.n_heads % ax.size:
+        wo, y = _own_rows(wo, y, ax)
+    return _row_apply(wo, y), cache
+
+
+def _own_rows(wo: Params, y: torch.Tensor, ax) -> Tuple[Params, torch.Tensor]:
+    """Where the heads do not split over ``model`` every rank holds the
+    attention output of every head: this rank's columns of it and the
+    rows of ``wo`` they meet, so that the partial sums add up over
+    ``model`` to the whole product. ``wo``'s rows as ``param_specs`` cut
+    them (inside a head), or, where its rows stay whole, rows r n / M ..
+    (r + 1) n / M of its n on rank r."""
+    w, n = wo["w"], y.shape[-1]
+    if w.shape[0] != n:
+        return wo, sharding.local_slice(y, w.shape[0])
+    lo, hi = ax.rank * n // ax.size, (ax.rank + 1) * n // ax.size
+    return {"w": w[lo:hi]}, y[..., lo:hi]
 
 
 def _slots(cache: Params, cut: bool, ax) -> Tuple[int, int]:
@@ -554,10 +593,13 @@ def _decode_on_grid(q, k, v, cache: Params, positions, cfg: ModelConfig,
                     kind: str, cut: bool, ax) -> torch.Tensor:
     """One decode step against a cache whose length is cut over ``model``
     (``cut``) or whole on every rank: q (B, 1, H / M, hd) this rank's
-    heads, k / v (B, 1, KV, hd) every kv head. Returns this rank's heads'
-    attention output (B, 1, H / M, hd)."""
+    heads (every head, already gathered, where the heads do not split),
+    k / v (B, 1, KV, hd) every kv head. Returns the attention output of
+    q's heads."""
     B, _, hq, hd = q.shape
-    q = sharding.gather(q, ax, 2)                        # (B, 1, H, hd)
+    own = hq != cfg.n_heads
+    if own:
+        q = sharding.gather(q, ax, 2)                    # (B, 1, H, hd)
     cur = positions[:, -1] if positions.dim() == 2 else positions[:, 0, -1]
     lo, S = _slots(cache, cut, ax)
     s = cache["pos"].shape[1]
@@ -609,7 +651,7 @@ def _decode_on_grid(q, k, v, cache: Params, positions, cfg: ModelConfig,
         acc = (w.permute(0, 1, 4, 2, 3)[..., None] * accs).sum(dim=0)
     out = acc / l.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
     out = out.reshape(B, 1, H, hd).to(q.dtype)
-    return out[:, :, ax.rank * hq:(ax.rank + 1) * hq]
+    return out[:, :, ax.rank * hq:(ax.rank + 1) * hq] if own else out
 
 
 # ---------------------------------------------------------------------------

@@ -18,8 +18,8 @@ head run as ``models.layers`` and ``models.blocks`` say, the hidden
 state gathered back to the whole sequence before the head. Tensor
 parallelism covers every family -- attention, dense and MoE MLPs
 (experts split over ``model``), SSD and RG-LRU mixers -- where its widths
-split (``sharding.check_model``), in training, scoring, prefill and
-decode. The params come in the layout ``specs`` names: by default the
+split (``sharding.check_model``; attention heads that do not split run
+whole on every rank), in training, scoring, prefill and decode. The params come in the layout ``specs`` names: by default the
 training layout's :func:`shard_specs` (FSDP over ``data``); a caller
 whose params are laid out otherwise passes its spec tree (the serving
 cells of ``launch.specs``: bf16, replicated over ``data``), and only the
@@ -46,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree as tree_mod
 from repro_torch.models import sharding
 from repro_torch.models.blocks import (block_apply, block_cache_init,
-                                       block_init)
+                                       block_cache_layout, block_init)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embedding_apply, embedding_init,
                                        lm_head_apply, rmsnorm_apply,
@@ -143,8 +143,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 for kind in kinds]
     if sharding.current_layout() != "tp":
         raise ValueError("a cache on a grid is laid out under layout 'tp'")
-    full = [block_cache_init(batch, max_len, cfg, kind, "meta")
-            for kind in kinds]
+    full = [block_cache_layout(batch, max_len, cfg, kind) for kind in kinds]
     return sharding.GridCache(
         [block_cache_init(batch, max_len, cfg, kind, dev, grid)
          for kind in kinds], sharding.cache_specs(full, grid))

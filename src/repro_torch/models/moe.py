@@ -170,8 +170,8 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     if bx is None or bx.size == 1:
         frac = hits.mean(dim=0)
     else:
-        frac = bx.all_gather(hits.sum(dim=0)).sum(0) / (hits.shape[0]
-                                                        * bx.size)
+        frac = bx.all_gather(hits.sum(dim=0), kind="all-reduce").sum(0) / (
+            hits.shape[0] * bx.size)
     if ax is None:
         mean_prob = probs.reshape(-1, E).mean(dim=0)
         return y, E * torch.sum(frac * mean_prob)

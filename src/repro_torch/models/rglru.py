@@ -32,8 +32,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (_dtype, _pdtype, _row_apply,
-                                       dense_apply, dense_init, gelu, normal)
+from repro_torch.models.layers import (CacheLeaf, _dtype, _pdtype,
+                                       _row_apply, allocate, dense_apply,
+                                       dense_init, gelu, normal)
 
 Params = Dict[str, Any]
 
@@ -139,10 +140,14 @@ def rglru_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
     return out, cache
 
 
-def rglru_cache_init(batch: int, cfg: ModelConfig, device=None) -> Params:
+def rglru_cache_layout(batch: int, cfg: ModelConfig
+                       ) -> Dict[str, CacheLeaf]:
     return {
-        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.lru_width),
-                            dtype=_dtype(cfg), device=device),
-        "h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
-                         device=device),
+        "conv": CacheLeaf((batch, cfg.conv_width - 1, cfg.lru_width),
+                          _dtype(cfg)),
+        "h": CacheLeaf((batch, cfg.lru_width), torch.float32),
     }
+
+
+def rglru_cache_init(batch: int, cfg: ModelConfig, device=None) -> Params:
+    return allocate(rglru_cache_layout(batch, cfg), device)

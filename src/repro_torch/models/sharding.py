@@ -44,13 +44,18 @@ exactly what it computed before):
   a masked lookup of this rank's vocab rows reduce-scattered the same way,
   and the logits are this rank's vocab slice, reduced over ``model`` by
   the loss (:func:`all_sum`, :func:`all_max`);
+* attention runs this rank's heads, or every head where the heads do not
+  split over ``model`` (``models.layers``);
 * the other mixers split as ``param_specs`` cuts their weights
   (``models.rglru``, ``models.ssd``, ``models.moe``): the RG-LRU and the
   SSD run on this rank's channels or heads, the MoE on this rank's
   experts (expert parallel), each handing the block a row-parallel
   partial sum to reduce-scatter;
 * every reduction is an all-gather followed by a sum in rank order, so a
-  replicated result is bit-equal on every rank.
+  replicated result is bit-equal on every rank; each names to the mesh
+  the collective it stands for (``Mesh.all_gather``'s ``kind``: a
+  reduce-scatter, an all-reduce), so the records of
+  ``roofline.record()`` price it as that collective.
 
 Prefill and decode with a cache (layout "tp" only). A cache on a grid is
 a :class:`GridCache`: each leaf this rank's shard under
@@ -353,15 +358,19 @@ def bound_grid():
 
 
 def axis_of(grid, entry):
-    """The ``core.mesh.Mesh`` of a spec entry: one axis by name, or the
-    grid's axes jointly (``world``)."""
+    """The ``core.mesh.Mesh`` of a spec entry: one axis by name, the
+    grid's axes jointly (``world``), or any other run of them in the
+    grid's order (``grid.joint``, e.g. ("pod", "data"))."""
     names = (entry,) if isinstance(entry, str) else tuple(entry)
     if len(names) == 1:
         return grid.axes[names[0]]
-    if names != tuple(grid.axis_names):
-        raise ValueError(f"axes {names} are not one axis nor the grid's "
+    if names == tuple(grid.axis_names):
+        return grid.world
+    joint = grid.joint.get(names)
+    if joint is None:
+        raise ValueError(f"axes {names} are not a run of the grid's "
                          f"{grid.axis_names}")
-    return grid.world
+    return joint
 
 
 def model_axis():
@@ -405,20 +414,20 @@ def batch_rows(batch: int, microbatches: int = 1):
 def check_model(cfg, model_ways: int, seq_len: Optional[int] = None,
                 layout: str = "tp") -> None:
     """Raise ValueError where ``cfg`` cannot run with tensor parallelism
-    over ``model_ways`` ranks, naming the width that does not split: the
-    heads of attention layers, a dense MLP's ``d_ff``, the padded vocab,
-    the sequence (``seq_len``; None where it runs whole on every rank, as
-    a forward with a cache runs a length that does not split), the SSD
-    heads (``ssm_nheads``) and the RG-LRU width (``lru_width``). Experts
-    that do not split stay whole on every rank (``param_specs``)."""
+    over ``model_ways`` ranks, naming the width that does not split: a
+    dense MLP's ``d_ff``, the padded vocab, the sequence (``seq_len``;
+    None where it runs whole on every rank, as a forward with a cache
+    runs a length that does not split), the SSD heads (``ssm_nheads``)
+    and the RG-LRU width (``lru_width``). Attention heads that do not
+    split run whole on every rank (``models.layers``), and experts that
+    do not split stay whole on every rank (``param_specs``)."""
     if layout != "tp" or model_ways == 1:
         return
     kinds = set(cfg.pattern)
     attn = bool(kinds & {"attn", "local"})
     dense_mlp = cfg.d_ff > 0 and (
         (attn and not cfg.n_experts) or "rglru" in kinds)
-    for what, n in (("heads", cfg.n_heads if attn else None),
-                    ("d_ff", cfg.d_ff if dense_mlp else None),
+    for what, n in (("d_ff", cfg.d_ff if dense_mlp else None),
                     ("ssm_nheads", cfg.ssm_nheads if "ssd" in kinds
                      else None),
                     ("lru_width", cfg.lru_width if "rglru" in kinds
@@ -441,7 +450,7 @@ def _reduce_slice(ax, x: torch.Tensor, dim: int) -> torch.Tensor:
     """Every rank's ``x`` summed in rank order, this rank's slice along
     ``dim`` (a reduce-scatter)."""
     n = x.shape[dim] // ax.size
-    got = ax.all_gather(x)
+    got = ax.all_gather(x, kind="reduce-scatter")
     return got.narrow(dim + 1, ax.rank * n, n).sum(0)
 
 
@@ -474,7 +483,7 @@ class _AllSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ax):
-        return ax.all_gather(x).sum(0)
+        return ax.all_gather(x, kind="all-reduce").sum(0)
 
     @staticmethod
     def backward(ctx, g):
@@ -489,11 +498,11 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ax):
         ctx.ax = ax
-        return ax.all_gather(x).sum(0)
+        return ax.all_gather(x, kind="all-reduce").sum(0)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.ax.all_gather(g).sum(0), None
+        return ctx.ax.all_gather(g, kind="all-reduce").sum(0), None
 
 
 def gather(x: torch.Tensor, ax, dim: int) -> torch.Tensor:
@@ -520,7 +529,7 @@ def all_reduce(x: torch.Tensor, ax) -> torch.Tensor:
 
 def all_max(x: torch.Tensor, ax) -> torch.Tensor:
     """The elementwise max over ``ax`` (no gradient)."""
-    return ax.all_gather(x.detach()).amax(0)
+    return ax.all_gather(x.detach(), kind="all-reduce").amax(0)
 
 
 @contextlib.contextmanager

@@ -44,9 +44,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (_dtype, _pdtype, _row_apply,
-                                       dense_apply, dense_init, normal,
-                                       rmsnorm_apply)
+from repro_torch.models.layers import (CacheLeaf, _dtype, _pdtype,
+                                       _row_apply, allocate, dense_apply,
+                                       dense_init, normal, rmsnorm_apply)
 
 Params = Dict[str, Any]
 
@@ -292,11 +292,14 @@ def ssd_apply(p: Params, u: torch.Tensor, cfg: ModelConfig,
     return _row_apply(p["out_proj"], y), cache
 
 
-def ssd_cache_init(batch: int, cfg: ModelConfig, device=None) -> Params:
+def ssd_cache_layout(batch: int, cfg: ModelConfig) -> Dict[str, CacheLeaf]:
     return {
-        "conv": torch.zeros((batch, cfg.conv_width - 1, _conv_dim(cfg)),
-                            dtype=_dtype(cfg), device=device),
-        "ssm": torch.zeros((batch, cfg.ssm_nheads, cfg.ssm_headdim,
-                            cfg.ssm_state), dtype=torch.float32,
-                           device=device),
+        "conv": CacheLeaf((batch, cfg.conv_width - 1, _conv_dim(cfg)),
+                          _dtype(cfg)),
+        "ssm": CacheLeaf((batch, cfg.ssm_nheads, cfg.ssm_headdim,
+                          cfg.ssm_state), torch.float32),
     }
+
+
+def ssd_cache_init(batch: int, cfg: ModelConfig, device=None) -> Params:
+    return allocate(ssd_cache_layout(batch, cfg), device)

@@ -208,7 +208,7 @@ def _reduce(tensors, axes, n_batch):
             groups.setdefault((id(ax), t.dtype), (ax, []))[1].append(i)
     for ax, idx in groups.values():
         flat = torch.cat([out[i].reshape(-1) for i in idx])
-        summed = ax.all_gather(flat).sum(0)
+        summed = ax.all_gather(flat, kind="all-reduce").sum(0)
         for i, piece in zip(idx, summed.split([out[i].numel()
                                                for i in idx])):
             out[i] = piece.reshape(out[i].shape)
@@ -255,7 +255,7 @@ def _mesh_norm(specs, mesh, layout):
             torch.sum(torch.square(sharding.gather_params(g, s).to(
                 torch.float32))) for g, s in zip(leaves, specs)])
         if model is not None:
-            every = model.all_gather(terms)
+            every = model.all_gather(terms, kind="all-reduce")
             terms = torch.where(tp.to(terms.device), every.sum(0),
                                 every[model.rank])
         total = terms[0]

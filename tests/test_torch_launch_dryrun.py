@@ -7,11 +7,14 @@ compiled in one JAX subprocess with 8 forced host devices, as that test
 compiles them, the port's on meta tensors. Per-device argument bytes
 equal the reference's ``argument_size_in_bytes``; flops per device are
 within FLOPS_RTOL of its ``hlo_dot_flops``; every train cell's link
-bytes are > 0 on both sides, and the two are printed side by side (the
-port reckons them from the layout, the reference parses its compiled
-program: ROADMAP C states the ratios). ``fits_hbm`` is taken against
-``H100_SXM``'s memory, and a production cell is built with nothing
-allocated."""
+bytes are > 0 on both sides, and the link and temp bytes are printed
+beside the reference's (the port reads both from one rank of its own
+sharded step on a stand-in grid, the reference from its compiled
+program: ROADMAP C states the ratios); every train cell's temp bytes lie
+below what the unsharded step at one rank's batch counted before the
+dry run read the sharded step (PARENT_TEMP). ``fits_hbm`` is taken
+against ``H100_SXM``'s memory, and a production cell is built with
+nothing allocated."""
 import dataclasses
 import json
 import os
@@ -46,6 +49,11 @@ CELLS = [("llama3_8b", "train"), ("dbrx_132b", "train"),
 # equal at five cells; mamba2's SSD is 0.15% under (the reference's
 # compiled scan holds a few more dots than the port's chunked form)
 FLOPS_RTOL = 2e-3
+# each train cell's temp bytes when the dry run ran the unsharded step
+# at one rank's batch, every parameter and gradient whole: the sharded
+# step's rank holds shards
+PARENT_TEMP = {"llama3_8b": 3_020_056, "dbrx_132b": 3_020_060,
+               "mamba2_370m": 4_243_740}
 
 SCRIPT = textwrap.dedent("""
     import os
@@ -74,7 +82,8 @@ SCRIPT = textwrap.dedent("""
                            float(ma.temp_size_in_bytes), None)
         out[cell] = {"arg_bytes": float(ma.argument_size_in_bytes),
                      "flops": rep.hlo_dot_flops, "ici": rep.ici_bytes,
-                     "counts": rep.collective_counts}
+                     "counts": rep.collective_counts,
+                     "temp_size_in_bytes": float(ma.temp_size_in_bytes)}
     print("CELLS " + json.dumps(out))
 """)
 
@@ -126,15 +135,20 @@ def test_flops_per_device_are_the_references(arch, kind, reference, port):
 
 @pytest.mark.parametrize("arch,kind", CELLS)
 def test_link_bytes_side_by_side(arch, kind, reference, port):
-    """Both sides' link bytes, printed; every train cell communicates."""
+    """Both sides' link and temp bytes, printed; every train cell
+    communicates, and its temp bytes are below PARENT_TEMP's."""
     got = port[_name(arch, kind)]
     want = reference[_name(arch, kind)]
     print(f"{arch} {kind}: link bytes port {got['ici_bytes']:.0f} "
           f"reference {want['ici']:.0f} ratio "
-          f"{got['ici_bytes'] / want['ici']:.3f}; counts port "
-          f"{got['collective_counts']} reference {want['counts']}")
+          f"{got['ici_bytes'] / want['ici']:.3f}; temp bytes port "
+          f"{got['temp_bytes']:.0f} reference "
+          f"{want['temp_size_in_bytes']:.0f} ratio "
+          f"{got['temp_bytes'] / want['temp_size_in_bytes']:.3f}; counts "
+          f"port {got['collective_counts']} reference {want['counts']}")
     if kind == "train":
         assert got["ici_bytes"] > 0 and want["ici"] > 0
+        assert 0 < got["temp_bytes"] < PARENT_TEMP[arch]
     assert got["dcn_bytes"] == 0.0
 
 

@@ -269,13 +269,15 @@ def test_mesh_2x1_matches_1x1(tmp_path):
 
 @pytest.mark.parametrize("argv, match", [
     # a width that does not split over the model axis is named: the SSD
-    # heads, the RG-LRU width, the sequence, the attention heads
+    # heads, the RG-LRU width, the sequence (granite-moe's 4 attention
+    # heads over 3 run, each rank running every head: its 32 tokens do
+    # not split)
     (["--arch", "mamba2_370m", "--mesh", "1x3"], "ssm_nheads 8"),
     (["--arch", "recurrentgemma_2b", "--width", "42", "--mesh", "1x4"],
      "lru_width 42"),
     (["--arch", "dbrx_132b", "--mesh", "1x4", "--seq", "30"],
      "sequence 30"),
-    (["--arch", "granite_moe_3b_a800m", "--mesh", "1x3"], "heads 4"),
+    (["--arch", "granite_moe_3b_a800m", "--mesh", "1x3"], "sequence 32"),
     (["--mesh", "3x1"], "split"),
     (["--mesh", "2x1", "--microbatches", "3"], "in 3 microbatches"),
     (["--mesh", "2"], "DATAxMODEL"),
