@@ -1,0 +1,8 @@
+"""``lloyd_stats``'s share of its roofline (%): the least time the card
+could take for the work of the data's real rows and the real k, over the
+device time under the program's ``work:lloyd_stats`` scopes, whatever kernel
+serves the call."""
+
+
+def read(ctx):
+    return ctx.roofline("lloyd_stats")
