@@ -65,6 +65,7 @@ from repro_torch.core.message_passing import (ExecResult, GossipSchedule,
 from repro_torch.core.objective import ObjectiveLike
 from repro_torch.core.strategy import StrategyLike
 from repro_torch.core.topology import Graph, SpanningTree, spanning_tree
+from repro_torch.roofline import trace as _trace
 
 
 @dataclasses.dataclass
@@ -237,10 +238,11 @@ def graph_distributed_kmeans(
         strategy, device, phase_times)
     d = cs.points.shape[-1]
     spec = strat.exchange_spec()
-    ledger = flood_cost(graph, n_messages=graph.n,
-                        unit_scalars=spec.unit_scalars).tag("round1")
-    ledger = ledger.add(flood_portions_cost(graph, dc.t_i.cpu().numpy(), k,
-                                            d).tag("round2"))
+    with _trace.scope("ledger"):
+        ledger = flood_cost(graph, n_messages=graph.n,
+                            unit_scalars=spec.unit_scalars).tag("round1")
+        ledger = ledger.add(flood_portions_cost(
+            graph, dc.t_i.cpu().numpy(), k, d).tag("round2"))
     return ClusteringResult(centers, cs, ledger, dc.local_costs)
 
 
@@ -319,7 +321,8 @@ def exec_algorithm1_rounds(
             t_buffer=t_buffer, clip_negative=clip_negative)
         # -- Round 2 executed: flood the fixed-size local portions ----------
         payload = pack_payload(portions.points, portions.weights)
-        unit_pts = (t_i.cpu().numpy() + k).astype(np.float64)
+        with _trace.scope("ledger"):
+            unit_pts = (t_i.cpu().numpy() + k).astype(np.float64)
         port_tables, r2 = flood_exec(sched, payload, unit_points=unit_pts,
                                      dim=d)
     slots = payload.shape[1]
@@ -434,16 +437,17 @@ def distributed_kmeans_tree(
         key, site_points, site_mask, k, t, objective, lloyd_iters, backend,
         strategy, device, phase_times)
     d = cs.points.shape[-1]
-    t_i = [float(x) for x in dc.t_i.cpu().numpy()]
-    per_node = [t_i[v] + k for v in range(tree.n)]
-    up = tree_up_cost(tree, per_node, dim=d).tag("round2_gather")
-    if strat.needs_exchange:
-        ledger = tree_allocation_cost(tree).tag("round1").add(up)
-    else:
-        # single shuffle: no scalar round, no allocation traffic
-        ledger = up
-    ledger = ledger.add(tree_broadcast_cost(tree, unit_points=float(k),
-                                            dim=d).tag("round2_broadcast"))
+    with _trace.scope("ledger"):
+        t_i = [float(x) for x in dc.t_i.cpu().numpy()]
+        per_node = [t_i[v] + k for v in range(tree.n)]
+        up = tree_up_cost(tree, per_node, dim=d).tag("round2_gather")
+        if strat.needs_exchange:
+            ledger = tree_allocation_cost(tree).tag("round1").add(up)
+        else:
+            # single shuffle: no scalar round, no allocation traffic
+            ledger = up
+        ledger = ledger.add(tree_broadcast_cost(
+            tree, unit_points=float(k), dim=d).tag("round2_broadcast"))
     return ClusteringResult(centers, cs, ledger, dc.local_costs)
 
 
@@ -514,7 +518,8 @@ def exec_algorithm1_tree_rounds(
             t_buffer=t_buffer, clip_negative=clip_negative)
         # -- Round 2 executed: portions up -----------------------------------
         payload = pack_payload(portions.points, portions.weights)
-        unit_pts = (t_i.cpu().numpy() + k).astype(np.float64)
+        with _trace.scope("ledger"):
+            unit_pts = (t_i.cpu().numpy() + k).astype(np.float64)
         root_table, r2a = tree_gather_exec(sched, payload,
                                            unit_points=unit_pts, dim=d)
     root_pts, root_w = unpack_payload(root_table)

@@ -12,7 +12,11 @@ coreset slots:
   independent keys, as ``jax.vmap`` over keys does;
 * :func:`split`, :func:`fold_in`, :func:`uniform` and :func:`categorical`
   (Gumbel-max, ``mode="low"``) follow ``jax/_src/prng.py`` and
-  ``jax/_src/random.py``.
+  ``jax/_src/random.py``;
+* inside ``roofline.record()`` each public draw runs under the profiler
+  range ``work:draw.<name>``, the outermost alone (``categorical``'s
+  Gumbel and uniform draws are one ``work:draw.categorical``); the range
+  changes no bit of the draw (``roofline.trace.draw``).
 
 uint32 arithmetic runs in int64 with explicit 32-bit masks: PyTorch has no
 full set of unsigned 32-bit operations on every device.
@@ -27,6 +31,8 @@ from __future__ import annotations
 from typing import Sequence, Union
 
 import torch
+
+from repro_torch.roofline.trace import draw
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -93,12 +99,14 @@ def _hash_counters(key: torch.Tensor, shape):
     return threefry2x32(k1, k2, hi, lo)
 
 
+@draw
 def split(key: torch.Tensor, num: Shape = 2) -> torch.Tensor:
     """``jax.random.split``: keys of shape ``(..., *num, 2)``."""
     b1, b2 = _hash_counters(key, _shape(num))
     return torch.stack([b1, b2], dim=-1)
 
 
+@draw
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     """``jax.random.fold_in``: threefry of the seed pair ``(0, data mod
     2**32)`` under the key; shape ``(..., 2)``."""
@@ -109,6 +117,7 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
+@draw
 def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """32 random bits per element (as int64 in [0, 2**32)), shape
     ``(..., *shape)``."""
@@ -116,6 +125,7 @@ def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     return b1 ^ b2
 
 
+@draw
 def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the 23 high bits become the
@@ -131,12 +141,14 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     return torch.maximum(lo, scaled)
 
 
+@draw
 def gumbel(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """``jax.random.gumbel(mode="low")`` in float32."""
     u = uniform(key, shape, minval=_F32_TINY, maxval=1.0)
     return -torch.log(-torch.log(u))
 
 
+@draw
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical`` over the last axis (Gumbel-max, with
     replacement): one int64 index per key. ``logits`` is ``(..., n)`` with
@@ -191,6 +203,7 @@ def _erfinv_xla(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1, x * float("inf"), p * x)
 
 
+@draw
 def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """``jax.random.normal`` in float32: a uniform draw on (-1, 1) (its low
     end the float after -1) through ``sqrt(2) * erf_inv``, with XLA's
@@ -204,6 +217,7 @@ def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     return sqrt2 * _erfinv_xla(u)
 
 
+@draw
 def randint(key: torch.Tensor, shape: Shape, minval: int,
             maxval: int) -> torch.Tensor:
     """``jax.random.randint`` with int32 output (the JAX package's default

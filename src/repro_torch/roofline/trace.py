@@ -18,6 +18,16 @@ quantities as the program runs:
   ``record_function("work:<label>")``, so a profiler groups the device
   kernels of each call under its function, fused kernel or two-pass form
   alike. Outside ``record()`` a call costs one check.
+* **Scopes without a call.** Inside ``record()``, :func:`scope` opens
+  ``record_function("work:<label>")`` and records no :class:`Call`, so its
+  device time lands in :func:`analyze`'s ``other_ms``. The project's draws
+  (``core.prng``: ``split``, ``fold_in``, ``random_bits``, ``uniform``,
+  ``gumbel``, ``categorical``, ``normal``, ``randint``, each decorated with
+  :func:`draw`) run under ``work:draw.<name>``, the outermost draw of a
+  thread alone, so ``categorical``'s Gumbel and uniform draws are one
+  ``work:draw.categorical``; the paths that read ``t_i`` to the host and
+  price the analytic ledger (``core.distributed``) run under
+  ``work:ledger``. Outside ``record()`` each costs one check.
 * **Collective records.** Inside ``record()``, ``core.mesh.Mesh`` appends
   to ``led.collectives`` a :class:`CollectiveRecord` for every collective
   it issues (:func:`note_collective`): an ``all-gather`` or a
@@ -264,6 +274,38 @@ def work(fn):
     return method
 
 
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def scope(label: str):
+    """``record_function("work:<label>")`` inside :func:`record`, for work
+    that is no backend protocol call (the ledger's pricing); it records no
+    :class:`Call`. Outside, one check and a context that does nothing."""
+    if _LEDGER is None:
+        return _NO_SCOPE
+    return torch.profiler.record_function(f"work:{label}")
+
+
+def draw(fn):
+    """Decorate a draw of ``core.prng``: inside :func:`record` the
+    outermost draw of the thread runs under ``work:draw.<name>`` and the
+    draws it makes open nothing; outside, it costs one check. The draw's
+    result is the undecorated function's."""
+    label = f"work:draw.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        if _LEDGER is None or getattr(_STATE, "drawing", False):
+            return fn(*args, **kw)
+        _STATE.drawing = True
+        try:
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        finally:
+            _STATE.drawing = False
+    return wrapped
+
+
 def note_collective(kind: str, ranks: Tuple[int, ...],
                     result_bytes: int) -> None:
     """Append a :class:`CollectiveRecord` in the current phase to the
@@ -358,8 +400,9 @@ class Row:
 @dataclasses.dataclass
 class Roofline:
     """:func:`analyze`'s result. ``busy_ms`` and ``idle_share`` only with a
-    profile; ``other_ms`` is device time launched outside every ``work:``
-    scope (copies, PyTorch's own operations)."""
+    profile; ``other_ms`` is device time launched under no kernel
+    function's ``work:`` scope (the draws, the ledger's copy, PyTorch's own
+    operations)."""
 
     rows: List[Row]
     wall_ms: Optional[float]
@@ -390,7 +433,7 @@ class Roofline:
             out.append(f"device busy {self.busy_ms:.3f} ms over "
                        f"{self.device_ops} operations in a wall of "
                        f"{self.wall_ms:.3f} ms: idle share "
-                       f"{self.idle_share:.4f}; outside every work scope "
+                       f"{self.idle_share:.4f}; under no kernel function "
                        f"{self.other_ms:.3f} ms")
         return out
 

@@ -454,3 +454,185 @@ def test_device_spans_tie_each_kernel_to_its_launch():
     assert spans == [
         trace.Span("lloyd_stats_kernel", 1.0, 9.0, "lloyd_stats", "round1"),
         trace.Span("elementwise_kernel", 10.0, 12.0, None, "round1")]
+
+
+# -- the draw and ledger scopes -------------------------------------------------------------
+
+DRAWS = ("split", "fold_in", "random_bits", "uniform", "gumbel",
+         "categorical", "normal", "randint")
+
+
+def _count_outermost_draws(monkeypatch):
+    """Wrap every public draw of ``prng`` (the draws inside ``prng`` call
+    each other through the module too) and count the outermost calls by
+    name."""
+    calls, depth = collections.Counter(), [0]
+
+    def counting(name, fn):
+        def wrapped(*args, **kw):
+            if depth[0] == 0:
+                calls[name] += 1
+            depth[0] += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+        return wrapped
+
+    for name in DRAWS:
+        monkeypatch.setattr(prng, name, counting(name, getattr(prng, name)))
+    return calls
+
+
+def _flood(sp, sm, route="flood", engine="sim"):
+    return distributed_kmeans(prng.PRNGKey(7), sp, sm, K, t=400,
+                              graph=grid(3, 3), device="cpu",
+                              routing=route, engine=engine)
+
+
+@pytest.mark.parametrize("route,engine", [("flood", "sim"), ("flood", "exec"),
+                                          ("bfs", "sim"), ("bfs", "exec")])
+def test_each_outermost_draw_is_one_draw_scope(quickstart, monkeypatch,
+                                               route, engine):
+    """A small run under ``record()`` and a CPU profiler: one
+    ``work:draw.<name>`` range per outermost public draw, named after it,
+    none inside another; one ``work:ledger`` range where the path reads
+    ``t_i`` to the host for the ledger. No Call is recorded for either, so
+    the work ledger is the kernels' alone."""
+    sp, sm = quickstart
+    calls = _count_outermost_draws(monkeypatch)
+    cpu = torch.profiler.ProfilerActivity.CPU
+    with torch.profiler.profile(activities=[cpu]) as prof:
+        with roofline.record() as led:
+            _flood(sp, sm, route, engine)
+    events = [e for e in prof.events() if e.name.startswith("work:")]
+    draws = [e for e in events if e.name.startswith("work:draw.")]
+    assert collections.Counter(
+        e.name[len("work:draw."):] for e in draws) == calls
+    assert calls["split"] >= 2 and calls["categorical"] == 2 * K
+    for e in draws:
+        parent = e.cpu_parent
+        while parent is not None:
+            assert not parent.name.startswith("work:draw."), e.name
+            parent = parent.cpu_parent
+    assert sum(e.name == "work:ledger" for e in events) == 1
+    assert all(c.function in work.MODELS for c in led)
+
+
+def test_draw_scopes_follow_the_phases(quickstart):
+    """The flood run's draws by phase: Round 1's seeding (a split and a
+    categorical per centre), Round 2's uniform draw, the solve's seeding;
+    the ledger after every phase."""
+    sp, sm = quickstart
+    cpu = torch.profiler.ProfilerActivity.CPU
+    with torch.profiler.profile(activities=[cpu]) as prof:
+        with roofline.record():
+            _flood(sp, sm)
+    phases = ("round1", "round2", "solve")
+
+    def phase_of(e):
+        parent = e.cpu_parent
+        while parent is not None and parent.name not in phases:
+            parent = parent.cpu_parent
+        return None if parent is None else parent.name
+
+    where = collections.Counter(
+        (phase_of(e), e.name) for e in prof.events()
+        if e.name.startswith("work:draw.") or e.name == "work:ledger")
+    assert where[("round1", "work:draw.categorical")] == K
+    assert where[("solve", "work:draw.categorical")] == K
+    assert where[("round1", "work:draw.split")] >= K
+    assert where[("solve", "work:draw.split")] >= K
+    assert where[("round2", "work:draw.uniform")] == 1
+    assert where[(None, "work:ledger")] == 1
+
+
+def test_draws_open_no_range_outside_record(quickstart, monkeypatch):
+    """Outside ``record()`` a draw opens no ``record_function``, and a
+    whole run opens only its phases."""
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(name, *args, **kw):
+        opened.append(name)
+        return real(name, *args, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    key = prng.PRNGKey(3)
+    prng.split(key, 4), prng.fold_in(key, 5), prng.random_bits(key, (6,))
+    prng.uniform(key, (6,)), prng.gumbel(key, (6,)), prng.normal(key, (6,))
+    prng.categorical(key, torch.zeros(6)), prng.randint(key, (6,), 0, 9)
+    assert opened == []
+    _flood(*quickstart)
+    assert opened and set(opened) <= {"round1", "round2", "solve"}
+
+
+def test_draws_and_the_run_are_bit_identical_under_record(quickstart):
+    """Every draw, and a whole run's keys, indices, coreset, centres and
+    ledger, are the same bits with and without ``record()``."""
+    key = prng.split(prng.PRNGKey(11), 4)
+    logits = torch.linspace(-3.0, 1.0, 50)
+
+    def draws():
+        return [prng.split(key, 3), prng.fold_in(key, 9),
+                prng.random_bits(key, (5,)), prng.uniform(key, (5,)),
+                prng.gumbel(key, (5,)), prng.normal(key, (5,)),
+                prng.categorical(key, logits.expand(4, 50)),
+                prng.randint(key, (5,), -4, 100)]
+
+    sp, sm = quickstart
+    plain, res = draws(), _flood(sp, sm)
+    with roofline.record():
+        traced, res_traced = draws(), _flood(sp, sm)
+    for a, b in zip(plain, traced):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for a, b in ((res.centers, res_traced.centers),
+                 (res.coreset.points, res_traced.coreset.points),
+                 (res.coreset.weights, res_traced.coreset.weights),
+                 (res.local_costs, res_traced.local_costs)):
+        assert torch.equal(a, b)
+    assert res.ledger.as_dict(by_phase=True) == \
+        res_traced.ledger.as_dict(by_phase=True)
+
+
+def test_a_draw_that_raises_leaves_the_next_draw_its_scope():
+    """The outermost-draw flag is reset when a draw raises, so the next
+    draw on the thread opens its own scope."""
+    cpu = torch.profiler.ProfilerActivity.CPU
+    with torch.profiler.profile(activities=[cpu]) as prof:
+        with roofline.record():
+            with pytest.raises(TypeError):
+                prng.split(torch.zeros(2))
+            prng.uniform(prng.PRNGKey(1), (3,))
+    names = [e.name for e in prof.events() if e.name.startswith("work:")]
+    assert names == ["work:draw.split", "work:draw.uniform"]
+
+
+def test_scope_records_no_call_and_costs_one_check_outside():
+    """``trace.scope`` opens ``work:<label>`` inside ``record()`` and
+    records no Call; outside it hands back one shared null context."""
+    assert trace.scope("ledger") is trace.scope("other")
+    cpu = torch.profiler.ProfilerActivity.CPU
+    with torch.profiler.profile(activities=[cpu]) as prof:
+        with roofline.record() as led:
+            with trace.scope("ledger"):
+                torch.ones(3).sum()
+    assert len(led) == 0
+    assert [e.name for e in prof.events()
+            if e.name.startswith("work:")] == ["work:ledger"]
+
+
+def test_draw_and_ledger_spans_land_in_other_ms():
+    """A draw's or the ledger's device operations have no Call's row:
+    ``analyze`` puts them in ``other_ms`` beside unscoped operations."""
+    led = trace.Ledger([
+        trace.Call("lloyd_stats", (1, 1000, 4, 8), "round1", "cuda")])
+    S = trace.Span
+    spans = [S("lloyd_stats_kernel", 0.0, 10.0, "lloyd_stats", "round1"),
+             S("xor_kernel", 10.0, 14.0, "draw.split", "round1"),
+             S("Memcpy DtoH", 20.0, 21.0, "ledger", None),
+             S("cumsum_kernel", 30.0, 32.0, None, "round2")]
+    out = trace.analyze(led, spans, wall_s=100e-6)
+    assert out.other_ms == pytest.approx(0.007)
+    row, = out.rows
+    assert row.device_ms == pytest.approx(0.010)
